@@ -1,0 +1,259 @@
+"""Guided-diffusion image U-Net and its 64->256 super-resolution variant
+(counterpart of ``mm_diffusion_tpu/models/image_unet.py``).
+
+The module tree is the original's (``input_blocks.<i>.<j>``,
+``middle_block.<j>``, ``output_blocks.<i>.<j>``, ``out``), so published
+upsampler checkpoints load unchanged.  Differences from the MM-UNet, as in
+the original: the time embedding is ``4 * model_channels`` wide, and an
+up/down ResBlock resamples between its norm-SiLU and its first conv.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import TokenSelfAttention
+from .layers import (
+    Conv2d,
+    GroupNorm32,
+    Linear,
+    TimeEmbedding,
+    image_downsample,
+    image_upsample,
+    zero_module,
+)
+from .mm_unet import DTYPES
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageUNetConfig:
+    image_size: int = 64
+    in_channels: int = 3
+    model_channels: int = 128
+    out_channels: int = 3
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (8, 16, 32)
+    dropout: float = 0.0
+    channel_mult: Tuple[float, ...] = (1, 2, 4, 8)
+    num_classes: Optional[int] = None
+    num_heads: int = 4
+    num_head_channels: int = -1
+    num_heads_upsample: int = -1
+    use_scale_shift_norm: bool = False
+    resblock_updown: bool = False
+    dtype: str = "bfloat16"
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    def heads(self, ch: int, upsample: bool = False) -> int:
+        if self.num_head_channels == -1:
+            if upsample and self.num_heads_upsample != -1:
+                return self.num_heads_upsample
+            return self.num_heads
+        if ch % self.num_head_channels:
+            raise ValueError(f"{ch} channels do not split into heads of {self.num_head_channels}")
+        return ch // self.num_head_channels
+
+
+@dataclasses.dataclass(frozen=True)
+class _RB:
+    in_ch: int
+    out_ch: int
+    attn_heads: int = 0  # 0 = no attention after this block
+    up: bool = False
+    down: bool = False
+
+
+def build_image_plan(cfg: ImageUNetConfig):
+    """Encoder / middle / decoder specs, as in the JAX package;
+    ``attention_resolutions`` are downsample rates."""
+    mc = cfg.model_channels
+    ch = int(cfg.channel_mult[0] * mc)
+    input_chans = [ch]
+    encoder: List[Tuple[Any, ...]] = [("initial",)]
+    ds = 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            heads = cfg.heads(int(mult * mc)) if ds in cfg.attention_resolutions else 0
+            encoder.append((_RB(ch, int(mult * mc), attn_heads=heads),))
+            ch = int(mult * mc)
+            input_chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            encoder.append((_RB(ch, ch, down=True),) if cfg.resblock_updown else ("downsample",))
+            input_chans.append(ch)
+            ds *= 2
+
+    middle = (_RB(ch, ch, attn_heads=cfg.heads(ch)), _RB(ch, ch))
+
+    decoder: List[Tuple[Any, ...]] = []
+    chans = list(input_chans)
+    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+        for i in range(cfg.num_res_blocks + 1):
+            ich = chans.pop()
+            heads = (
+                cfg.heads(int(mult * mc), upsample=True) if ds in cfg.attention_resolutions else 0
+            )
+            specs: List[Any] = [_RB(ch + ich, int(mult * mc), attn_heads=heads)]
+            ch = int(mult * mc)
+            if level and i == cfg.num_res_blocks:
+                specs.append(_RB(ch, ch, up=True) if cfg.resblock_updown else "upsample")
+                ds //= 2
+            decoder.append(tuple(specs))
+    return tuple(encoder), middle, tuple(decoder), ch
+
+
+class ImageResBlock(nn.Module):
+    def __init__(self, spec: _RB, cfg: ImageUNetConfig, emb_ch: int):
+        super().__init__()
+        self.up, self.down = spec.up, spec.down
+        self.use_scale_shift_norm = cfg.use_scale_shift_norm
+        i, o = spec.in_ch, spec.out_ch
+        self.in_layers = nn.Sequential(GroupNorm32(i), nn.SiLU(), Conv2d(i, o, 3, padding=1))
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(), Linear(emb_ch, 2 * o if cfg.use_scale_shift_norm else o)
+        )
+        self.out_layers = nn.Sequential(
+            GroupNorm32(o), nn.SiLU(), nn.Dropout(cfg.dropout),
+            zero_module(Conv2d(o, o, 3, padding=1)),
+        )
+        self.skip_connection = nn.Identity() if o == i else Conv2d(i, o, 1)
+
+    def forward(self, x, emb):
+        if self.up or self.down:
+            resample = image_upsample if self.up else image_downsample
+            h = resample(self.in_layers[1](self.in_layers[0](x)))
+            x = resample(x)
+            h = self.in_layers[2](h)
+        else:
+            h = self.in_layers(x)
+        emb_out = self.emb_layers(emb)
+        norm, rest = self.out_layers[0], self.out_layers[1:]
+        if self.use_scale_shift_norm:
+            h = rest(norm(h, film=tuple(emb_out.chunk(2, dim=-1))))
+        else:
+            h = rest(norm(h + emb_out[:, :, None, None]))
+        return self.skip_connection(x) + h
+
+
+class ImageAttention(TokenSelfAttention):
+    """Spatial self-attention on ``[N, C, H, W]`` (the original's
+    AttentionBlock: bare GroupNorm, legacy per-head qkv order)."""
+
+    def __init__(self, channels: int, num_heads: int):
+        super().__init__(channels, num_heads, image=True)
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        tokens = super().forward(x.flatten(2).transpose(1, 2))
+        return tokens.transpose(1, 2).reshape(n, c, h, w)
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv, padding 1 on both sides (the original's)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.op = Conv2d(ch, ch, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    """Nearest 2x upsample, then a 3x3 conv."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(image_upsample(x))
+
+
+class ImageUNet(nn.Module):
+    """``(x [N,H,W,C], timesteps [N])`` -> ``[N,H,W,out_channels]``, fp32."""
+
+    def __init__(self, cfg: ImageUNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        mc = cfg.model_channels
+        emb_ch = 4 * mc
+        encoder, middle, decoder, out_ch = build_image_plan(cfg)
+        self.time_embed = TimeEmbedding(mc, emb_ch)
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, emb_ch)
+
+        ch = int(cfg.channel_mult[0] * mc)  # channels entering the next block
+
+        def blocks(specs):
+            nonlocal ch
+            mods = []
+            for spec in specs:
+                if spec == "initial":
+                    mods.append(Conv2d(cfg.in_channels, ch, 3, padding=1))
+                elif spec == "downsample":
+                    mods.append(Downsample(ch))
+                elif spec == "upsample":
+                    mods.append(Upsample(ch))
+                else:
+                    mods.append(ImageResBlock(spec, cfg, emb_ch))
+                    ch = spec.out_ch
+                    if spec.attn_heads:
+                        mods.append(ImageAttention(spec.out_ch, spec.attn_heads))
+            return nn.ModuleList(mods)
+
+        self.input_blocks = nn.ModuleList(blocks(s) for s in encoder)
+        self.middle_block = blocks(middle)
+        self.output_blocks = nn.ModuleList(blocks(s) for s in decoder)
+        self.out = nn.Sequential(
+            GroupNorm32(out_ch), nn.SiLU(), zero_module(Conv2d(out_ch, cfg.out_channels, 3, padding=1))
+        )
+
+    @staticmethod
+    def _run(blocks, h, emb):
+        for m in blocks:
+            h = m(h, emb) if isinstance(m, ImageResBlock) else m(h)
+        return h
+
+    def unet_forward(self, h, timesteps, label=None):
+        """Channels-first ``[N, C, H, W]`` in, fp32 channels-first out."""
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        emb = self.time_embed(timesteps, dt)
+        if cfg.num_classes is not None:
+            if label is None:
+                raise ValueError("a class-conditional model needs a label")
+            emb = emb + self.label_emb(label).to(dt)
+        h = h.to(dt)
+        hs = []
+        for blocks in self.input_blocks:
+            h = self._run(blocks, h, emb)
+            hs.append(h)
+        h = self._run(self.middle_block, h, emb)
+        for blocks in self.output_blocks:
+            h = self._run(blocks, torch.cat([h, hs.pop()], dim=1), emb)
+        return self.out(h).float()
+
+    def forward(self, x, timesteps, label=None):
+        return self.unet_forward(x.permute(0, 3, 1, 2), timesteps, label).permute(0, 2, 3, 1)
+
+
+class ImageSuperResModel(ImageUNet):
+    """The SR U-Net: bilinearly upsample ``low_res`` to the input size and
+    concatenate it on channels (``cfg.in_channels`` counts both)."""
+
+    def forward(self, x, timesteps, low_res, label=None):
+        x = x.permute(0, 3, 1, 2)
+        up = F.interpolate(
+            low_res.permute(0, 3, 1, 2).to(x.dtype), size=x.shape[-2:],
+            mode="bilinear", align_corners=False,
+        )
+        h = torch.cat([x, up], dim=1)
+        return self.unet_forward(h, timesteps, label).permute(0, 2, 3, 1)

@@ -1,0 +1,212 @@
+"""Sampling pipelines: the base joint audio-video sampler, the 64->256
+frame super-resolution sampler, and the chain of both (counterpart of
+``mm_diffusion_tpu/sampling.py``).
+
+Randomness is explicit: a device ``torch.Generator`` for the noise, and a
+CPU generator from which the MM-UNet draws each RS-MMA window shift on the
+host, so no draw waits on the device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from .diffusion.gaussian import GaussianDiffusion
+from .samplers import (
+    DPMSolver,
+    ddim_sample_loop,
+    model_input_time,
+    noise_schedule_from_diffusion,
+    p_sample_loop,
+)
+
+SAMPLE_FNS = ("dpm_solver", "dpm_solver++", "ddpm", "ddim")
+
+
+def _device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _randn(shape, generator, device):
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def _ancestral(sample_fn, diffusion, model_fn, x_T, generator, clip_denoised):
+    if sample_fn == "ddpm":
+        return p_sample_loop(diffusion, model_fn, x_T, generator, clip_denoised)
+    return ddim_sample_loop(diffusion, model_fn, x_T, clip_denoised)
+
+
+def mm_raw_model(model, shift_generator: Optional[torch.Generator] = None):
+    """MultimodalUNet -> ``raw(x, t_model, strip_sigma) -> {"video", "audio"}``;
+    ``strip_sigma`` drops the learned-variance channels for the solvers."""
+    learn_sigma = model.cfg.video_out_channels == 6
+
+    def raw(x, t_model, strip_sigma: bool):
+        v, a = model(x["video"], x["audio"], t_model, shift=shift_generator)
+        if strip_sigma and learn_sigma:
+            v, a = v[..., : v.shape[-1] // 2], a[..., : a.shape[-1] // 2]
+        return {"video": v, "audio": a}
+
+    return raw
+
+
+def _solver_model(raw, ns, device):
+    """Continuous-time noise model: the solver's float32 step time becomes
+    the integer model timestep, filled on the device from the host value."""
+
+    def cont_model(x, t_cont):
+        leaf = x["video"] if isinstance(x, dict) else x
+        t_in = torch.full(
+            (leaf.shape[0],), int(model_input_time(ns, t_cont)), dtype=torch.long, device=device
+        )
+        return raw(x, t_in)
+
+    return cont_model
+
+
+def build_base_sampler(
+    model,
+    diffusion: GaussianDiffusion,
+    sample_fn: str = "dpm_solver",
+    steps: int = 20,
+    clip_denoised: bool = True,
+    shift_generator: Optional[torch.Generator] = None,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Unconditional joint audio-video sampler.
+
+    ``sample_fn``: 'dpm_solver' (singlestep order 3, logSNR steps),
+    'dpm_solver++' (multistep order 2 with thresholding), 'ddpm', 'ddim'.
+    Returns ``sample(n, generator=None, x_T=None) -> {"video": [n,F,H,W,3],
+    "audio": [n,L,1]}``.
+    """
+    if sample_fn not in SAMPLE_FNS:
+        raise ValueError(f"sample_fn {sample_fn!r} not in {SAMPLE_FNS}")
+    f, c, h, w = model.cfg.video_size
+    ca, length = model.cfg.audio_size
+    device = _device(model)
+    raw = mm_raw_model(model, shift_generator)
+
+    def noise(n, generator):
+        return {
+            "video": _randn((n, f, h, w, c), generator, device),
+            "audio": _randn((n, length, ca), generator, device),
+        }
+
+    if sample_fn.startswith("dpm_solver"):
+        ns = noise_schedule_from_diffusion(diffusion)
+        plus = sample_fn == "dpm_solver++"
+        solver = DPMSolver(
+            _solver_model(lambda x, t: raw(x, t, strip_sigma=True), ns, device),
+            ns, predict_x0=plus, thresholding=plus,
+        )
+
+        def run(x, generator):
+            return solver.sample(
+                x, steps=steps, order=2 if plus else 3,
+                method="multistep" if plus else "singlestep", skip_type="logSNR",
+            )
+
+    else:
+
+        def run(x, generator):
+            model_fn = lambda xx, tt: raw(xx, tt, strip_sigma=False)  # noqa: E731
+            return _ancestral(sample_fn, diffusion, model_fn, x, generator, clip_denoised)
+
+    @torch.inference_mode()
+    def sample(n: int, generator: Optional[torch.Generator] = None, x_T=None):
+        return run(noise(n, generator) if x_T is None else x_T, generator)
+
+    return sample
+
+
+def build_sr_sampler(
+    sr_model,
+    sr_diffusion: GaussianDiffusion,
+    sample_fn: str = "ddim",
+    steps: int = 50,
+    clip_denoised: bool = True,
+):
+    """Frame super-resolution sampler: 'ddim' / 'ddpm' over the (respaced)
+    diffusion, or 'dpm_solver' / 'dpm_solver++' (multistep order 2,
+    uniform time steps).  Returns ``sr(low_res [N,h,w,3], x_T=None,
+    generator=None) -> [N,H,W,3]``."""
+    if sample_fn not in SAMPLE_FNS:
+        raise ValueError(f"sample_fn {sample_fn!r} not in {SAMPLE_FNS}")
+    size = sr_model.cfg.image_size
+    learn_sigma = sr_model.cfg.out_channels == 6
+    device = _device(sr_model)
+
+    def raw(x, t_model, low_res, strip_sigma: bool):
+        out = sr_model(x, t_model, low_res)
+        return out[..., : out.shape[-1] // 2] if strip_sigma and learn_sigma else out
+
+    @torch.inference_mode()
+    def sr(low_res, x_T=None, generator: Optional[torch.Generator] = None):
+        if x_T is None:
+            x_T = _randn((low_res.shape[0], size, size, 3), generator, device)
+        if sample_fn.startswith("dpm_solver"):
+            ns = noise_schedule_from_diffusion(sr_diffusion)
+            plus = sample_fn == "dpm_solver++"
+            cont = _solver_model(lambda x, t: raw(x, t, low_res, True), ns, device)
+            solver = DPMSolver(cont, ns, predict_x0=plus, thresholding=plus)
+            return solver.sample(
+                x_T, steps=steps, order=2, method="multistep", skip_type="time_uniform"
+            )
+        model_fn = lambda x, t: raw(x, t, low_res, False)  # noqa: E731
+        return _ancestral(sample_fn, sr_diffusion, model_fn, x_T, generator, clip_denoised)
+
+    return sr
+
+
+def shared_clip_noise(
+    n_clips: int, frames: int, size: int, generator=None, device=None
+) -> torch.Tensor:
+    """One noise image per clip, repeated across its frames."""
+    base = _randn((n_clips, 1, size, size, 3), generator, device)
+    return base.expand(n_clips, frames, size, size, 3).reshape(n_clips * frames, size, size, 3)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def sample_base_and_sr(
+    base_sampler,
+    sr_sampler,
+    n: int,
+    sr_size: int,
+    frames: int,
+    generator: Optional[torch.Generator] = None,
+    x_T=None,
+    sr_x_T: Optional[torch.Tensor] = None,
+    timings: Optional[Dict[str, float]] = None,
+):
+    """Base joint sample, then SR clip by clip, all frames of a clip sharing
+    one noise image.  ``x_T`` / ``sr_x_T`` ([n, F, S, S, 3]) inject the
+    noise; ``timings``, when given, receives the wall seconds of the two
+    stages (measured to a device synchronisation)."""
+    t0 = time.perf_counter()
+    out = base_sampler(n, generator=generator, x_T=x_T)
+    video = out["video"]
+    if timings is not None:
+        _sync(video.device)
+        timings["base_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    clips = []
+    for b in range(n):
+        noise = (
+            sr_x_T[b]
+            if sr_x_T is not None
+            else shared_clip_noise(1, frames, sr_size, generator, video.device)
+        )
+        clips.append(sr_sampler(video[b], x_T=noise, generator=generator))
+    sr_video = torch.stack(clips).reshape(n, frames, sr_size, sr_size, 3)
+    if timings is not None:
+        _sync(sr_video.device)
+        timings["sr_s"] = time.perf_counter() - t1
+    return {"video": video, "audio": out["audio"], "sr_video": sr_video}

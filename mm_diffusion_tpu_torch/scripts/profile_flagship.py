@@ -1,0 +1,112 @@
+"""Where the device time goes in one base evaluation and one SR step of the
+flagship sampler (random non-zero weights, batch 1, bf16), by kernel kind,
+with torch.profiler.  Needs one CUDA device.
+
+    python -m mm_diffusion_tpu_torch.scripts.profile_flagship
+
+For each stage it prints the host wall time per call (to a device
+synchronisation), the summed device time of the kernels of one profiled
+call, the device's idle share of that call's kernel window, and the device
+time by kind and by kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .. import configs
+from ..models.image_unet import ImageSuperResModel
+from ..models.mm_unet import MultimodalUNet
+from ..weights import randomize_
+from .multimodal_sample_sr import LAUNCH_SCRIPT_ARGS, create_argparser
+
+KINDS = (  # (kind, substrings of the kernel name), first match wins
+    ("attention (hand CUDA)", ("attention_fwd_kernel",)),
+    ("convolution", ("fprop", "conv", "cudnn", "implicit", "winograd", "nchw", "nhwc")),
+    ("gemm (linears)", ("gemm", "cutlass", "cublas", "kernel2")),
+    ("group norm", ("group_norm", "groupnorm", "welford", "rowwisemoments")),
+    ("copies / layout", ("copy", "transpose", "permute", "cat", "index", "repeat")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "reduce")),
+)
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def profile_call(fn, iters: int = 5):
+    with torch.inference_mode():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / iters * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_ms, kernels
+
+
+def report(stage: str, wall_ms: float, kernels) -> None:
+    print(f"\n== {stage}: {wall_ms:.2f} ms per call (host clock, 5 calls)")
+    if not kernels:
+        print("   torch.profiler recorded no device kernels: device time not measured")
+        return
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    window = (end - start) / 1e3
+    print(f"   device kernels {busy:.2f} ms in a {window:.2f} ms window: idle share "
+          f"{1 - busy / window:.3f}; {len(kernels)} kernel launches")
+    by_kind, by_name = collections.Counter(), collections.Counter()
+    for e in kernels:
+        us = e.time_range.elapsed_us()
+        by_kind[kind_of(e.name)] += us
+        by_name[e.name[:90]] += us
+    for kind, us in by_kind.most_common():
+        print(f"   {kind:24s} {us / 1e3:8.3f} ms  {us / 1e3 / busy:6.1%}")
+    print("   top kernels:")
+    for name, us in by_name.most_common(12):
+        print(f"     {us / 1e3:8.3f} ms  {name}")
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_flagship needs a CUDA device")
+    dev = torch.device("cuda")
+    flags = vars(create_argparser().parse_args(LAUNCH_SCRIPT_ARGS))
+    base = randomize_(MultimodalUNet(configs.create_model_config(**flags)), args.seed)
+    sr = randomize_(ImageSuperResModel(configs.create_image_sr_config(**flags)), args.seed + 1)
+    base.to(dev).eval()
+    sr.to(dev).eval()
+    f, c, h, w = base.cfg.video_size
+    video = torch.randn((1, f, h, w, c), device=dev)
+    audio = torch.randn((1, base.cfg.audio_size[1], 1), device=dev)
+    shift = torch.Generator().manual_seed(args.seed)
+    t = torch.full((1,), 500, device=dev)
+    x = torch.randn((f, 256, 256, 3), device=dev)
+    low = torch.randn((f, 64, 64, 3), device=dev)
+    ts = torch.full((f,), 500, device=dev)
+    print(torch.cuda.get_device_name(0))
+    report("base MM-UNet evaluation (1 of 20 NFE)", *profile_call(lambda: base(video, audio, t, shift)))
+    report("SR U-Net step, 16 frames (1 of 25)", *profile_call(lambda: sr(x, ts, low)))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,263 @@
+"""Weights: load the original's ``.pt`` checkpoints, and turn the JAX
+package's parameter trees into this port's ``state_dict``.
+
+The port keeps the original PyTorch module tree, so a published checkpoint
+loads with ``load_state_dict`` and no converter.  The two ``*_from_jax``
+functions are the exact inverses of the JAX package's importers
+(``mm_diffusion_tpu/train/torch_import.py``: ``convert_mm_unet_state_dict``
+and ``convert_image_unet_state_dict``); they take nested dicts of numpy
+arrays, so this module needs no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.image_unet import ImageUNetConfig, _RB, build_image_plan
+from .models.mm_unet import CrossAttnSpec, MMUNetConfig, ResBlockSpec, build_plan
+
+Params = Dict[str, Any]
+
+
+class _Out:
+    """Collects a state_dict: numpy in, fp32 torch tensors out."""
+
+    def __init__(self):
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    def __setitem__(self, key, value):
+        if key in self.sd:
+            raise KeyError(f"duplicate state_dict key {key}")
+        self.sd[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(value, np.float32)))
+
+
+# flax kernel layouts -> torch weight layouts (inverses of torch_import's)
+def _dense(k):  # [I, O] -> [O, I]
+    return np.transpose(k, (1, 0))
+
+
+def _conv1x1(k, trailing):  # [I, O] -> [O, I, 1...]
+    return np.transpose(k, (1, 0)).reshape(k.shape[1], k.shape[0], *([1] * trailing))
+
+
+def _conv1d(k):  # [k, I, O] -> [O, I, k]
+    return np.transpose(k, (2, 1, 0))
+
+
+def _conv2d(k):  # [kh, kw, I, O] -> [O, I, kh, kw]
+    return np.transpose(k, (3, 2, 0, 1))
+
+
+def _conv3d(k):  # [kt, kh, kw, I, O] -> [O, I, kt, kh, kw]
+    return np.transpose(k, (4, 3, 0, 1, 2))
+
+
+def _linear(out: _Out, prefix: str, p: Params):
+    out[f"{prefix}.weight"] = _dense(p["kernel"])
+    out[f"{prefix}.bias"] = p["bias"]
+
+
+def _norm(out: _Out, prefix: str, p: Params):
+    out[f"{prefix}.weight"] = p["GroupNorm_0"]["scale"]
+    out[f"{prefix}.bias"] = p["GroupNorm_0"]["bias"]
+
+
+def _video_conv(out: _Out, prefix: str, p: Params, conv_type: str):
+    if conv_type == "2d+1d":
+        out[f"{prefix}.video_conv_spatial.weight"] = _conv2d(p["spatial"]["kernel"][0])
+        out[f"{prefix}.video_conv_spatial.bias"] = p["spatial"]["bias"]
+        out[f"{prefix}.video_conv_temporal.weight"] = _conv1d(p["temporal"]["kernel"][:, 0, 0])
+        out[f"{prefix}.video_conv_temporal.bias"] = p["temporal"]["bias"]
+    else:
+        out[f"{prefix}.video_conv.weight"] = _conv3d(p["conv"]["kernel"])
+        out[f"{prefix}.video_conv.bias"] = p["conv"]["bias"]
+
+
+def _audio_conv(out: _Out, prefix: str, p: Params):
+    out[f"{prefix}.audio_conv.weight"] = _conv1d(p["conv"]["kernel"])
+    out[f"{prefix}.audio_conv.bias"] = p["conv"]["bias"]
+
+
+def _token_attention(out: _Out, prefix: str, p: Params):
+    _norm(out, f"{prefix}.norm.GroupNorm", p["norm"])
+    out[f"{prefix}.qkv.weight"] = _conv1x1(p["qkv"]["kernel"], 1)
+    out[f"{prefix}.qkv.bias"] = p["qkv"]["bias"]
+    out[f"{prefix}.proj_out.weight"] = _conv1x1(p["proj_out"]["kernel"], 1)
+    out[f"{prefix}.proj_out.bias"] = p["proj_out"]["bias"]
+
+
+def _resblock(out: _Out, prefix: str, p: Params, spec: ResBlockSpec, cfg: MMUNetConfig):
+    _norm(out, f"{prefix}.video_in_layers.0.GroupNorm", p["video_norm_in"])
+    _video_conv(out, f"{prefix}.video_in_layers.2", p["video_conv_in"], cfg.video_type)
+    _norm(out, f"{prefix}.audio_in_layers.0.GroupNorm", p["audio_norm_in"])
+    _audio_conv(out, f"{prefix}.audio_in_layers.2", p["audio_conv_in"])
+    _linear(out, f"{prefix}.emb_layers.1", p["emb_proj"])
+    _norm(out, f"{prefix}.video_out_layers.0.GroupNorm", p["video_norm_out"])
+    _video_conv(out, f"{prefix}.video_out_layers.3", p["video_conv_out"], "3d")
+    _norm(out, f"{prefix}.audio_out_layers.0.GroupNorm", p["audio_norm_out"])
+    _audio_conv(out, f"{prefix}.audio_out_layers.3", p["audio_conv_out"])
+    if spec.out_ch != spec.in_ch:
+        _video_conv(out, f"{prefix}.video_skip_connection", p["video_skip"], "3d")
+        _audio_conv(out, f"{prefix}.audio_skip_connection", p["audio_skip"])
+    if spec.video_attention:
+        _token_attention(out, f"{prefix}.spatial_attention_block", p["video_attn"]["spatial"])
+        _token_attention(out, f"{prefix}.temporal_attention_block", p["video_attn"]["temporal"])
+    if spec.audio_attention:
+        _token_attention(out, f"{prefix}.audio_attention_block", p["audio_attn"])
+
+
+def _cross_attention(out: _Out, prefix: str, p: Params):
+    _norm(out, f"{prefix}.v_norm.GroupNorm", p["v_norm"])
+    _norm(out, f"{prefix}.a_norm.GroupNorm", p["a_norm"])
+    for name in ("v_qkv", "a_qkv"):
+        out[f"{prefix}.{name}.weight"] = _conv1x1(p[name]["kernel"], 1)
+        out[f"{prefix}.{name}.bias"] = p[name]["bias"]
+    out[f"{prefix}.video_proj_out.video_conv.weight"] = _conv1x1(p["video_proj_out"]["kernel"], 3)
+    out[f"{prefix}.video_proj_out.video_conv.bias"] = p["video_proj_out"]["bias"]
+    out[f"{prefix}.audio_proj_out.audio_conv.weight"] = _conv1x1(p["audio_proj_out"]["kernel"], 1)
+    out[f"{prefix}.audio_proj_out.audio_conv.bias"] = p["audio_proj_out"]["bias"]
+
+
+def state_dict_from_jax(params: Params, cfg: MMUNetConfig) -> Dict[str, torch.Tensor]:
+    """The JAX MultimodalUNet's params (numpy leaves) -> this port's
+    ``MultimodalUNet`` state_dict (the original's key names)."""
+    out = _Out()
+    plan = build_plan(cfg)
+    _linear(out, "time_embed.0", params["time_embed"]["Dense_0"])
+    _linear(out, "time_embed.2", params["time_embed"]["Dense_1"])
+
+    def stage(flax_name, blocks, torch_name):
+        for i, specs in enumerate(blocks):
+            for j, spec in enumerate(specs):
+                tp = f"middle_blocks.{j}" if torch_name == "middle_blocks" else f"{torch_name}.{i}.{j}"
+                fp = f"{flax_name}_{i}_{j}"
+                if spec == "initial":
+                    p = params[fp + "_init"]
+                    _video_conv(out, f"{tp}.video_conv", p["video_conv"], "2d+1d")
+                    _audio_conv(out, f"{tp}.audio_conv", p["audio_conv"])
+                elif isinstance(spec, ResBlockSpec):
+                    _resblock(out, tp, params[fp + "_res"], spec, cfg)
+                elif isinstance(spec, CrossAttnSpec):
+                    _cross_attention(out, tp, params[fp + "_xattn"])
+
+    stage("enc", plan.encoder, "input_blocks")
+    stage("mid", [plan.middle], "middle_blocks")
+    stage("dec", plan.decoder, "output_blocks")
+    _norm(out, "video_out.0.GroupNorm", params["video_out_norm"])
+    _video_conv(out, "video_out.2", params["video_out_conv"], "3d")
+    _norm(out, "audio_out.0.GroupNorm", params["audio_out_norm"])
+    _audio_conv(out, "audio_out.2", params["audio_out_conv"])
+    return out.sd
+
+
+def _thirds_to_legacy(w, heads):
+    """Thirds-major rows [q(all heads) | k | v] -> the legacy per-head
+    order [h0(q k v) | h1(q k v) | ...] (inverse of torch_import's
+    ``_legacy_qkv_to_thirds``)."""
+    rows = w.shape[0]
+    d = rows // (3 * heads)
+    w = w.reshape(3, heads, d, *w.shape[1:])
+    return np.swapaxes(w, 0, 1).reshape(rows, *w.shape[3:])
+
+
+def _image_attention(out: _Out, prefix: str, p: Params, heads: int):
+    p = p["TokenSelfAttention_0"]
+    _norm(out, f"{prefix}.norm", p["norm"])
+    w = _thirds_to_legacy(_dense(p["qkv"]["kernel"]), heads)
+    out[f"{prefix}.qkv.weight"] = w[..., None]
+    out[f"{prefix}.qkv.bias"] = _thirds_to_legacy(np.asarray(p["qkv"]["bias"]), heads)
+    out[f"{prefix}.proj_out.weight"] = _conv1x1(p["proj_out"]["kernel"], 1)
+    out[f"{prefix}.proj_out.bias"] = p["proj_out"]["bias"]
+
+
+def _image_resblock(out: _Out, prefix: str, p: Params, spec: _RB):
+    _norm(out, f"{prefix}.in_layers.0", p["norm_in"])
+    out[f"{prefix}.in_layers.2.weight"] = _conv2d(p["conv_in"]["kernel"])
+    out[f"{prefix}.in_layers.2.bias"] = p["conv_in"]["bias"]
+    _linear(out, f"{prefix}.emb_layers.1", p["emb_proj"])
+    _norm(out, f"{prefix}.out_layers.0", p["norm_out"])
+    out[f"{prefix}.out_layers.3.weight"] = _conv2d(p["conv_out"]["kernel"])
+    out[f"{prefix}.out_layers.3.bias"] = p["conv_out"]["bias"]
+    if spec.out_ch != spec.in_ch:
+        out[f"{prefix}.skip_connection.weight"] = _conv2d(p["skip"]["kernel"])
+        out[f"{prefix}.skip_connection.bias"] = p["skip"]["bias"]
+
+
+def _conv(out: _Out, prefix: str, p: Params):
+    out[f"{prefix}.weight"] = _conv2d(p["kernel"])
+    out[f"{prefix}.bias"] = p["bias"]
+
+
+def image_state_dict_from_jax(params: Params, cfg: ImageUNetConfig) -> Dict[str, torch.Tensor]:
+    """The JAX ImageUNet / ImageSuperResModel params -> this port's
+    ``ImageUNet`` / ``ImageSuperResModel`` state_dict."""
+    params = params.get("unet", params)
+    out = _Out()
+    encoder, middle, decoder, _ = build_image_plan(cfg)
+    _linear(out, "time_embed.0", params["time_embed"]["Dense_0"])
+    _linear(out, "time_embed.2", params["time_embed"]["Dense_1"])
+    if cfg.num_classes is not None:
+        out["label_emb.weight"] = params["label_emb"]["embedding"]
+    for i, specs in enumerate(encoder):
+        spec = specs[0]
+        name = f"enc_{i}_0"
+        if spec == "initial":
+            _conv(out, "input_blocks.0.0", params[name + "_conv"])
+        elif spec == "downsample":
+            _conv(out, f"input_blocks.{i}.0.op", params[name + "_down"])
+        else:
+            _image_resblock(out, f"input_blocks.{i}.0", params[name + "_res"], spec)
+            if spec.attn_heads:
+                _image_attention(out, f"input_blocks.{i}.1", params[name + "_attn"], spec.attn_heads)
+    _image_resblock(out, "middle_block.0", params["mid_0_0_res"], middle[0])
+    _image_attention(out, "middle_block.1", params["mid_0_0_attn"], middle[0].attn_heads)
+    _image_resblock(out, "middle_block.2", params["mid_0_1_res"], middle[1])
+    for i, specs in enumerate(decoder):
+        tsub = 0
+        for j, spec in enumerate(specs):
+            name = f"dec_{i}_{j}"
+            if spec == "upsample":
+                _conv(out, f"output_blocks.{i}.{tsub}.conv", params[name + "_up"])
+                tsub += 1
+            else:
+                _image_resblock(out, f"output_blocks.{i}.{tsub}", params[name + "_res"], spec)
+                tsub += 1
+                if spec.attn_heads:
+                    _image_attention(
+                        out, f"output_blocks.{i}.{tsub}", params[name + "_attn"], spec.attn_heads
+                    )
+                    tsub += 1
+    _norm(out, "out.0", params["out_norm"])
+    _conv(out, "out.2", params["out_conv"])
+    return out.sd
+
+
+@torch.no_grad()
+def randomize_(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter from ``seed`` with non-zero values: weights
+    ~ N(0, 1/fan_in), norm scales ~ 1 + N(0, 0.1^2), biases ~ N(0, 0.1^2).
+    Unlike the default initialisation (zero output heads), every layer then
+    shapes the output -- for parity checks and smoke runs."""
+    g = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        noise = torch.randn(p.shape, generator=g)
+        if p.dim() > 1:
+            p.copy_(noise / np.sqrt(p[0].numel()))
+        elif name.endswith("weight"):
+            p.copy_(1.0 + 0.1 * noise)
+        else:
+            p.copy_(0.1 * noise)
+    return model
+
+
+def load_reference_checkpoint(model: nn.Module, path: str) -> None:
+    """Load an original PyTorch ``.pt`` state_dict into ``model`` (strict:
+    a missing or unexpected key is an error, not a silent partial load)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(sd, dict) or not all(isinstance(v, torch.Tensor) for v in sd.values()):
+        raise ValueError(f"{path} does not hold a state_dict of tensors")
+    model.load_state_dict(sd, strict=True)
