@@ -10,8 +10,16 @@ Phases, each printed as it runs; any failure exits non-zero:
      (sm_90a), timed.
   3. kernels vs their plain PyTorch versions on the card, in bf16, at every
      main-path shape of the flagship sampler (several RS-MMA shifts, the
-     wrap included); max |error| against the stated tolerance, and both
-     times (CUDA events, after a warm-up).
+     wrap included); max |error| against the stated tolerance, the kernel's,
+     the plain version's and, where one PyTorch call computes the same
+     function, that call's time (CUDA events, after a warm-up), and the
+     bound: the least time the card could take for the same work.
+  3b. the backward kernels the same way, at every main-path shape of the
+     flagship training step (batch 4; banded shifts 0, the middle and the
+     last of the span), and the forward kernels' out and lse that they
+     take, held to phase 3's tolerance at those shapes.  The library call
+     timed for the self-attention backward is PyTorch's fused attention's
+     backward alone (its forward+backward is printed beside it).
   4. one model evaluation on the card (bf16, kernels) against the CPU (fp32,
      plain versions) with the same random non-zero weights: the stock
      MM-UNet at batch 1, and the SR U-Net on 2 frames; relative L2 error.
@@ -19,10 +27,21 @@ Phases, each printed as it runs; any failure exits non-zero:
      launch-script config (20-NFE DPM-Solver base, ddim25 SR of all 16
      frames) with random non-zero weights saved to .pt files; the kernels'
      launch counts over that run, finite outputs, stage wall times.
+  6. training: one loss-and-gradient evaluation on the card (bf16, kernels)
+     against the CPU (fp32, plain versions) with the same random non-zero
+     weights, at full widths and one ResBlock per level; then the train
+     CLI, scripts/multimodal_train.py, end to end at the bench config
+     (batch 4, remat, bf16, synthetic data) for TRAIN_STEPS steps: finite
+     loss and gradient norm, the median step time after two warm-up steps,
+     peak device memory, the kernels' launch counts; then a resume from its
+     checkpoint for one more step.
 
-The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``; the card's ``nvidia-smi`` name and power
-limit line comes just before them.
+The last three lines of standard output are the kernels' JSON record
+(K1-K7: launches on the main paths -- the forward kernels' in phase 5's
+sampling run, the backward kernels' in phase 6's training run -- and the
+per-call numbers of phases 3 and 3b summed over each kernel's shapes), the
+card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -69,15 +88,65 @@ BANDED_SHAPES = [  # (label, F, Tq, Tk, C, heads, lw)
     ("middle video->audio", 16, 64, 25, 512, 8, 16),
     ("middle audio->video", 16, 25, 64, 512, 8, 16),
 ]
+# Main-path shapes of the flagship training step (bench config, batch 4):
+# the sampler's shapes with N scaled by 4.
+TRAIN_SELF_SHAPES = [  # (label, N, T, C, heads, layout)
+    ("spatial ds2", 64, 1024, 256, 4, "thirds"),
+    ("spatial ds4", 64, 256, 384, 4, "thirds"),
+    ("spatial ds8", 64, 64, 512, 4, "thirds"),
+    ("temporal ds2", 4096, 16, 256, 4, "thirds"),
+    ("temporal ds4", 1024, 16, 384, 4, "thirds"),
+    ("temporal ds8", 256, 16, 512, 4, "thirds"),
+    ("middle audio", 4, 400, 512, 4, "thirds"),
+]
+TRAIN_BANDED_SHAPES = [  # (label, N, F, Tq, Tk, C, heads, lw)
+    ("ds2 video->audio", 4, 16, 1024, 400, 256, 4, 1),
+    ("ds2 audio->video", 4, 16, 400, 1024, 256, 4, 1),
+    ("ds4 video->audio", 4, 16, 256, 100, 384, 6, 4),
+    ("ds4 audio->video", 4, 16, 100, 256, 384, 6, 4),
+    ("ds8 video->audio", 4, 16, 64, 25, 512, 8, 8),
+    ("ds8 audio->video", 4, 16, 25, 64, 512, 8, 8),
+    ("middle video->audio", 4, 16, 64, 25, 512, 8, 16),
+    ("middle audio->video", 4, 16, 25, 64, 512, 8, 16),
+]
+# Backward kernels vs their plain backwards (fp32 math on the same bf16
+# inputs and output gradient): |kernel - plain| <= BWD_ATOL * max|plain| +
+# BWD_RTOL * |plain| elementwise.  The kernels round P and dS to bf16
+# (relative 2^-9) before the gradient products, whose terms are of the size
+# of the largest gradient, and round dq / dk / dv to bf16: the error of an
+# element scales with the gradient's magnitude, not with the element's.
+BWD_ATOL, BWD_RTOL = 1e-2, 1e-2
 KERNEL_SOURCE = {
     "self_attention": "mm_diffusion_tpu_torch/ops/csrc/self_attention.cu",
     "banded_attention": "mm_diffusion_tpu_torch/ops/csrc/banded_attention.cu",
+    "self_attention_bwd": "mm_diffusion_tpu_torch/ops/csrc/self_attention_bwd.cu",
+    "banded_attention_bwd": "mm_diffusion_tpu_torch/ops/csrc/banded_attention_bwd.cu",
 }
 REPLACES = {  # the Pallas kernel bodies in the JAX package
-    "self_attention": "mm_diffusion_tpu/ops/block_attention.py:165",
-    "banded_attention[lw>1]": "mm_diffusion_tpu/ops/block_attention.py:609",
-    "banded_attention[lw=1]": "mm_diffusion_tpu/ops/block_attention.py:534",
+    "self_attention": "mm_diffusion_tpu/ops/block_attention.py:165",  # K1
+    "banded_attention[lw>1]": "mm_diffusion_tpu/ops/block_attention.py:609",  # K2
+    "banded_attention[lw=1]": "mm_diffusion_tpu/ops/block_attention.py:534",  # K3
+    "self_attention_bwd[T<=512]": "mm_diffusion_tpu/ops/block_attention.py:195",  # K4
+    "self_attention_bwd[T>512]": "mm_diffusion_tpu/ops/block_attention.py:264",  # K5
+    "banded_attention_bwd[lw=1]": "mm_diffusion_tpu/ops/block_attention.py:792",  # K6
+    "banded_attention_bwd[lw>1]": "mm_diffusion_tpu/ops/block_attention.py:877",  # K7
 }
+# One self-attention backward kernel serves K4 and K5: its launches are
+# attributed to K5 for the long sequences that the TPU served with the
+# q-chunked kernel (T = 1024 spatial), to K4 otherwise.
+K5_MIN_T = 513
+
+# The card's peaks for the bound (H100 SXM data sheet, dense, at 700 W).
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
+TRAIN_STEPS = 10  # train CLI steps in phase 6 (median taken after two warm-up steps)
+# Phase 6.1, bf16 on the card vs fp32 on the CPU, same weights and draws:
+# the relative L2 of the flattened gradient (H100 reading 1.315e-2, the
+# same in two runs) and the relative gap of the loss (reading 5.2e-4).
+# Each limit leaves a margin of about 4x (gradient) and 20x (loss) over
+# its reading: enough for bf16 rounding, not for a wrong gradient path.
+GRAD_REL_L2_TOL = 5e-2
+LOSS_REL_TOL = 1e-2
 
 
 class SmokeFailure(Exception):
@@ -112,6 +181,78 @@ def compare(out, ref):
     diff = (out.float() - ref.float()).abs()
     ok = bool((diff <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all())
     return diff.max().item(), ok
+
+
+def bwd_compare(out, ref):
+    """(max |out - ref|, whether every element is within the backward
+    tolerance, which scales with max |ref|)."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    ok = bool((diff <= BWD_ATOL * ref.abs().max() + BWD_RTOL * ref.abs()).all())
+    return diff.max().item(), ok
+
+
+def bound_ms(flops: float, nbytes: float):
+    """(least ms the card could take, "operations" or "bytes"): the larger
+    of the bf16 tensor-core time and the device-memory time."""
+    ops, mem = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES_PER_S * 1e3
+    return max(ops, mem), "operations" if ops >= mem else "bytes"
+
+
+def self_attention_work(n, t, c, h, backward=False):
+    """(FLOPs, bytes) of packed self-attention, bf16 in and out, fp32 lse:
+    the forward's two [T, T] products, or the backward's five (S, dP, dV,
+    dQ, dK), each input read once and each output written once."""
+    d = c // h
+    rows, lse = n * t, n * h * t * 4
+    if not backward:
+        return 4 * n * h * t * t * d, rows * (3 * c + c) * 2 + lse
+    return 10 * n * h * t * t * d, rows * (3 * c + c + c + 3 * c) * 2 + lse
+
+
+def banded_work(n, f, tq, tk, c, h, lw, backward=False):
+    """(FLOPs, bytes) of banded attention: q lanes of q_src and k|v lanes of
+    kv_src read once (a kv frame is read once however many windows hold
+    it), out (and dout) C lanes, lse; the backward writes both packed
+    gradients whole (3C lanes, the zeros included)."""
+    d = c // h
+    keys = lw * tk
+    lse = n * f * h * tq * 4
+    reads = (n * f * tq * c + n * f * tk * 2 * c) * 2 + lse
+    if not backward:
+        return 4 * n * f * h * tq * keys * d, reads + n * f * tq * c * 2
+    writes = n * f * (tq + tk) * 3 * c * 2
+    return 10 * n * f * h * tq * keys * d, reads + 2 * n * f * tq * c * 2 + writes
+
+
+def library_attention_ms(qkv, num_heads, layout, dout=None):
+    """The yardstick: ``scaled_dot_product_attention`` on the same packed
+    input (q, k, v as strided [N, H, T, d] views).  Without ``dout``, the
+    forward's ms; with it, ``(backward ms, forward+backward ms)``: the
+    backward alone replays one forward's graph, the function the backward
+    kernel computes.  Timed here only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    n, t, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    x = qkv.detach().requires_grad_(dout is not None)
+    if layout == "thirds":
+        q, k, v = x.view(n, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    else:
+        q, k, v = x.view(n, t, num_heads, 3, d).permute(3, 0, 2, 1, 4)
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v)
+
+    if dout is None:
+        with torch.no_grad():
+            return time_ms(fwd)
+    g = dout.view(n, t, num_heads, c // num_heads).transpose(1, 2)
+    out = fwd()
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, x, g, retain_graph=True))
+    return bwd_ms, time_ms(lambda: torch.autograd.grad(fwd(), x, g))
 
 
 def nvidia_smi_line() -> str:
@@ -153,7 +294,7 @@ def build() -> None:
 
 
 def kernel_parity():
-    """Phase 3; returns {kernel name: {"err", "ms", "plain_ms"}} summed over shapes."""
+    """Phase 3; returns {kernel name: per-call numbers summed over shapes}."""
     import torch
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
@@ -162,32 +303,24 @@ def kernel_parity():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     summary = {}
-
-    def record(name, err, ms, plain_ms):
-        s = summary.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        s["ms"] += ms
-        s["plain_ms"] += plain_ms
+    record = recorder(summary)
 
     for label, n, t, c, h, layout in SELF_SHAPES:
         qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
         out, lse = ba.self_attention_cuda(qkv, h, layout)
-        ref = ba.self_attention_reference(qkv, h, layout)
-        q, k, _ = ba.split_packed_qkv(qkv.float(), h, layout)
-        lse_ref = torch.logsumexp(
-            torch.einsum("nqhd,nkhd->nhqk", q, k) / (c // h) ** 0.5, dim=-1
-        )
-        torch.cuda.synchronize()
-        err, ok = compare(out, ref)
-        lse_err, lse_ok = compare(lse, lse_ref)
+        err, lse_err, ok = self_forward_check(qkv, h, layout, out, lse)
         ms = time_ms(lambda: ba.self_attention_cuda(qkv, h, layout))
         plain_ms = time_ms(lambda: ba.self_attention_reference(qkv, h, layout))
+        lib_ms = library_attention_ms(qkv, h, layout)
+        bound = bound_ms(*self_attention_work(n, t, c, h))
         print(
             f"self_attention {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {layout:8s} "
-            f"err={err:.3e} lse_err={lse_err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
+            f"err={err:.3e} lse_err={lse_err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+            f"library={lib_ms if lib_ms is None else round(lib_ms, 4)} ms "
+            f"bound={bound[0]:.4f} ms ({bound[1]})"
         )
-        check(ok and lse_ok, f"self_attention {label}: err {err}, lse {lse_err}")
-        record("self_attention", max(err, lse_err), ms, plain_ms)
+        check(ok, f"self_attention {label}: err {err}, lse {lse_err}")
+        record("self_attention", max(err, lse_err), ms, plain_ms, bound, lib_ms)
 
     for label, f, tq, tk, c, h, lw in BANDED_SHAPES:
         q_src = torch.randn((1, f, tq, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
@@ -197,12 +330,10 @@ def kernel_parity():
         name = "banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]"
         worst = 0.0
         for s in shifts:
-            out, _ = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
-            ref = ba.banded_cross_attention_reference(q_src, kv_src, s, lw, h, c)
-            torch.cuda.synchronize()
-            err, ok = compare(out, ref)
-            check(ok, f"banded {label} shift {s}: err {err}")
-            worst = max(worst, err)
+            out, lse = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
+            err, lse_err, ok = banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse)
+            check(ok, f"banded {label} shift {s}: err {err}, lse {lse_err}")
+            worst = max(worst, err, lse_err)
         s = shifts[-1]
         ms = time_ms(lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
         plain_ms = time_ms(lambda: ba.banded_cross_attention_reference(q_src, kv_src, s, lw, h, c))
@@ -210,7 +341,144 @@ def kernel_parity():
             f"banded_attention {label:20s} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} lw={lw:2d} "
             f"shifts={shifts} err={worst:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
         )
-        record(name, worst, ms, plain_ms)
+        bound = bound_ms(*banded_work(1, f, tq, tk, c, h, lw))
+        print(f"  bound={bound[0]:.4f} ms ({bound[1]}); no single library call computes it")
+        record(name, worst, ms, plain_ms, bound, None)
+    return summary
+
+
+def self_forward_check(qkv, h, layout, out, lse):
+    """(max |out error|, max |lse error|, both within the forward tolerance)
+    of the self-attention kernel's ``out`` and ``lse`` against the plain
+    version and the logsumexp of the scaled logits."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    ref = ba.self_attention_reference(qkv, h, layout)
+    q, k, _ = ba.split_packed_qkv(qkv.float(), h, layout)
+    lse_ref = torch.logsumexp(torch.einsum("nqhd,nkhd->nhqk", q, k) / q.shape[-1] ** 0.5, dim=-1)
+    (err, ok), (lse_err, lse_ok) = compare(out, ref), compare(lse, lse_ref)
+    return err, lse_err, ok and lse_ok
+
+
+def banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse):
+    """The same for the banded kernel: ``lse`` [N, F, H, Tq] is the
+    logsumexp over the lw * Tk keys of the joint window."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    n, f, tq, _ = q_src.shape
+    tk, d = kv_src.shape[2], c // h
+    ref = ba.banded_cross_attention_reference(q_src, kv_src, s, lw, h, c)
+    idx = ba.window_frame_indices(f, lw, s, q_src.device)
+    q = q_src[..., :c].float().reshape(n, f, tq, h, d)
+    k = kv_src[..., c : 2 * c].float()[:, idx].reshape(n, f, lw * tk, h, d)
+    lse_ref = torch.logsumexp(torch.einsum("nfqhd,nfkhd->nfhqk", q, k) / d**0.5, dim=-1)
+    (err, ok), (lse_err, lse_ok) = compare(out, ref), compare(lse, lse_ref)
+    return err, lse_err, ok and lse_ok
+
+
+def recorder(summary):
+    """``record(name, err, ms, plain_ms, (bound_ms, bound_by), library_ms)``
+    into ``summary``: the worst error, per-call times summed over the
+    shapes, the limiter of the largest bound share."""
+
+    def record(name, err, ms, plain_ms, bound, lib_ms):
+        s = summary.setdefault(name, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "by": {"bytes": 0.0, "operations": 0.0}, "library_ms": 0.0,
+        })
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        s["ms"] += ms
+        s["plain_ms"] += plain_ms
+        s["bound_ms"] += bound[0]
+        s["by"][bound[1]] += bound[0]
+        s["library_ms"] = None if lib_ms is None or s["library_ms"] is None else s["library_ms"] + lib_ms
+
+    return record
+
+
+def backward_parity(forward_summary):
+    """Phase 3b: the backward kernels at the training step's shapes, after
+    the forward kernels whose out and lse they take, held to the forward
+    tolerance there too (their errors go into ``forward_summary``)."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    phase(f"3b. backward kernels vs plain backwards (bf16, |err| <= {BWD_ATOL}*max|plain| "
+          f"+ {BWD_RTOL}*|plain|)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    summary = {}
+    record = recorder(summary)
+
+    def worst_fwd(name, *errs):
+        forward_summary[name]["max_abs_err"] = max(forward_summary[name]["max_abs_err"], *errs)
+
+    for label, n, t, c, h, layout in TRAIN_SELF_SHAPES:
+        qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+        dout = torch.randn((n, t, c), generator=g, device=dev, dtype=torch.bfloat16)
+        out, lse = ba.self_attention_cuda(qkv, h, layout)
+        fwd_err, lse_err, fwd_ok = self_forward_check(qkv, h, layout, out, lse)
+        check(fwd_ok, f"self_attention {label} (training shape): err {fwd_err}, lse {lse_err}")
+        worst_fwd("self_attention", fwd_err, lse_err)
+        dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)
+        ref = ba.self_attention_backward_reference(qkv, dout, h, layout)
+        err, ok = bwd_compare(dqkv, ref)
+        scale = ref.float().abs().max().item()
+        del ref
+        ms = time_ms(lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
+        plain_ms = time_ms(lambda: ba.self_attention_backward_reference(qkv, dout, h, layout))
+        lib_ms, lib_fwd_bwd_ms = library_attention_ms(qkv, h, layout, dout)
+        bound = bound_ms(*self_attention_work(n, t, c, h, backward=True))
+        print(
+            f"self_attention_bwd {label:14s} N={n:5d} T={t:5d} C={c} H={h} "
+            f"forward err={fwd_err:.3e} lse_err={lse_err:.3e}; err={err:.3e} "
+            f"(max|plain| {scale:.3e}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+            f"library bwd={lib_ms:.4f} ms (fwd+bwd {lib_fwd_bwd_ms:.4f} ms) "
+            f"bound={bound[0]:.4f} ms ({bound[1]})"
+        )
+        check(ok, f"self_attention_bwd {label}: err {err}")
+        name = "self_attention_bwd[T>512]" if t >= K5_MIN_T else "self_attention_bwd[T<=512]"
+        record(name, err, ms, plain_ms, bound, lib_ms)
+
+    for label, n, f, tq, tk, c, h, lw in TRAIN_BANDED_SHAPES:
+        q_src = torch.randn((n, f, tq, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+        kv_src = torch.randn((n, f, tk, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+        dout = torch.randn((n, f, tq, c), generator=g, device=dev, dtype=torch.bfloat16)
+        span = f - lw
+        shifts = sorted({0, span // 2, span})
+        worst = fwd_worst = 0.0
+        for s in shifts:
+            out, lse = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
+            fwd_err, lse_err, fwd_ok = banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse)
+            check(fwd_ok, f"banded {label} shift {s} (training shape): err {fwd_err}, lse {lse_err}")
+            fwd_worst = max(fwd_worst, fwd_err, lse_err)
+            worst_fwd("banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]",
+                      fwd_err, lse_err)
+            got = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
+            ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
+            for name_, a, b in zip(("dq_src", "dkv_src"), got, ref):
+                err, ok = bwd_compare(a, b)
+                check(ok, f"banded_attention_bwd {label} shift {s} {name_}: err {err}")
+                worst = max(worst, err)
+            check(not got[0][..., c:].any() and not got[1][..., :c].any(),
+                  f"banded_attention_bwd {label} shift {s}: non-zero lanes outside q / k|v")
+        ms = time_ms(lambda: ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))
+        plain_ms = time_ms(
+            lambda: ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
+        )
+        bound = bound_ms(*banded_work(n, f, tq, tk, c, h, lw, backward=True))
+        print(
+            f"banded_attention_bwd {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} "
+            f"lw={lw:2d} shifts={shifts} forward err={fwd_worst:.3e}; err={worst:.3e} kernel={ms:.4f} ms "
+            f"plain={plain_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})"
+        )
+        name = "banded_attention_bwd[lw=1]" if lw == 1 else "banded_attention_bwd[lw>1]"
+        record(name, worst, ms, plain_ms, bound, None)
     return summary
 
 
@@ -332,6 +600,147 @@ def flagship(tmp: str):
     }
 
 
+TRAIN_FLAGS = (  # the bench's training config (bench.py), synthetic data
+    "--video_size 16,3,64,64 --audio_size 1,25600 --num_channels 128 --num_res_blocks 2 "
+    "--num_head_channels 64 --cross_attention_resolutions 2,4,8 --cross_attention_windows 1,4,8 "
+    "--cross_attention_shift True --video_attention_resolutions 2,4,8 "
+    "--audio_attention_resolutions -1 --use_scale_shift_norm True --resblock_updown True "
+    "--use_fp16 True --use_checkpoint True --diffusion_steps 1000 --noise_schedule linear "
+    "--lr 1e-4 --ema_rate 0.9999 --batch_size 4 --data_dir synthetic"
+).split()
+
+
+def gradient_parity() -> None:
+    """Phase 6.1: one loss and gradient, card vs CPU, same weights and draws."""
+    import torch
+
+    from mm_diffusion_tpu_torch import configs
+    from mm_diffusion_tpu_torch.data.synthetic import load_synthetic_data
+    from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
+    from mm_diffusion_tpu_torch.train.state import mm_model_fn
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    phase("6.1 one loss and gradient: card (bf16, kernels, remat) vs CPU (fp32, plain versions)")
+    torch.set_num_threads(os.cpu_count() or 1)
+    dev = torch.device("cuda")
+    flags = dict(
+        num_channels=128, num_res_blocks=1, num_head_channels=64, resblock_updown=True,
+        cross_attention_resolutions="2,4,8", cross_attention_windows="1,4,8",
+        video_attention_resolutions="2,4,8", audio_attention_resolutions="-1",
+    )
+    cpu_model = randomize_(MultimodalUNet(configs.create_model_config(**flags)), seed=31).train()
+    gpu_model = MultimodalUNet(configs.create_model_config(**flags, use_fp16=True, use_checkpoint=True))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to(dev).train()
+    diffusion = configs.create_gaussian_diffusion(steps=1000)
+    cfg = cpu_model.cfg
+    batch = {k: torch.from_numpy(v) for k, v in next(
+        load_synthetic_data(1, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=3)).items()}
+    rng = torch.Generator().manual_seed(4)
+    noise = {k: torch.randn(v.shape, generator=rng) for k, v in batch.items()}
+    t = torch.tensor([321])
+
+    def loss_and_grad(model, device):
+        on = lambda x: {k: v.to(device) for k, v in x.items()}  # noqa: E731
+        terms = diffusion.to(device).training_losses(
+            mm_model_fn(model, shift=5), on(batch), t.to(device), noise=on(noise)
+        )
+        loss = terms["loss"].mean()
+        loss.backward()
+        grad = torch.cat([p.grad.reshape(-1).double().cpu() for p in model.parameters()])
+        return loss.item(), grad
+
+    t0 = time.perf_counter()
+    ref_loss, ref_grad = loss_and_grad(cpu_model, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    ba.reset_launch_counts()
+    loss, grad = loss_and_grad(gpu_model, dev)
+    torch.cuda.synchronize()
+    counts = dict(ba.LAUNCHES)
+    e = rel_l2(grad, ref_grad)
+    loss_gap = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"loss card {loss:.6f} CPU {ref_loss:.6f}, relative gap {loss_gap:.3e} (tolerance "
+          f"{LOSS_REL_TOL}); gradient ({grad.numel()} values) rel L2 {e:.3e} (tolerance "
+          f"{GRAD_REL_L2_TOL}); CPU loss+backward {cpu_s:.1f} s; launches {counts}")
+    check(loss_gap <= LOSS_REL_TOL, "loss card vs CPU")
+    check(e <= GRAD_REL_L2_TOL, "gradient card vs CPU")
+    check(counts["self_attention_bwd"] > 0 and counts["banded_attention_bwd"] > 0,
+          "the gradient did not go through the backward kernels")
+
+
+def training(tmp: str):
+    """Phase 6.2-6.3; returns the launch counts of the main path's run."""
+    import gc
+    import math
+    import statistics
+
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.scripts import multimodal_train as cli
+
+    phase(f"6.2 train CLI: scripts/multimodal_train.py, bench config, {TRAIN_STEPS} steps")
+    out_dir = os.path.join(tmp, "train")
+    argv = TRAIN_FLAGS + [
+        "--output_dir", out_dir, "--device", "cuda", "--log_interval", "1",
+        "--save_interval", "1000000", "--max_steps", str(TRAIN_STEPS),
+    ]
+    print("argv:", " ".join(argv))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ba.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ba.LAUNCHES)
+    self_bwd, banded_bwd = dict(ba.SELF_BWD_LENGTHS), dict(ba.BANDED_BWD_WINDOWS)
+    banded_fwd = dict(ba.BANDED_WINDOWS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = loop.history
+    for r in rows:
+        print(f"step {int(r['step']):3d} loss {r['loss']:.5f} grad_norm {r['grad_norm']:.4e} "
+              f"step_ms {r['step_ms']:.1f}")
+    check(len(rows) == TRAIN_STEPS and loop.state.step == TRAIN_STEPS, "train CLI step count")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+          "non-finite loss or gradient norm")
+    median_ms = statistics.median(r["step_ms"] for r in rows[2:])
+    print(f"median step {median_ms:.1f} ms over steps 3-{TRAIN_STEPS} (batch 4); "
+          f"peak device memory {peak_gib:.2f} GiB (max_memory_allocated); CLI wall {wall:.1f} s")
+    print(f"launches over the run: {launches}; banded forward by window {banded_fwd}; "
+          f"self backward by T {self_bwd}; banded backward by window {banded_bwd}")
+    counts = {
+        "self_attention": launches["self_attention"],
+        "banded_attention[lw=1]": banded_fwd.get(1, 0),
+        "banded_attention[lw>1]": sum(v for k, v in banded_fwd.items() if k > 1),
+        "self_attention_bwd[T<=512]": sum(v for k, v in self_bwd.items() if k < K5_MIN_T),
+        "self_attention_bwd[T>512]": sum(v for k, v in self_bwd.items() if k >= K5_MIN_T),
+        "banded_attention_bwd[lw=1]": banded_bwd.get(1, 0),
+        "banded_attention_bwd[lw>1]": sum(v for k, v in banded_bwd.items() if k > 1),
+    }
+    for name, n in counts.items():
+        check(n > 0, f"{name} never launched in the training run")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("6.3 resume from the checkpoint for one more step")
+    argv[argv.index("--max_steps") + 1] = str(TRAIN_STEPS + 1)
+    loop = cli.main(argv)
+    r = loop.history[-1]
+    print(f"resumed from step {loop.resumed_from}; step {int(r['step'])} loss {r['loss']:.5f} "
+          f"grad_norm {r['grad_norm']:.4e}")
+    check(loop.resumed_from == TRAIN_STEPS, f"resumed from {loop.resumed_from}")
+    check(loop.state.step == TRAIN_STEPS + 1 and len(loop.history) == 1, "the step counter did not continue")
+    check(math.isfinite(r["loss"]), "non-finite loss after the resume")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -350,9 +759,12 @@ def main() -> int:
         smi = toolchain()
         build()
         summary = kernel_parity()
+        summary.update(backward_parity(summary))
         model_parity()
         with tempfile.TemporaryDirectory() as tmp:
             launches = flagship(tmp)
+            gradient_parity()
+            launches.update({k: v for k, v in training(tmp).items() if "_bwd" in k})
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -366,6 +778,9 @@ def main() -> int:
             "max_abs_err": summary[name]["max_abs_err"],
             "ms": summary[name]["ms"],
             "plain_ms": summary[name]["plain_ms"],
+            "bound_ms": summary[name]["bound_ms"],
+            "bound_by": max(summary[name]["by"], key=summary[name]["by"].get),
+            "library_ms": summary[name]["library_ms"],
         }
         for name in REPLACES
     ]

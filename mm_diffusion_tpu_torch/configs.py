@@ -7,7 +7,7 @@ from __future__ import annotations
 import argparse
 from typing import Any, Dict, Optional, Tuple
 
-from .diffusion import GaussianDiffusion, ModelMeanType, ModelVarType, make_schedule
+from .diffusion import GaussianDiffusion, LossType, ModelMeanType, ModelVarType, make_schedule
 from .models.image_unet import ImageSuperResModel, ImageUNetConfig
 from .models.mm_unet import MMUNetConfig
 
@@ -94,13 +94,14 @@ def create_model_config(
     use_fp16=False,
     video_type="2d+1d",
     resblock_updown=True,
+    use_checkpoint=False,
     dtype: Optional[str] = None,
     **_unused,
 ) -> MMUNetConfig:
     """An :class:`MMUNetConfig` from reference-style flags; ``use_fp16``
-    selects bf16 compute.  Flags without effect on sampling
-    (``use_checkpoint``, ``num_heads_upsample``, ``audio_type``) are
-    accepted and unused, as in the reference MM model."""
+    selects bf16 compute, ``use_checkpoint`` the ResBlocks' recompute in
+    training.  ``num_heads_upsample`` and ``audio_type`` are accepted and
+    unused, as in the reference MM model."""
     video_size = _ints(video_size)
     if class_cond:
         raise NotImplementedError(
@@ -130,6 +131,7 @@ def create_model_config(
         resblock_updown=bool(resblock_updown),
         video_type=video_type,
         dtype=dtype or ("bfloat16" if use_fp16 else "float32"),
+        use_checkpoint=bool(use_checkpoint),
     )
 
 
@@ -145,8 +147,14 @@ def create_gaussian_diffusion(
     rescale_learned_sigmas=False,
     timestep_respacing="",
 ) -> GaussianDiffusion:
-    """The sampling process; ``use_kl`` / ``rescale_learned_sigmas`` choose
-    training losses, which are not ported yet, and are accepted unused."""
+    """The diffusion process; ``use_kl`` / ``rescale_learned_sigmas`` choose
+    the training loss (RESCALED_KL, RESCALED_MSE, else MSE)."""
+    if use_kl:
+        loss_type = LossType.RESCALED_KL
+    elif rescale_learned_sigmas:
+        loss_type = LossType.RESCALED_MSE
+    else:
+        loss_type = LossType.MSE
     if learn_sigma:
         var_type = ModelVarType.LEARNED_RANGE
     else:
@@ -155,6 +163,7 @@ def create_gaussian_diffusion(
         tables=make_schedule(noise_schedule, steps, timestep_respacing or None),
         mean_type=ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON,
         var_type=var_type,
+        loss_type=loss_type,
         rescale_timesteps=rescale_timesteps,
     )
 

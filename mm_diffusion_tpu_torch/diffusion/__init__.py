@@ -2,6 +2,7 @@
 
 from .gaussian import (
     GaussianDiffusion,
+    LossType,
     ModelMeanType,
     ModelVarType,
     tree_map,
@@ -11,6 +12,7 @@ from .schedules import ScheduleTables, make_schedule, space_timesteps
 
 __all__ = [
     "GaussianDiffusion",
+    "LossType",
     "ModelMeanType",
     "ModelVarType",
     "ScheduleTables",

@@ -1,17 +1,20 @@
-"""Gaussian diffusion, the sampling subset (counterpart of
-``mm_diffusion_tpu/diffusion/gaussian.py``): the reverse-process mean and
-variance (learned-range sigma included), ``p_sample`` and eta-0 DDIM steps.
+"""Gaussian diffusion (counterpart of ``mm_diffusion_tpu/diffusion/gaussian.py``):
+the forward process ``q(x_t | x_0)``, the reverse-process mean and variance
+(learned-range sigma included), ``p_sample`` and eta-0 DDIM steps, and the
+training losses (MSE / rescaled MSE with the learned-sigma VLB term, KL /
+rescaled KL).
 
 A state is one tensor or a dict of tensors (``{"video", "audio"}``); each
 formula is written once and mapped over the leaves, with one shared
 timestep vector ``t`` [B] (sampler-step indices; the model sees them
-through ``timestep_map``).  Training losses are not ported yet.
+through ``timestep_map``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -35,6 +38,16 @@ class ModelVarType(enum.Enum):
     LEARNED_RANGE = enum.auto()
 
 
+class LossType(enum.Enum):
+    MSE = enum.auto()
+    RESCALED_MSE = enum.auto()
+    KL = enum.auto()
+    RESCALED_KL = enum.auto()
+
+    def is_vb(self):
+        return self in (LossType.KL, LossType.RESCALED_KL)
+
+
 def tree_map(fn, *states):
     """Apply ``fn`` leaf-wise over tensors or dicts of tensors."""
     if isinstance(states[0], dict):
@@ -48,9 +61,45 @@ def tree_randn_like(x: State, generator: Optional[torch.Generator] = None) -> St
     )
 
 
+def tree_leaves(x: State):
+    """The leaves in the JAX package's order (dict keys sorted)."""
+    return [x[k] for k in sorted(x)] if isinstance(x, dict) else [x]
+
+
 def _bcast(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Per-timestep coefficients shaped to broadcast over a rank-``ndim`` leaf."""
     return table[t].reshape(t.shape + (1,) * (ndim - 1))
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch axes."""
+    return x.mean(dim=tuple(range(1, x.dim())))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL divergence between two diagonal Gaussians."""
+    return 0.5 * (
+        -1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+        + ((mean1 - mean2) ** 2) * torch.exp(-logvar2)
+    )
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x**3)))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of a Gaussian discretized to [-1, 1] 8-bit bins."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(
+        x < -0.999, log_cdf_plus, torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta)
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +107,7 @@ class GaussianDiffusion:
     tables: ScheduleTables
     mean_type: ModelMeanType = ModelMeanType.EPSILON
     var_type: ModelVarType = ModelVarType.FIXED_LARGE
+    loss_type: LossType = LossType.MSE
     rescale_timesteps: bool = False
 
     @property
@@ -73,6 +123,27 @@ class GaussianDiffusion:
         if self.rescale_timesteps:
             return mt.float() * (1000.0 / self.tables.original_num_steps)
         return mt
+
+    def q_mean_variance(self, x_start: State, t: torch.Tensor):
+        """Mean, variance and log-variance of ``q(x_t | x_0)``."""
+        tb = self.tables
+        mean = tree_map(lambda l: _bcast(tb.sqrt_alphas_cumprod, t, l.dim()) * l, x_start)
+        variance = tree_map(
+            lambda l: (1.0 - _bcast(tb.alphas_cumprod, t, l.dim())).expand(l.shape), x_start
+        )
+        log_variance = tree_map(
+            lambda l: _bcast(tb.log_one_minus_alphas_cumprod, t, l.dim()).expand(l.shape), x_start
+        )
+        return mean, variance, log_variance
+
+    def q_sample(self, x_start: State, t: torch.Tensor, noise: State) -> State:
+        """A draw of ``q(x_t | x_0)`` with the given noise."""
+        tb = self.tables
+        return tree_map(
+            lambda l, n: _bcast(tb.sqrt_alphas_cumprod, t, l.dim()) * l
+            + _bcast(tb.sqrt_one_minus_alphas_cumprod, t, l.dim()) * n,
+            x_start, noise,
+        )
 
     def q_posterior_mean_variance(self, x_start: State, x_t: State, t: torch.Tensor):
         tb = self.tables
@@ -193,3 +264,72 @@ class GaussianDiffusion:
 
         sample = tree_map(step, out["pred_xstart"], eps, x)
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    # -- the variational bound and the training losses ---------------------------
+
+    def vb_terms_bpd(
+        self, model_fn: ModelFn, x_start: State, x_t: State, t: torch.Tensor,
+        clip_denoised: bool = True,
+    ):
+        """Per-leaf variational-bound term in bits/dim: KL(q || p) for t > 0,
+        the discretized decoder NLL at t = 0."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t, clip_denoised=clip_denoised)
+
+        def term(xs, tm, tlv, m, lv):
+            kl = mean_flat(normal_kl(tm, tlv, m, lv)) / math.log(2.0)
+            nll = -discretized_gaussian_log_likelihood(xs, means=m, log_scales=0.5 * lv)
+            return torch.where(t == 0, mean_flat(nll) / math.log(2.0), kl)
+
+        output = tree_map(term, x_start, true_mean, true_log_var, out["mean"], out["log_variance"])
+        return {"output": output, "pred_xstart": out["pred_xstart"]}
+
+    def training_losses(
+        self,
+        model_fn: ModelFn,
+        x_start: State,
+        t: torch.Tensor,
+        noise: Optional[State] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """Training losses of one shared timestep batch.  ``noise`` defaults
+        to a draw from ``generator``.
+
+        Returns ``{"loss": [B] total, "mse": state of [B], "vb": state of [B]
+        (learned variance or a KL loss)}``.  With learned variance the VLB
+        term sees the mean prediction detached, so that it trains only the
+        variance and does not bias the MSE term."""
+        if noise is None:
+            noise = tree_randn_like(x_start, generator)
+        x_t = self.q_sample(x_start, t, noise)
+        terms = {}
+        if self.loss_type in (LossType.MSE, LossType.RESCALED_MSE):
+            mean_part, var_values = self.split_model_output(model_fn(x_t, self.model_timesteps(t)))
+            if var_values is not None:
+                frozen = tree_map(
+                    lambda mp, vv: torch.cat([mp.detach(), vv], dim=-1), mean_part, var_values
+                )
+                vb = self.vb_terms_bpd(lambda *_: frozen, x_start, x_t, t, clip_denoised=False)
+                vb = vb["output"]
+                if self.loss_type == LossType.RESCALED_MSE:
+                    vb = tree_map(lambda v: v * (self.num_timesteps / 1000.0), vb)
+                terms["vb"] = vb
+            if self.mean_type == ModelMeanType.START_X:
+                target = x_start
+            elif self.mean_type == ModelMeanType.EPSILON:
+                target = noise
+            else:
+                raise NotImplementedError(f"{self.mean_type} is not ported")
+            terms["mse"] = tree_map(
+                lambda tgt, mo: mean_flat((tgt - mo.to(tgt.dtype)) ** 2), target, mean_part
+            )
+        elif self.loss_type.is_vb():
+            vb = self.vb_terms_bpd(model_fn, x_start, x_t, t, clip_denoised=False)["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                vb = tree_map(lambda v: v * self.num_timesteps, vb)
+            terms["vb"] = vb
+        else:
+            raise NotImplementedError(self.loss_type)
+        leaves = [leaf for key in ("mse", "vb") if key in terms for leaf in tree_leaves(terms[key])]
+        terms["loss"] = sum(leaves[1:], leaves[0])
+        return terms

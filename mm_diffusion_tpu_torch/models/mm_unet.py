@@ -10,10 +10,12 @@ line; the module tree is the original PyTorch model's, so its
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, List, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import RSMMACrossAttention, TokenSelfAttention, factorized_video_attention
 from .layers import (
@@ -57,6 +59,7 @@ class MMUNetConfig:
     resblock_updown: bool = True
     video_type: str = "2d+1d"
     dtype: str = "bfloat16"  # compute dtype
+    use_checkpoint: bool = False  # recompute the ResBlocks' conv path in the backward
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -204,11 +207,25 @@ def build_plan(cfg: MMUNetConfig) -> UNetPlan:
     )
 
 
+def remat_min_tokens() -> int:
+    """Video tokens (F*H*W) a ResBlock's input needs before ``use_checkpoint``
+    recomputes it (``MMDIFF_REMAT_MIN_TOKENS``, default 4096, as in the JAX
+    package): below it the saved activations are small and the recompute
+    would cost a full low-resolution forward."""
+    return int(os.environ.get("MMDIFF_REMAT_MIN_TOKENS", "4096"))
+
+
 class MMResBlock(nn.Module):
     """Dual-stream residual block with a shared timestep embedding: per
     modality GN -> SiLU -> conv, FiLM (or additive) conditioning, GN -> SiLU
     -> dropout -> zero-init 1x1 conv, plus a skip; optional up/down
-    resampling after ``in_layers`` and per-modality self-attention."""
+    resampling after ``in_layers`` and per-modality self-attention.
+
+    ``remat=True`` recomputes the residual (conv) path in the backward
+    (``torch.utils.checkpoint``, the RNG state of its dropout preserved);
+    the self-attention that follows keeps its activations, as the JAX
+    package's remat policy saves the attention kernels' inputs and outputs.
+    """
 
     def __init__(self, spec: ResBlockSpec, cfg: MMUNetConfig):
         super().__init__()
@@ -246,7 +263,20 @@ class MMResBlock(nn.Module):
         h = layers[0](h, film=film)
         return layers[3](layers[2](layers[1](h)))
 
-    def forward(self, video, audio, emb):
+    def forward(self, video, audio, emb, remat: bool = False):
+        if remat:
+            video, audio = checkpoint(self.residual, video, audio, emb, use_reentrant=False)
+        else:
+            video, audio = self.residual(video, audio, emb)
+        if self.spec.video_attention:
+            video = factorized_video_attention(
+                video, self.spatial_attention_block, self.temporal_attention_block
+            )
+        if self.spec.audio_attention:
+            audio = self.audio_attention_block(audio.transpose(1, 2)).transpose(1, 2)
+        return video, audio
+
+    def residual(self, video, audio, emb):
         spec = self.spec
         vh = self.video_in_layers(video)
         ah = self.audio_in_layers(audio)
@@ -269,15 +299,7 @@ class MMResBlock(nn.Module):
         if spec.out_ch != spec.in_ch:
             video = self.video_skip_connection(video)
             audio = self.audio_skip_connection(audio)
-        video, audio = video + vh, audio + ah
-
-        if spec.video_attention:
-            video = factorized_video_attention(
-                video, self.spatial_attention_block, self.temporal_attention_block
-            )
-        if spec.audio_attention:
-            audio = self.audio_attention_block(audio.transpose(1, 2)).transpose(1, 2)
-        return video, audio
+        return video + vh, audio + ah
 
 
 class InitialBlock(nn.Module):
@@ -306,7 +328,12 @@ class MultimodalUNet(nn.Module):
     ``shift`` sets the RS-MMA window shift of the shifting cross-attention
     sites: ``None`` (shift 0), an int used at every site, or a CPU
     ``torch.Generator`` from which each site draws its own shift in
-    ``[0, F - lw]`` (the sampler's per-evaluation draw).
+    ``[0, F - lw]`` (the sampler's per-evaluation draw, and training's).
+
+    Training mode: dropout is active under ``model.train()``; with
+    ``cfg.use_checkpoint`` each ResBlock whose input holds at least
+    :func:`remat_min_tokens` video tokens recomputes its conv path in the
+    backward whenever gradients are taken.
     """
 
     def __init__(self, cfg: MMUNetConfig):
@@ -355,10 +382,16 @@ class MultimodalUNet(nn.Module):
             raise ValueError(f"shift {shift} outside [0, {span}] at a window-{block.local_window} site")
         return int(shift)
 
+    def _remat(self, video) -> bool:
+        if not (self.cfg.use_checkpoint and torch.is_grad_enabled()):
+            return False
+        f, h, w = video.shape[2:]
+        return f * h * w >= remat_min_tokens()
+
     def _run(self, blocks, video, audio, emb, shift):
         for blk in blocks:
             if isinstance(blk, MMResBlock):
-                video, audio = blk(video, audio, emb)
+                video, audio = blk(video, audio, emb, remat=self._remat(video))
             elif isinstance(blk, RSMMACrossAttention):
                 video, audio = blk(video, audio, self._site_shift(blk, video.shape[2], shift))
             else:

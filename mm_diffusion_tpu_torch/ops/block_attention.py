@@ -11,6 +11,11 @@ Two functions, counterparts of ``mm_diffusion_tpu/ops/block_attention.py``:
   ``q_src[..., :C]`` attends to the kv frames ``(f + shift + j) % F``,
   ``j < local_window``, of ``kv_src[..., C:3C]`` under one joint softmax.
 
+Both are ``torch.autograd.Function``s whose backward is a kernel too
+(``*_backward_reference`` are the plain versions): the forward saves qkv,
+its output and the kernel's logsumexp, and the backward recomputes P from
+them.
+
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel (``csrc/``) or raises.  There are no size gates and no
 fallback from a failed build or launch to the plain version.  Each kernel
@@ -32,15 +37,24 @@ HEAD_DIMS = (64, 96, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 # Launches of each kernel since the last reset_launch_counts(); the banded
-# kernel's launches are also counted per window size.
-LAUNCHES = {"self_attention": 0, "banded_attention": 0}
+# kernels' launches are also counted per window size, the self-attention
+# backward's per sequence length.
+LAUNCHES = {
+    "self_attention": 0,
+    "banded_attention": 0,
+    "self_attention_bwd": 0,
+    "banded_attention_bwd": 0,
+}
 BANDED_WINDOWS: collections.Counter = collections.Counter()
+BANDED_BWD_WINDOWS: collections.Counter = collections.Counter()
+SELF_BWD_LENGTHS: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    BANDED_WINDOWS.clear()
+    for counter in (BANDED_WINDOWS, BANDED_BWD_WINDOWS, SELF_BWD_LENGTHS):
+        counter.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +124,73 @@ def banded_cross_attention_reference(
     return out.reshape(n, f, tq, c).to(q_src.dtype)
 
 
+def _softmax_backward(q, k, v, g, scale):
+    """Plain attention backward over [..., Tq, H, d] q / g and [..., Tk, H, d]
+    k / v, in fp32: P recomputed, ``ds = p * (dp - rowsum(dp * p))``, the
+    form the kernels compute.  Returns dq, dk, dv in the input layouts."""
+    logits = torch.einsum("...qhd,...khd->...hqk", q, k) * scale
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("...hqk,...qhd->...khd", p, g)
+    dp = torch.einsum("...qhd,...khd->...hqk", g, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dq = torch.einsum("...hqk,...khd->...qhd", ds, k)
+    dk = torch.einsum("...hqk,...qhd->...khd", ds, q)
+    return dq, dk, dv
+
+
+def self_attention_backward_reference(
+    qkv: torch.Tensor, g: torch.Tensor, num_heads: int, layout: str = "thirds"
+) -> torch.Tensor:
+    """Plain backward of :func:`self_attention_reference`: ``(qkv [N, T, 3C],
+    g [N, T, C]) -> dqkv [N, T, 3C]`` in ``layout``, computed in fp32."""
+    n, t, c3 = qkv.shape
+    q, k, v = split_packed_qkv(qkv.float(), num_heads, layout)
+    d = q.shape[-1]
+    gh = g.float().reshape(n, t, num_heads, d)
+    dq, dk, dv = _softmax_backward(q, k, v, gh, 1.0 / math.sqrt(d))
+    if layout == "thirds":
+        dqkv = torch.cat([x.reshape(n, t, c3 // 3) for x in (dq, dk, dv)], dim=-1)
+    else:
+        dqkv = torch.stack([dq, dk, dv], dim=3).reshape(n, t, c3)
+    return dqkv.to(qkv.dtype)
+
+
+def banded_attention_backward_reference(
+    q_src: torch.Tensor,
+    kv_src: torch.Tensor,
+    g: torch.Tensor,
+    shift: int,
+    local_window: int,
+    num_heads: int,
+    channels: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain backward of :func:`banded_cross_attention_reference`, in fp32:
+    ``(q_src, kv_src, g [N, F, Tq, C]) -> (dq_src, dkv_src)`` packed as the
+    sources are: dq in lanes ``[0, C)`` of ``dq_src``, dk | dv in lanes
+    ``[C, 3C)`` of ``dkv_src``, zeros elsewhere.  The lw window grads of
+    each kv frame are summed (each window position maps the F query frames
+    one-to-one onto the F kv frames)."""
+    n, f, tq, _ = q_src.shape
+    tk = kv_src.shape[2]
+    c, lw = channels, local_window
+    d = c // num_heads
+    idx = window_frame_indices(f, lw, int(shift), q_src.device)
+    kv = kv_src[..., c : 3 * c].float()
+    k, v = kv[:, idx].reshape(n, f, lw * tk, 2 * c).split(c, dim=-1)
+    heads = lambda x, rows: x.reshape(n, f, rows, num_heads, d)  # noqa: E731
+    dq, dk, dv = _softmax_backward(
+        heads(q_src[..., :c].float(), tq), heads(k, lw * tk), heads(v, lw * tk),
+        heads(g.float(), tq), 1.0 / math.sqrt(d),
+    )
+    dkv_w = torch.cat([x.reshape(n, f, lw, tk, c) for x in (dk, dv)], dim=-1)
+    dkv = torch.zeros_like(kv)
+    for j in range(lw):
+        dkv[:, idx[:, j]] += dkv_w[:, :, j]
+    dq_src = torch.cat([dq.reshape(n, f, tq, c), dq.new_zeros((n, f, tq, 2 * c))], dim=-1)
+    dkv_src = torch.cat([dkv.new_zeros((n, f, tk, c)), dkv], dim=-1)
+    return dq_src.to(q_src.dtype), dkv_src.to(kv_src.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -135,23 +216,57 @@ def _check_heads(c: int, num_heads: int) -> int:
     return d
 
 
+def _layout_offsets(layout: str, c: int, d: int) -> Tuple[int, int, int]:
+    """(head stride, k offset, v offset) of head h's q/k/v in a packed row."""
+    if layout == "thirds":
+        return d, c, 2 * c
+    if layout == "per_head":
+        return 3 * d, d, 2 * d
+    raise ValueError(f"unknown qkv layout {layout!r}; expected one of {LAYOUTS}")
+
+
+def _check_like(x: torch.Tensor, ref: torch.Tensor, name: str, shape) -> None:
+    _check_kernel_input(x, name, len(shape))
+    if tuple(x.shape) != tuple(shape) or x.dtype != ref.dtype or x.device != ref.device:
+        raise ValueError(
+            f"{name}: expected {tuple(shape)} {ref.dtype} on {ref.device}, "
+            f"got {tuple(x.shape)} {x.dtype} on {x.device}"
+        )
+
+
+def _check_qkv(qkv: torch.Tensor, num_heads: int):
+    """Validate packed qkv for the self-attention kernels; returns (N, T, C, d)."""
+    _check_kernel_input(qkv, "qkv", 3)
+    n, t, c3 = qkv.shape
+    if c3 % 3 or n == 0 or t == 0:
+        raise ValueError(f"qkv: expected [N, T, 3C] with N, T > 0, got {tuple(qkv.shape)}")
+    return n, t, c3 // 3, _check_heads(c3 // 3, num_heads)
+
+
+def _check_banded(q_src, kv_src, local_window: int, num_heads: int, channels: int):
+    """Validate the banded kernels' sources; returns (N, F, Tq, Tk, d)."""
+    _check_kernel_input(q_src, "q_src", 4)
+    _check_kernel_input(kv_src, "kv_src", 4)
+    n, f, tq, cq = q_src.shape
+    tk = kv_src.shape[2]
+    if cq != 3 * channels or kv_src.shape[-1] != 3 * channels:
+        raise ValueError(f"q_src/kv_src must carry 3C = {3 * channels} lanes")
+    if kv_src.shape[:2] != (n, f) or kv_src.dtype != q_src.dtype or kv_src.device != q_src.device:
+        raise ValueError("q_src and kv_src must share N, F, dtype and device")
+    if min(n, f, tq, tk) == 0:
+        raise ValueError("empty q_src or kv_src")
+    if not 1 <= local_window <= f:
+        raise ValueError(f"local_window {local_window} outside [1, {f}]")
+    return n, f, tq, tk, _check_heads(channels, num_heads)
+
+
 def self_attention_cuda(
     qkv: torch.Tensor, num_heads: int, layout: str = "thirds"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the self-attention kernel.  Returns ``(out [N, T, C],
     lse [N, H, T] fp32)``."""
-    _check_kernel_input(qkv, "qkv", 3)
-    n, t, c3 = qkv.shape
-    if c3 % 3 or n == 0 or t == 0:
-        raise ValueError(f"qkv: expected [N, T, 3C] with N, T > 0, got {tuple(qkv.shape)}")
-    c = c3 // 3
-    d = _check_heads(c, num_heads)
-    if layout == "thirds":
-        head_stride, k_off, v_off = d, c, 2 * c
-    elif layout == "per_head":
-        head_stride, k_off, v_off = 3 * d, d, 2 * d
-    else:
-        raise ValueError(f"unknown qkv layout {layout!r}; expected one of {LAYOUTS}")
+    n, t, c, d = _check_qkv(qkv, num_heads)
+    head_stride, k_off, v_off = _layout_offsets(layout, c, d)
     lib = cuda_build.load().lib
     out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((n, num_heads, t), dtype=torch.float32, device=qkv.device)
@@ -177,20 +292,8 @@ def banded_attention_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the banded RS-MMA kernel.  Returns ``(out [N, F, Tq, C],
     lse [N, F, H, Tq] fp32)``."""
-    _check_kernel_input(q_src, "q_src", 4)
-    _check_kernel_input(kv_src, "kv_src", 4)
-    n, f, tq, cq = q_src.shape
-    tk = kv_src.shape[2]
+    n, f, tq, tk, d = _check_banded(q_src, kv_src, local_window, num_heads, channels)
     c = channels
-    if cq != 3 * c or kv_src.shape[-1] != 3 * c:
-        raise ValueError(f"q_src/kv_src must carry 3C = {3 * c} lanes")
-    if kv_src.shape[:2] != (n, f) or kv_src.dtype != q_src.dtype or kv_src.device != q_src.device:
-        raise ValueError("q_src and kv_src must share N, F, dtype and device")
-    if min(n, f, tq, tk) == 0:
-        raise ValueError("empty q_src or kv_src")
-    if not 1 <= local_window <= f:
-        raise ValueError(f"local_window {local_window} outside [1, {f}]")
-    d = _check_heads(c, num_heads)
     lib = cuda_build.load().lib
     out = torch.empty((n, f, tq, c), dtype=q_src.dtype, device=q_src.device)
     lse = torch.empty((n, f, num_heads, tq), dtype=torch.float32, device=q_src.device)
@@ -208,18 +311,148 @@ def banded_attention_cuda(
     return out, lse
 
 
+def self_attention_bwd_cuda(
+    qkv: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    num_heads: int,
+    layout: str = "thirds",
+) -> torch.Tensor:
+    """Launch the self-attention backward kernels on the forward's ``qkv``,
+    ``out`` and ``lse`` and the output gradient ``g`` [N, T, C].  Returns
+    ``dqkv`` [N, T, 3C] in ``layout``."""
+    n, t, c, d = _check_qkv(qkv, num_heads)
+    head_stride, k_off, v_off = _layout_offsets(layout, c, d)
+    _check_like(out, qkv, "out", (n, t, c))
+    _check_like(g, qkv, "g", (n, t, c))
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (n, num_heads, t) or not lse.is_contiguous():
+        raise ValueError(f"lse: expected contiguous fp32 {(n, num_heads, t)}, got {tuple(lse.shape)}")
+    lib = cuda_build.load().lib
+    delta = torch.empty_like(lse)
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_self_attention_bwd(
+            qkv.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), n, t, num_heads, d, head_stride, k_off, v_off,
+            int(qkv.dtype == torch.float32), stream,
+        )
+    if err:
+        raise RuntimeError(f"self-attention backward kernel launch failed: CUDA error {err}")
+    LAUNCHES["self_attention_bwd"] += 1
+    SELF_BWD_LENGTHS[t] += 1
+    return dqkv
+
+
+def banded_attention_bwd_cuda(
+    q_src: torch.Tensor,
+    kv_src: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    shift: int,
+    local_window: int,
+    num_heads: int,
+    channels: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the banded backward kernels on the forward's sources, ``out``
+    and ``lse`` and the output gradient ``g`` [N, F, Tq, C].  Returns the
+    packed ``(dq_src, dkv_src)`` (zeros outside the q and k|v lanes)."""
+    n, f, tq, tk, d = _check_banded(q_src, kv_src, local_window, num_heads, channels)
+    c = channels
+    _check_like(out, q_src, "out", (n, f, tq, c))
+    _check_like(g, q_src, "g", (n, f, tq, c))
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (n, f, num_heads, tq) or not lse.is_contiguous():
+        raise ValueError(f"lse: expected contiguous fp32 {(n, f, num_heads, tq)}, got {tuple(lse.shape)}")
+    lib = cuda_build.load().lib
+    delta = torch.empty_like(lse)
+    dq_src = torch.empty_like(q_src)
+    dkv_src = torch.empty_like(kv_src)
+    with torch.cuda.device(q_src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_banded_attention_bwd(
+            q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq_src.data_ptr(), dkv_src.data_ptr(), n, f, tq, tk, num_heads, d,
+            int(shift) % f, local_window, int(q_src.dtype == torch.float32), stream,
+        )
+    if err:
+        raise RuntimeError(f"banded attention backward kernel launch failed: CUDA error {err}")
+    LAUNCHES["banded_attention_bwd"] += 1
+    BANDED_BWD_WINDOWS[local_window] += 1
+    return dq_src, dkv_src
+
+
 # ---------------------------------------------------------------------------
-# Dispatch
+# Autograd functions and dispatch
 # ---------------------------------------------------------------------------
+
+
+def _on(x: torch.Tensor) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no attention path for device {x.device}")
+    return x.device.type
+
+
+class SelfAttention(torch.autograd.Function):
+    """:func:`self_attention` with its backward: the CUDA kernels on a CUDA
+    tensor (the forward's output and logsumexp saved), the plain versions
+    on the CPU."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads: int, layout: str):
+        ctx.num_heads, ctx.layout = num_heads, layout
+        if _on(qkv) == "cuda":
+            qkv = qkv.contiguous()
+            out, lse = self_attention_cuda(qkv, num_heads, layout)
+            ctx.save_for_backward(qkv, out, lse)
+            return out
+        ctx.save_for_backward(qkv)
+        return self_attention_reference(qkv, num_heads, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        if _on(g) == "cuda":
+            qkv, out, lse = ctx.saved_tensors
+            dqkv = self_attention_bwd_cuda(qkv, out, lse, g.contiguous(), ctx.num_heads, ctx.layout)
+        else:
+            (qkv,) = ctx.saved_tensors
+            dqkv = self_attention_backward_reference(qkv, g, ctx.num_heads, ctx.layout)
+        return dqkv, None, None
+
+
+class BandedCrossAttention(torch.autograd.Function):
+    """:func:`banded_cross_attention_packed` with its backward, dispatched
+    as :class:`SelfAttention` is.  When ``q_src`` and ``kv_src`` are the two
+    modalities' projections, each gets the packed gradient of its lanes and
+    autograd sums the two calls' contributions."""
+
+    @staticmethod
+    def forward(ctx, q_src, kv_src, shift: int, local_window: int, num_heads: int, channels: int):
+        ctx.args = (int(shift), local_window, num_heads, channels)
+        if _on(q_src) == "cuda":
+            q_src, kv_src = q_src.contiguous(), kv_src.contiguous()
+            out, lse = banded_attention_cuda(q_src, kv_src, *ctx.args)
+            ctx.save_for_backward(q_src, kv_src, out, lse)
+            return out
+        ctx.save_for_backward(q_src, kv_src)
+        return banded_cross_attention_reference(q_src, kv_src, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        if _on(g) == "cuda":
+            q_src, kv_src, out, lse = ctx.saved_tensors
+            dq, dkv = banded_attention_bwd_cuda(q_src, kv_src, out, lse, g.contiguous(), *ctx.args)
+        else:
+            q_src, kv_src = ctx.saved_tensors
+            dq, dkv = banded_attention_backward_reference(q_src, kv_src, g, *ctx.args)
+        return dq, dkv, None, None, None, None
 
 
 def self_attention(qkv: torch.Tensor, num_heads: int, layout: str = "thirds") -> torch.Tensor:
-    """Packed-qkv MHA: plain version on the CPU, the CUDA kernel on a GPU."""
-    if qkv.device.type == "cuda":
-        return self_attention_cuda(qkv.contiguous(), num_heads, layout)[0]
-    if qkv.device.type == "cpu":
-        return self_attention_reference(qkv, num_heads, layout)
-    raise ValueError(f"no attention path for device {qkv.device}")
+    """Packed-qkv MHA: plain version on the CPU, the CUDA kernel on a GPU;
+    differentiable through :class:`SelfAttention`."""
+    return SelfAttention.apply(qkv, num_heads, layout)
 
 
 def banded_cross_attention_packed(
@@ -230,13 +463,6 @@ def banded_cross_attention_packed(
     num_heads: int,
     channels: int,
 ) -> torch.Tensor:
-    """Packed-qkv RS-MMA: plain version on the CPU, the CUDA kernel on a GPU."""
-    if q_src.device.type == "cuda":
-        return banded_attention_cuda(
-            q_src.contiguous(), kv_src.contiguous(), shift, local_window, num_heads, channels
-        )[0]
-    if q_src.device.type == "cpu":
-        return banded_cross_attention_reference(
-            q_src, kv_src, shift, local_window, num_heads, channels
-        )
-    raise ValueError(f"no attention path for device {q_src.device}")
+    """Packed-qkv RS-MMA: plain version on the CPU, the CUDA kernel on a
+    GPU; differentiable through :class:`BandedCrossAttention`."""
+    return BandedCrossAttention.apply(q_src, kv_src, shift, local_window, num_heads, channels)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, in ``build/kernels/<hash>/`` at the
 root of the checkout, keyed by a hash of the sources, so a fresh checkout
 builds everything from its own sources and a rebuilt source never loads a
@@ -21,12 +22,19 @@ from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("attention_common.cuh", "self_attention.cu", "banded_attention.cu")
+SOURCES = (
+    "attention_common.cuh",
+    "attention_bwd_common.cuh",
+    "self_attention.cu",
+    "banded_attention.cu",
+    "self_attention_bwd.cu",
+    "banded_attention_bwd.cu",
+)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libmmdiff_attention.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -35,6 +43,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "mmdiff_self_attention_fwd": [_P, _P, _P] + [_I] * 8 + [_P],
     "mmdiff_banded_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    "mmdiff_self_attention_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 9 + [_P],
 }
 
 
@@ -70,6 +80,16 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands side by side; returns [(cmd, returncode, output)]."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    outputs = [(cmd, p.communicate()[0]) for cmd, p in procs]
+    return [(cmd, p.returncode, out) for (cmd, out), (_, p) in zip(outputs, procs)]
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the library unless an up-to-date one exists.  Returns its
     path, the seconds spent compiling and nvcc's output."""
@@ -79,16 +99,28 @@ def build() -> tuple[Path, float, str]:
     if lib_path.exists():
         return lib_path, 0.0, log_path.read_text() if log_path.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(CSRC / s) for s in SOURCES if s.endswith(".cu")]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    sources = [s for s in SOURCES if s.endswith(".cu")]
+    objects = [out_dir / f"{s}.{tag}.o" for s in sources]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        for src, obj in zip(sources, objects)
+    ]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    results = _run_all(compiles)
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objects)]])
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(out for _, _, out in results)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, rc, out) for cmd, rc, out in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return lib_path, seconds, log

@@ -20,13 +20,12 @@ from typing import Any, Dict
 
 import torch
 
-from mm_diffusion_tpu.data import media
-from mm_diffusion_tpu.utils import logger
-
 from .. import configs
 from ..configs import add_dict_to_argparser, args_to_dict
+from ..data import media
 from ..models.mm_unet import MultimodalUNet
 from ..sampling import build_base_sampler, build_sr_sampler, sample_base_and_sr
+from ..utils import logger
 from ..weights import load_reference_checkpoint
 
 NOT_PORTED = "not ported yet; see ROADMAP.md (conditional samplers and CLIs)"

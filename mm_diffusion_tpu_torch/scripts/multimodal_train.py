@@ -1,0 +1,125 @@
+"""Train the multimodal (joint audio-video) diffusion model on one GPU
+(PyTorch port of ``mm_diffusion_tpu/scripts/multimodal_train.py``, same
+flags, plus ``--device``).
+
+``--data_dir synthetic`` trains on the procedural AV dataset.  The default
+device is ``cuda``; without a CUDA device the script stops unless
+``--device cpu`` is given.  Re-running with the same ``--output_dir``
+resumes from its latest checkpoint.
+
+    python -m mm_diffusion_tpu_torch.scripts.multimodal_train \\
+        --data_dir synthetic --output_dir /tmp/run --num_channels 128 \\
+        --num_head_channels 64 --resblock_updown True --use_fp16 True \\
+        --use_checkpoint True --batch_size 4 --lr 1e-4 --max_steps 1000
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from .. import configs
+from ..configs import add_dict_to_argparser, args_to_dict, create_gaussian_diffusion
+from ..data.synthetic import load_synthetic_data
+from ..models.mm_unet import MultimodalUNet
+from ..train import TrainLoop
+from ..utils import logger
+from .multimodal_sample_sr import resolve_device
+
+NOT_PORTED = "not ported yet; see ROADMAP.md"
+
+
+def create_argparser() -> argparse.ArgumentParser:
+    defaults = dict(
+        data_dir="synthetic",
+        schedule_sampler="uniform",
+        lr=1e-4,
+        seed=42,
+        weight_decay=0.0,
+        lr_anneal_steps=0,
+        batch_size=4,
+        num_workers=4,
+        save_type="mp4",
+        microbatch=-1,
+        ema_rate="0.9999",
+        log_interval=100,
+        devices=None,  # unused: one device, chosen by --device
+        save_interval=10000,
+        output_dir="./output",
+        resume_checkpoint="",
+        use_db=False,
+        sample_fn="dpm_solver",
+        frame_gap=1,
+        video_fps=10,
+        audio_fps=16000,
+        max_steps=0,
+        n_fsdp=1,
+        fsdp_min_size=2**18,
+        device="cuda",
+    )
+    defaults.update(configs.model_and_diffusion_defaults())
+    parser = argparse.ArgumentParser()
+    add_dict_to_argparser(parser, defaults)
+    return parser
+
+
+def main(argv=None) -> TrainLoop:
+    """Run the CLI; returns the finished :class:`TrainLoop` (its state and
+    its log rows in ``history``)."""
+    args = create_argparser().parse_args(argv)
+    if args.data_dir != "synthetic":
+        raise NotImplementedError(f"a dataset directory (data/video.py) is {NOT_PORTED}; use synthetic")
+    if args.n_fsdp > 1:
+        raise NotImplementedError(f"--n_fsdp > 1 (sharded training, parallel/) is {NOT_PORTED}")
+    if args.use_db:
+        raise NotImplementedError(f"--use_db (wandb streaming) is {NOT_PORTED}")
+    device = resolve_device(args.device)
+    logger.configure(args.output_dir)
+    log = logger.get_current()
+
+    log.log("creating model and diffusion...")
+    cfg = configs.create_model_config(**args_to_dict(args, configs.model_and_diffusion_defaults()))
+    model = MultimodalUNet(cfg)
+    diffusion = create_gaussian_diffusion(
+        steps=args.diffusion_steps,
+        learn_sigma=args.learn_sigma,
+        noise_schedule=args.noise_schedule,
+        use_kl=args.use_kl,
+        predict_xstart=args.predict_xstart,
+        rescale_timesteps=args.rescale_timesteps,
+        rescale_learned_sigmas=args.rescale_learned_sigmas,
+        timestep_respacing=args.timestep_respacing,
+    )
+
+    log.log("creating data loader...")
+    data = load_synthetic_data(
+        args.batch_size, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=args.seed
+    )
+    accum = 1 if args.microbatch <= 0 else max(1, args.batch_size // args.microbatch)
+    loop = TrainLoop(
+        model=model,
+        diffusion=diffusion,
+        data=data,
+        lr=args.lr,
+        ema_rate=args.ema_rate,
+        log_interval=args.log_interval,
+        save_interval=args.save_interval,
+        output_dir=args.output_dir,
+        resume_checkpoint=args.resume_checkpoint or None,
+        weight_decay=args.weight_decay,
+        lr_anneal_steps=args.lr_anneal_steps,
+        schedule_sampler=args.schedule_sampler,
+        accum_steps=accum,
+        seed=args.seed,
+        sample_fn=args.sample_fn,
+        device=device,
+    )
+    log.log(f"training on {device}...")
+    try:
+        loop.run_loop(max_steps=args.max_steps or None)
+    finally:
+        loop.close()
+    return loop
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,16 @@
 """Where the device time goes in one base evaluation and one SR step of the
-flagship sampler (random non-zero weights, batch 1, bf16), by kernel kind,
-with torch.profiler.  Needs one CUDA device.
+flagship sampler (random non-zero weights, batch 1, bf16), and in one step
+of the flagship training (the bench config: batch 4, remat, bf16 compute,
+fp32 AdamW and EMA), by kernel kind, with torch.profiler.  Needs one CUDA
+device.
 
     python -m mm_diffusion_tpu_torch.scripts.profile_flagship
 
 For each stage it prints the host wall time per call (to a device
 synchronisation), the summed device time of the kernels of one profiled
-call, the device's idle share of that call's kernel window, and the device
-time by kind and by kernel.
+call, the device's idle share of that call's kernel window (the profiler's
+host overhead stretches it) and of the unprofiled wall time, and the
+device time by kind and by kernel.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ from .multimodal_sample_sr import LAUNCH_SCRIPT_ARGS, create_argparser
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("attention (hand CUDA)", ("attention_fwd_kernel",)),
-    ("convolution", ("fprop", "conv", "cudnn", "implicit", "winograd", "nchw", "nhwc")),
+    ("attention backward (hand CUDA)", ("attention_bwd",)),
+    ("optimizer / EMA", ("multi_tensor", "foreach", "adam")),
+    ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "implicit", "winograd",
+                     "nchw", "nhwc")),
     ("gemm (linears)", ("gemm", "cutlass", "cublas", "kernel2")),
     ("group norm", ("group_norm", "groupnorm", "welford", "rowwisemoments")),
     ("copies / layout", ("copy", "transpose", "permute", "cat", "index", "repeat")),
@@ -43,8 +49,8 @@ def kind_of(name: str) -> str:
     return "other"
 
 
-def profile_call(fn, iters: int = 5):
-    with torch.inference_mode():
+def profile_call(fn, iters: int = 5, grad: bool = False):
+    with torch.inference_mode(not grad):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -56,7 +62,12 @@ def profile_call(fn, iters: int = 5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, without the GPU spans of annotated ranges (e.g. the
+    # optimizer's record_function), which would count their kernels twice
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    ]
     return wall_ms, kernels
 
 
@@ -69,8 +80,9 @@ def report(stage: str, wall_ms: float, kernels) -> None:
     start = min(e.time_range.start for e in kernels)
     end = max(e.time_range.end for e in kernels)
     window = (end - start) / 1e3
-    print(f"   device kernels {busy:.2f} ms in a {window:.2f} ms window: idle share "
-          f"{1 - busy / window:.3f}; {len(kernels)} kernel launches")
+    print(f"   device kernels {busy:.2f} ms in a {window:.2f} ms window of the profiled call: "
+          f"idle share {1 - busy / window:.3f}; against the unprofiled {wall_ms:.2f} ms per call: "
+          f"{max(0.0, 1 - busy / wall_ms):.3f}; {len(kernels)} kernel launches")
     by_kind, by_name = collections.Counter(), collections.Counter()
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -83,6 +95,28 @@ def report(stage: str, wall_ms: float, kernels) -> None:
         print(f"     {us / 1e3:8.3f} ms  {name}")
 
 
+def train_step_call(dev: torch.device, seed: int):
+    """One bench-config train step as a closure (the CLI's default
+    initialisation, synthetic data, uniform timesteps)."""
+    from ..data.synthetic import load_synthetic_data
+    from ..train import create_train_state, make_optimizer, make_train_step
+    from .multimodal_train import create_argparser as train_argparser
+
+    flags = vars(train_argparser().parse_args(
+        "--num_channels 128 --num_head_channels 64 --resblock_updown True --use_fp16 True "
+        "--use_checkpoint True --batch_size 4".split()
+    ))
+    cfg = configs.create_model_config(**flags)
+    model = MultimodalUNet(cfg).to(dev).train()
+    diffusion = configs.create_gaussian_diffusion(steps=1000).to(dev)
+    state = create_train_state(model, make_optimizer(model, 1e-4), (0.9999,))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(load_synthetic_data(
+        4, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=seed)).items()}
+    step = make_train_step(diffusion, shift=torch.Generator().manual_seed(seed))
+    gens = torch.Generator().manual_seed(seed), torch.Generator(device=dev).manual_seed(seed)
+    return lambda: step(state, batch, *gens)
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -90,6 +124,12 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("profile_flagship needs a CUDA device")
     dev = torch.device("cuda")
+    print(torch.cuda.get_device_name(0))
+    torch.cuda.reset_peak_memory_stats()
+    report("train step, bench config, batch 4 (remat, bf16)",
+           *profile_call(train_step_call(dev, args.seed), grad=True))
+    print(f"   peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
     flags = vars(create_argparser().parse_args(LAUNCH_SCRIPT_ARGS))
     base = randomize_(MultimodalUNet(configs.create_model_config(**flags)), args.seed)
     sr = randomize_(ImageSuperResModel(configs.create_image_sr_config(**flags)), args.seed + 1)
@@ -103,7 +143,6 @@ def main(argv=None) -> None:
     x = torch.randn((f, 256, 256, 3), device=dev)
     low = torch.randn((f, 64, 64, 3), device=dev)
     ts = torch.full((f,), 500, device=dev)
-    print(torch.cuda.get_device_name(0))
     report("base MM-UNet evaluation (1 of 20 NFE)", *profile_call(lambda: base(video, audio, t, shift)))
     report("SR U-Net step, 16 frames (1 of 25)", *profile_call(lambda: sr(x, ts, low)))
 

@@ -1,0 +1,242 @@
+"""The train state and the train step (counterpart of
+``mm_diffusion_tpu/train/state.py``).
+
+* Parameters and the AdamW moments are fp32; the model computes in its
+  config's dtype (bf16 with ``use_fp16``), casting each weight where it is
+  used, so gradients arrive in fp32.  There is no loss scale: bf16 keeps
+  fp32's exponent range.
+* Gradient accumulation runs the microbatches one after another, summing
+  their gradients in the parameters' ``.grad``.
+* EMA is one fp32 copy of the parameters per rate, updated in place.
+* The schedule sampler lives on the host and is updated from each step's
+  per-example losses.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from ..diffusion.gaussian import GaussianDiffusion, State, tree_map, tree_randn_like
+from .resample import UniformSampler
+
+Shift = Union[None, int, torch.Generator]
+
+
+class AdamW:
+    """``optax.adamw`` (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay),
+    optionally after ``optax.clip_by_global_norm``, with the reference's
+    linear learning-rate anneal to 0 over ``lr_anneal_steps``."""
+
+    def __init__(
+        self,
+        params,
+        lr: float,
+        weight_decay: float = 0.0,
+        lr_anneal_steps: int = 0,
+        grad_clip: float = 0.0,
+    ):
+        self.params = [p for p in params if p.requires_grad]
+        self.lr = lr
+        self.lr_anneal_steps = lr_anneal_steps
+        self.grad_clip = grad_clip
+        self.opt = torch.optim.AdamW(
+            self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay
+        )
+
+    def lr_at(self, step: int) -> float:
+        if not self.lr_anneal_steps:
+            return self.lr
+        return self.lr * max(0.0, 1.0 - step / self.lr_anneal_steps)
+
+    def step(self, step: int, grad_norm: Optional[torch.Tensor] = None) -> None:
+        """One update with the learning rate of optimizer step ``step``
+        (0 for the first); ``grad_norm`` is the gradients' global norm when
+        the caller has it."""
+        if self.grad_clip > 0:
+            if grad_norm is None:
+                grad_norm = global_norm([p.grad for p in self.params])
+            scale = torch.where(grad_norm < self.grad_clip, 1.0, self.grad_clip / grad_norm)
+            torch._foreach_mul_([p.grad for p in self.params], scale)
+        for group in self.opt.param_groups:
+            group["lr"] = self.lr_at(step)
+        self.opt.step()
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def state_dict(self):
+        return self.opt.state_dict()
+
+    def load_state_dict(self, state) -> None:
+        self.opt.load_state_dict(state)
+
+
+def make_optimizer(
+    model: nn.Module,
+    lr: float,
+    weight_decay: float = 0.0,
+    lr_anneal_steps: int = 0,
+    grad_clip: float = 0.0,
+) -> AdamW:
+    return AdamW(model.parameters(), lr, weight_decay, lr_anneal_steps, grad_clip)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """The L2 norm of fp32 tensors taken together (one multi-tensor kernel
+    per chunk of tensors, not one reduction per tensor)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    model: nn.Module  # fp32 parameters
+    optimizer: AdamW
+    ema: Dict[str, Dict[str, torch.Tensor]]  # rate string -> parameter name -> fp32 copy
+    sampler: UniformSampler
+
+    def state_dict(self):
+        return {
+            "step": self.step,
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "ema": self.ema,
+            "sampler": self.sampler.state_dict(),
+        }
+
+    def load_state_dict(self, state) -> None:
+        self.step = int(state["step"])
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if set(state["ema"]) != set(self.ema):
+            raise ValueError(f"checkpoint EMA rates {sorted(state['ema'])} != {sorted(self.ema)}")
+        for rate, tensors in self.ema.items():
+            for name, x in tensors.items():
+                x.copy_(state["ema"][rate][name])
+        self.sampler.load_state_dict(state["sampler"])
+
+
+def create_train_state(
+    model: nn.Module,
+    optimizer: AdamW,
+    ema_rates: Sequence[float] = (0.9999,),
+    sampler: Optional[UniformSampler] = None,
+    num_timesteps: int = 1000,
+) -> TrainState:
+    ema = {
+        str(r): {n: p.detach().clone() for n, p in model.named_parameters()} for r in ema_rates
+    }
+    return TrainState(0, model, optimizer, ema, sampler or UniformSampler(num_timesteps))
+
+
+def ema_params(state: TrainState, rate: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """The EMA copy of one rate (the first by default), by parameter name."""
+    return state.ema[rate or next(iter(state.ema))]
+
+
+def quartile_metrics(name: str, t: torch.Tensor, values: torch.Tensor, num_timesteps: int):
+    """Mean of ``values`` per timestep quartile, ``{name}_q0`` .. ``_q3``."""
+    quartile = (4 * t) // num_timesteps
+    out = {}
+    for q in range(4):
+        mask = (quartile == q).float()
+        out[f"{name}_q{q}"] = (values * mask).sum() / mask.sum().clamp(min=1.0)
+    return out
+
+
+def mm_model_fn(model: nn.Module, shift: Shift):
+    """The MM-UNet as the diffusion's ``model_fn(x, t_model)`` on
+    ``{"video", "audio"}`` states."""
+
+    def model_fn(x: State, t_model: torch.Tensor) -> State:
+        v, a = model(x["video"], x["audio"], t_model, shift=shift)
+        return {"video": v, "audio": a}
+
+    return model_fn
+
+
+def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor onto ``device`` without waiting for the card (pinned,
+    non-blocking copy)."""
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
+def make_train_step(diffusion: GaussianDiffusion, accum_steps: int = 1, shift: Shift = None):
+    """Build ``train_step(state, batch, ...) -> metrics`` for the MM-UNet.
+
+    ``batch`` is ``{"video": [B,F,H,W,C], "audio": [B,L,C]}`` on the model's
+    device.  Each call draws timesteps from the state's sampler (host
+    generator ``t_generator``) and noise from ``noise_generator`` (on the
+    batch's device), unless ``t`` / ``noise`` are given; ``shift`` is the
+    model's RS-MMA shift argument (a host generator in training).  The
+    gradient of the importance-weighted mean loss is averaged over
+    ``accum_steps`` microbatches, then one AdamW step, the EMA update and
+    the sampler update follow.  Metrics stay device tensors (no sync).
+    """
+
+    def train_step(
+        state: TrainState,
+        batch: State,
+        t_generator: Optional[torch.Generator] = None,
+        noise_generator: Optional[torch.Generator] = None,
+        t: Optional[torch.Tensor] = None,
+        noise: Optional[State] = None,
+    ) -> Dict[str, torch.Tensor]:
+        model, device = state.model, batch["video"].device
+        b = batch["video"].shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
+        if t is None:
+            t, weights = state.sampler.sample(b, generator=t_generator)
+        else:
+            t, weights = t.cpu(), torch.ones(b)
+        t_host = t
+        t, weights = _to_device(t, device), _to_device(weights, device)
+        if noise is None:
+            noise = tree_randn_like(batch, noise_generator)
+        model_fn = mm_model_fn(model, shift)
+
+        state.optimizer.zero_grad()
+        micro = b // accum_steps
+        losses, flat = [], []
+        for i in range(accum_steps):
+            sl = slice(i * micro, (i + 1) * micro)
+            terms = diffusion.training_losses(
+                model_fn, tree_map(lambda x: x[sl], batch), t[sl],
+                noise=tree_map(lambda x: x[sl], noise),
+            )
+            loss = (terms["loss"] * weights[sl]).mean()
+            (loss / accum_steps).backward()
+            losses.append(loss.detach())
+            flat.append(terms["loss"].detach())
+        flat_loss = torch.cat(flat)
+
+        params = state.optimizer.params
+        grad_norm = global_norm([p.grad for p in params])
+        state.optimizer.step(state.step, grad_norm)
+        with torch.no_grad():
+            names_params = dict(model.named_parameters())
+            for rate, ema in state.ema.items():
+                r = float(rate)
+                tensors = list(ema.values())
+                torch._foreach_mul_(tensors, r)
+                torch._foreach_add_(tensors, [names_params[n] for n in ema], alpha=1.0 - r)
+        state.sampler.update(t_host, flat_loss)
+
+        metrics = {
+            "loss": torch.stack(losses).mean(),
+            "grad_norm": grad_norm,
+            "param_norm": global_norm([p.detach() for p in params]),
+            "lr_step": torch.tensor(float(state.step)),
+        }
+        metrics.update(quartile_metrics("loss", t, flat_loss, diffusion.num_timesteps))
+        state.step += 1
+        return metrics
+
+    return train_step

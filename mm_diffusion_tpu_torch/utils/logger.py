@@ -1,0 +1,162 @@
+"""Key-value metric logger (the port's own copy of
+``mm_diffusion_tpu/utils/logger.py``, standard library only; the wandb and
+TensorBoard sinks are not ported).
+
+Functional re-design of the vendored OpenAI-baselines logger the reference
+carries (`mm_diffusion/logger.py`, 496 LoC of global-state KV machinery).
+Provides the same capabilities — logkv / logkv_mean accumulation, dumping to
+human-readable stdout + JSONL + CSV, per-process log files, and `profile_kv`
+wall-clock scopes — as one small class with no globals required (a module
+default instance keeps the reference's convenience API).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import csv
+import json
+import os
+import time
+from collections import defaultdict
+from typing import Dict, Optional
+
+
+class KVLogger:
+    def __init__(
+        self,
+        log_dir: Optional[str] = None,
+        suffix: str = "",
+        stdout: bool = True,
+    ):
+        self._sums: Dict[str, float] = defaultdict(float)
+        self._counts: Dict[str, int] = defaultdict(int)
+        self._vals: Dict[str, float] = {}
+        self.stdout = stdout
+        self.log_dir = log_dir
+        self._jsonl = None
+        self._csv_path = None
+        self._csv_keys = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(log_dir, f"progress{suffix}.jsonl"), "a")
+            self._csv_path = os.path.join(log_dir, f"progress{suffix}.csv")
+
+    def logkv(self, key: str, val):
+        self._vals[key] = float(val)
+
+    def logkv_mean(self, key: str, val, count: int = 1):
+        self._sums[key] += float(val) * count
+        self._counts[key] += count
+
+    def logkvs(self, d: Dict[str, float]):
+        for k, v in d.items():
+            self.logkv(k, v)
+
+    def logkvs_mean(self, d: Dict[str, float]):
+        for k, v in d.items():
+            self.logkv_mean(k, v)
+
+    def getkvs(self) -> Dict[str, float]:
+        out = dict(self._vals)
+        for k in self._sums:
+            out[k] = self._sums[k] / max(1, self._counts[k])
+        return out
+
+    def dumpkvs(self) -> Dict[str, float]:
+        kvs = self.getkvs()
+        if self.stdout and kvs:
+            width = max(len(k) for k in kvs)
+            lines = ["-" * (width + 22)]
+            for k in sorted(kvs):
+                v = kvs[k]
+                lines.append(f"| {k:<{width}} | {v:<15.6g} |")
+            lines.append(lines[0])
+            print("\n".join(lines), flush=True)
+        if self._jsonl and kvs:
+            self._jsonl.write(json.dumps(kvs) + "\n")
+            self._jsonl.flush()
+        if self._csv_path and kvs:
+            self._dump_csv(kvs)
+        self._vals.clear()
+        self._sums.clear()
+        self._counts.clear()
+        return kvs
+
+    def _dump_csv(self, kvs):
+        """Append a row; when NEW keys appear the whole file is rewritten
+        with the widened header (parity: CSVOutputFormat.writekvs,
+        reference logger.py:150-180 — r1 silently dropped late keys)."""
+        extra = sorted(set(kvs) - set(self._csv_keys or []))
+        if self._csv_keys is None:
+            self._csv_keys = sorted(kvs)
+            with open(self._csv_path, "w", newline="") as f:
+                csv.writer(f).writerow(self._csv_keys)
+        elif extra:
+            self._csv_keys = self._csv_keys + extra
+            rows = []
+            if os.path.exists(self._csv_path):
+                with open(self._csv_path, newline="") as f:
+                    reader = csv.reader(f)
+                    old_keys = next(reader, [])
+                    rows = [dict(zip(old_keys, r)) for r in reader]
+            with open(self._csv_path, "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(self._csv_keys)
+                for r in rows:
+                    w.writerow([r.get(k, "") for k in self._csv_keys])
+        with open(self._csv_path, "a", newline="") as f:
+            csv.writer(f).writerow([kvs.get(k, "") for k in self._csv_keys])
+
+    def log(self, *args):
+        if self.stdout:
+            print(*args, flush=True)
+
+    @contextlib.contextmanager
+    def profile_kv(self, name: str):
+        """Wall-clock scope accumulated as wait_<name>
+        (parity: logger.py:294-318)."""
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            self.logkv_mean(f"wait_{name}", time.time() - t0)
+
+    def profile(self, name: str):
+        def decorator(fn):
+            def wrapped(*a, **kw):
+                with self.profile_kv(name):
+                    return fn(*a, **kw)
+
+            return wrapped
+
+        return decorator
+
+
+# Module-level default instance (reference-style convenience API).
+_default = KVLogger()
+
+
+def configure(log_dir: Optional[str] = None, suffix: str = "", stdout: bool = True):
+    global _default
+    _default = KVLogger(log_dir, suffix, stdout)
+    return _default
+
+
+def get_current() -> KVLogger:
+    return _default
+
+
+def logkv(key, val):
+    _default.logkv(key, val)
+
+
+def logkv_mean(key, val, count=1):
+    _default.logkv_mean(key, val, count)
+
+
+def dumpkvs():
+    return _default.dumpkvs()
+
+
+def log(*args):
+    _default.log(*args)

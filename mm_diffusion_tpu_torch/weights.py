@@ -5,13 +5,14 @@ The port keeps the original PyTorch module tree, so a published checkpoint
 loads with ``load_state_dict`` and no converter.  The two ``*_from_jax``
 functions are the exact inverses of the JAX package's importers
 (``mm_diffusion_tpu/train/torch_import.py``: ``convert_mm_unet_state_dict``
-and ``convert_image_unet_state_dict``); they take nested dicts of numpy
+and ``convert_image_unet_state_dict``); :func:`jax_params_from_state_dict`
+maps the MM-UNet the other way.  They take and give nested dicts of numpy
 arrays, so this module needs no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +33,7 @@ class _Out:
     def __setitem__(self, key, value):
         if key in self.sd:
             raise KeyError(f"duplicate state_dict key {key}")
-        self.sd[key] = torch.from_numpy(np.ascontiguousarray(np.asarray(value, np.float32)))
+        self.sd[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
 
 
 # flax kernel layouts -> torch weight layouts (inverses of torch_import's)
@@ -44,16 +45,8 @@ def _conv1x1(k, trailing):  # [I, O] -> [O, I, 1...]
     return np.transpose(k, (1, 0)).reshape(k.shape[1], k.shape[0], *([1] * trailing))
 
 
-def _conv1d(k):  # [k, I, O] -> [O, I, k]
-    return np.transpose(k, (2, 1, 0))
-
-
 def _conv2d(k):  # [kh, kw, I, O] -> [O, I, kh, kw]
     return np.transpose(k, (3, 2, 0, 1))
-
-
-def _conv3d(k):  # [kt, kh, kw, I, O] -> [O, I, kt, kh, kw]
-    return np.transpose(k, (4, 3, 0, 1, 2))
 
 
 def _linear(out: _Out, prefix: str, p: Params):
@@ -66,92 +59,160 @@ def _norm(out: _Out, prefix: str, p: Params):
     out[f"{prefix}.bias"] = p["GroupNorm_0"]["bias"]
 
 
-def _video_conv(out: _Out, prefix: str, p: Params, conv_type: str):
+# -- the MM-UNet: one table of (state_dict key, flax path, layout) ---------------
+#
+# Each layout is a pair (flax -> torch, torch -> flax) of exact inverses, so
+# the table maps a JAX parameter tree -- or a gradient tree of the same
+# structure -- onto the port's state_dict and back.
+_LAYOUTS = {
+    "same": (lambda k: k, lambda w: w),
+    "dense": (_dense, lambda w: np.transpose(w, (1, 0))),
+    "conv1x1_1d": (lambda k: _conv1x1(k, 1), lambda w: np.transpose(w.reshape(w.shape[:2]))),
+    "conv1x1_3d": (lambda k: _conv1x1(k, 3), lambda w: np.transpose(w.reshape(w.shape[:2]))),
+    # [k, I, O] <-> [O, I, k]
+    "conv1d": (lambda k: np.transpose(k, (2, 1, 0)), lambda w: np.transpose(w, (2, 1, 0))),
+    # the 2d+1d video conv's spatial half: [1, kh, kw, I, O] <-> [O, I, kh, kw]
+    "spatial": (lambda k: _conv2d(k[0]), lambda w: np.transpose(w, (2, 3, 1, 0))[None]),
+    # its temporal half: [k, 1, 1, I, O] <-> [O, I, k]
+    "temporal": (
+        lambda k: np.transpose(k[:, 0, 0], (2, 1, 0)),
+        lambda w: np.transpose(w, (2, 1, 0))[:, None, None],
+    ),
+    # [kt, kh, kw, I, O] <-> [O, I, kt, kh, kw]
+    "conv3d": (
+        lambda k: np.transpose(k, (4, 3, 0, 1, 2)),
+        lambda w: np.transpose(w, (2, 3, 4, 1, 0)),
+    ),
+}
+
+Entry = Tuple[str, Tuple[str, ...], str]
+
+
+def _e_linear(prefix: str, path: Tuple[str, ...]) -> List[Entry]:
+    return [(f"{prefix}.weight", path + ("kernel",), "dense"), (f"{prefix}.bias", path + ("bias",), "same")]
+
+
+def _e_norm(prefix: str, path: Tuple[str, ...]) -> List[Entry]:
+    gn = path + ("GroupNorm_0",)
+    return [(f"{prefix}.weight", gn + ("scale",), "same"), (f"{prefix}.bias", gn + ("bias",), "same")]
+
+
+def _e_conv(key: str, path: Tuple[str, ...], layout: str) -> List[Entry]:
+    return [(f"{key}.weight", path + ("kernel",), layout), (f"{key}.bias", path + ("bias",), "same")]
+
+
+def _e_video_conv(prefix: str, path: Tuple[str, ...], conv_type: str) -> List[Entry]:
     if conv_type == "2d+1d":
-        out[f"{prefix}.video_conv_spatial.weight"] = _conv2d(p["spatial"]["kernel"][0])
-        out[f"{prefix}.video_conv_spatial.bias"] = p["spatial"]["bias"]
-        out[f"{prefix}.video_conv_temporal.weight"] = _conv1d(p["temporal"]["kernel"][:, 0, 0])
-        out[f"{prefix}.video_conv_temporal.bias"] = p["temporal"]["bias"]
-    else:
-        out[f"{prefix}.video_conv.weight"] = _conv3d(p["conv"]["kernel"])
-        out[f"{prefix}.video_conv.bias"] = p["conv"]["bias"]
+        return _e_conv(f"{prefix}.video_conv_spatial", path + ("spatial",), "spatial") + _e_conv(
+            f"{prefix}.video_conv_temporal", path + ("temporal",), "temporal"
+        )
+    return _e_conv(f"{prefix}.video_conv", path + ("conv",), "conv3d")
 
 
-def _audio_conv(out: _Out, prefix: str, p: Params):
-    out[f"{prefix}.audio_conv.weight"] = _conv1d(p["conv"]["kernel"])
-    out[f"{prefix}.audio_conv.bias"] = p["conv"]["bias"]
+def _e_audio_conv(prefix: str, path: Tuple[str, ...]) -> List[Entry]:
+    return _e_conv(f"{prefix}.audio_conv", path + ("conv",), "conv1d")
 
 
-def _token_attention(out: _Out, prefix: str, p: Params):
-    _norm(out, f"{prefix}.norm.GroupNorm", p["norm"])
-    out[f"{prefix}.qkv.weight"] = _conv1x1(p["qkv"]["kernel"], 1)
-    out[f"{prefix}.qkv.bias"] = p["qkv"]["bias"]
-    out[f"{prefix}.proj_out.weight"] = _conv1x1(p["proj_out"]["kernel"], 1)
-    out[f"{prefix}.proj_out.bias"] = p["proj_out"]["bias"]
+def _e_token_attention(prefix: str, path: Tuple[str, ...]) -> List[Entry]:
+    return (
+        _e_norm(f"{prefix}.norm.GroupNorm", path + ("norm",))
+        + _e_conv(f"{prefix}.qkv", path + ("qkv",), "conv1x1_1d")
+        + _e_conv(f"{prefix}.proj_out", path + ("proj_out",), "conv1x1_1d")
+    )
 
 
-def _resblock(out: _Out, prefix: str, p: Params, spec: ResBlockSpec, cfg: MMUNetConfig):
-    _norm(out, f"{prefix}.video_in_layers.0.GroupNorm", p["video_norm_in"])
-    _video_conv(out, f"{prefix}.video_in_layers.2", p["video_conv_in"], cfg.video_type)
-    _norm(out, f"{prefix}.audio_in_layers.0.GroupNorm", p["audio_norm_in"])
-    _audio_conv(out, f"{prefix}.audio_in_layers.2", p["audio_conv_in"])
-    _linear(out, f"{prefix}.emb_layers.1", p["emb_proj"])
-    _norm(out, f"{prefix}.video_out_layers.0.GroupNorm", p["video_norm_out"])
-    _video_conv(out, f"{prefix}.video_out_layers.3", p["video_conv_out"], "3d")
-    _norm(out, f"{prefix}.audio_out_layers.0.GroupNorm", p["audio_norm_out"])
-    _audio_conv(out, f"{prefix}.audio_out_layers.3", p["audio_conv_out"])
+def _e_resblock(prefix: str, path: Tuple[str, ...], spec: ResBlockSpec, cfg: MMUNetConfig):
+    p = lambda *names: path + names  # noqa: E731
+    entries = (
+        _e_norm(f"{prefix}.video_in_layers.0.GroupNorm", p("video_norm_in"))
+        + _e_video_conv(f"{prefix}.video_in_layers.2", p("video_conv_in"), cfg.video_type)
+        + _e_norm(f"{prefix}.audio_in_layers.0.GroupNorm", p("audio_norm_in"))
+        + _e_audio_conv(f"{prefix}.audio_in_layers.2", p("audio_conv_in"))
+        + _e_linear(f"{prefix}.emb_layers.1", p("emb_proj"))
+        + _e_norm(f"{prefix}.video_out_layers.0.GroupNorm", p("video_norm_out"))
+        + _e_video_conv(f"{prefix}.video_out_layers.3", p("video_conv_out"), "3d")
+        + _e_norm(f"{prefix}.audio_out_layers.0.GroupNorm", p("audio_norm_out"))
+        + _e_audio_conv(f"{prefix}.audio_out_layers.3", p("audio_conv_out"))
+    )
     if spec.out_ch != spec.in_ch:
-        _video_conv(out, f"{prefix}.video_skip_connection", p["video_skip"], "3d")
-        _audio_conv(out, f"{prefix}.audio_skip_connection", p["audio_skip"])
+        entries += _e_video_conv(f"{prefix}.video_skip_connection", p("video_skip"), "3d")
+        entries += _e_audio_conv(f"{prefix}.audio_skip_connection", p("audio_skip"))
     if spec.video_attention:
-        _token_attention(out, f"{prefix}.spatial_attention_block", p["video_attn"]["spatial"])
-        _token_attention(out, f"{prefix}.temporal_attention_block", p["video_attn"]["temporal"])
+        entries += _e_token_attention(f"{prefix}.spatial_attention_block", p("video_attn", "spatial"))
+        entries += _e_token_attention(f"{prefix}.temporal_attention_block", p("video_attn", "temporal"))
     if spec.audio_attention:
-        _token_attention(out, f"{prefix}.audio_attention_block", p["audio_attn"])
+        entries += _e_token_attention(f"{prefix}.audio_attention_block", p("audio_attn"))
+    return entries
 
 
-def _cross_attention(out: _Out, prefix: str, p: Params):
-    _norm(out, f"{prefix}.v_norm.GroupNorm", p["v_norm"])
-    _norm(out, f"{prefix}.a_norm.GroupNorm", p["a_norm"])
+def _e_cross_attention(prefix: str, path: Tuple[str, ...]) -> List[Entry]:
+    entries = _e_norm(f"{prefix}.v_norm.GroupNorm", path + ("v_norm",))
+    entries += _e_norm(f"{prefix}.a_norm.GroupNorm", path + ("a_norm",))
     for name in ("v_qkv", "a_qkv"):
-        out[f"{prefix}.{name}.weight"] = _conv1x1(p[name]["kernel"], 1)
-        out[f"{prefix}.{name}.bias"] = p[name]["bias"]
-    out[f"{prefix}.video_proj_out.video_conv.weight"] = _conv1x1(p["video_proj_out"]["kernel"], 3)
-    out[f"{prefix}.video_proj_out.video_conv.bias"] = p["video_proj_out"]["bias"]
-    out[f"{prefix}.audio_proj_out.audio_conv.weight"] = _conv1x1(p["audio_proj_out"]["kernel"], 1)
-    out[f"{prefix}.audio_proj_out.audio_conv.bias"] = p["audio_proj_out"]["bias"]
+        entries += _e_conv(f"{prefix}.{name}", path + (name,), "conv1x1_1d")
+    entries += _e_conv(f"{prefix}.video_proj_out.video_conv", path + ("video_proj_out",), "conv1x1_3d")
+    entries += _e_conv(f"{prefix}.audio_proj_out.audio_conv", path + ("audio_proj_out",), "conv1x1_1d")
+    return entries
 
 
-def state_dict_from_jax(params: Params, cfg: MMUNetConfig) -> Dict[str, torch.Tensor]:
-    """The JAX MultimodalUNet's params (numpy leaves) -> this port's
-    ``MultimodalUNet`` state_dict (the original's key names)."""
-    out = _Out()
+def mm_unet_entries(cfg: MMUNetConfig) -> List[Entry]:
+    """Every MM-UNet parameter as ``(state_dict key, JAX param path,
+    layout)``, in the port's ``state_dict`` order."""
     plan = build_plan(cfg)
-    _linear(out, "time_embed.0", params["time_embed"]["Dense_0"])
-    _linear(out, "time_embed.2", params["time_embed"]["Dense_1"])
+    entries = _e_linear("time_embed.0", ("time_embed", "Dense_0"))
+    entries += _e_linear("time_embed.2", ("time_embed", "Dense_1"))
 
     def stage(flax_name, blocks, torch_name):
+        out: List[Entry] = []
         for i, specs in enumerate(blocks):
             for j, spec in enumerate(specs):
                 tp = f"middle_blocks.{j}" if torch_name == "middle_blocks" else f"{torch_name}.{i}.{j}"
                 fp = f"{flax_name}_{i}_{j}"
                 if spec == "initial":
-                    p = params[fp + "_init"]
-                    _video_conv(out, f"{tp}.video_conv", p["video_conv"], "2d+1d")
-                    _audio_conv(out, f"{tp}.audio_conv", p["audio_conv"])
+                    out += _e_video_conv(f"{tp}.video_conv", (fp + "_init", "video_conv"), "2d+1d")
+                    out += _e_audio_conv(f"{tp}.audio_conv", (fp + "_init", "audio_conv"))
                 elif isinstance(spec, ResBlockSpec):
-                    _resblock(out, tp, params[fp + "_res"], spec, cfg)
+                    out += _e_resblock(tp, (fp + "_res",), spec, cfg)
                 elif isinstance(spec, CrossAttnSpec):
-                    _cross_attention(out, tp, params[fp + "_xattn"])
+                    out += _e_cross_attention(tp, (fp + "_xattn",))
+        return out
 
-    stage("enc", plan.encoder, "input_blocks")
-    stage("mid", [plan.middle], "middle_blocks")
-    stage("dec", plan.decoder, "output_blocks")
-    _norm(out, "video_out.0.GroupNorm", params["video_out_norm"])
-    _video_conv(out, "video_out.2", params["video_out_conv"], "3d")
-    _norm(out, "audio_out.0.GroupNorm", params["audio_out_norm"])
-    _audio_conv(out, "audio_out.2", params["audio_out_conv"])
+    entries += stage("enc", plan.encoder, "input_blocks")
+    entries += stage("mid", [plan.middle], "middle_blocks")
+    entries += stage("dec", plan.decoder, "output_blocks")
+    entries += _e_norm("video_out.0.GroupNorm", ("video_out_norm",))
+    entries += _e_video_conv("video_out.2", ("video_out_conv",), "3d")
+    entries += _e_norm("audio_out.0.GroupNorm", ("audio_out_norm",))
+    entries += _e_audio_conv("audio_out.2", ("audio_out_conv",))
+    return entries
+
+
+def state_dict_from_jax(params: Params, cfg: MMUNetConfig) -> Dict[str, torch.Tensor]:
+    """The JAX MultimodalUNet's params (numpy leaves) -> this port's
+    ``MultimodalUNet`` state_dict (the original's key names).  A gradient
+    tree of the JAX params maps the same way onto the port's ``.grad``s."""
+    out = _Out()
+    for key, path, layout in mm_unet_entries(cfg):
+        leaf = params
+        for name in path:
+            leaf = leaf[name]
+        out[key] = _LAYOUTS[layout][0](np.asarray(leaf))
     return out.sd
+
+
+def jax_params_from_state_dict(sd: Dict[str, Any], cfg: MMUNetConfig) -> Params:
+    """The inverse of :func:`state_dict_from_jax`: a port ``state_dict`` (or
+    a dict of its parameters' gradients, same keys) -> the JAX
+    MultimodalUNet's nested param dict of fp32 numpy arrays."""
+    params: Params = {}
+    for key, path, layout in mm_unet_entries(cfg):
+        w = sd[key]
+        w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        node = params
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = np.ascontiguousarray(_LAYOUTS[layout][1](w.astype(np.float32)))
+    return params
 
 
 def _thirds_to_legacy(w, heads):

@@ -93,7 +93,7 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     assert torch.equal(out, pba.self_attention_reference(qkv, 2))
     src = t(randn(8, 1, F, 8, 3 * 128))
     pba.banded_cross_attention_packed(src, src, 1, 2, 2, 128)
-    assert pba.LAUNCHES == {"self_attention": 0, "banded_attention": 0}
+    assert set(pba.LAUNCHES.values()) == {0}
     assert not pba.BANDED_WINDOWS
 
 

@@ -1,0 +1,108 @@
+"""The hand-written CUDA backward kernels against their plain PyTorch
+backwards, on the card, at the flagship training step's main-path shapes
+(chip_smoke.py's lists), every banded shift included.
+
+CUDA kernels have no CPU or interpret mode, so every test here is marked
+``cuda`` and skips without a CUDA device.  On a GPU machine:
+
+    python -m pytest --noconftest tests/test_torch_port_backward_kernels.py -q
+"""
+
+import pytest
+import torch
+
+from chip_smoke import TRAIN_BANDED_SHAPES, TRAIN_SELF_SHAPES, bwd_compare
+from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(out, ref):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err, ok = bwd_compare(out, ref)
+    assert ok, f"max |error| {err} against max |plain| {ref.float().abs().max().item()}"
+
+
+@pytest.mark.parametrize(
+    "label,n,t,c,heads,layout", TRAIN_SELF_SHAPES, ids=[s[0] for s in TRAIN_SELF_SHAPES]
+)
+def test_self_attention_backward_kernel(cuda, label, n, t, c, heads, layout):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn((n, t, c), generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = ba.self_attention_cuda(qkv, heads, layout)
+    dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout)
+    _close(dqkv, ba.self_attention_backward_reference(qkv, dout, heads, layout))
+
+
+@pytest.mark.parametrize("layout", ["thirds", "per_head"])
+@pytest.mark.parametrize("t", [16, 25, 100, 130])
+def test_self_attention_backward_ragged_and_layouts(cuda, layout, t):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for heads, c in ((4, 256), (4, 384), (4, 512)):
+        qkv = torch.randn((3, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+        dout = torch.randn((3, t, c), generator=g, device=cuda, dtype=torch.bfloat16)
+        out, lse = ba.self_attention_cuda(qkv, heads, layout)
+        dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout)
+        _close(dqkv, ba.self_attention_backward_reference(qkv, dout, heads, layout))
+
+
+@pytest.mark.parametrize(
+    "label,n,f,tq,tk,c,heads,lw", TRAIN_BANDED_SHAPES, ids=[s[0] for s in TRAIN_BANDED_SHAPES]
+)
+def test_banded_backward_kernel_every_shift(cuda, label, n, f, tq, tk, c, heads, lw):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    n = 1  # one clip: every shift of the span at N = 1 stays inside the time limit
+    q_src = torch.randn((n, f, tq, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    kv_src = torch.randn((n, f, tk, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn((n, f, tq, c), generator=g, device=cuda, dtype=torch.bfloat16)
+    for shift in range(f - lw + 1):
+        out, lse = ba.banded_attention_cuda(q_src, kv_src, shift, lw, heads, c)
+        dq, dkv = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, shift, lw, heads, c)
+        rq, rkv = ba.banded_attention_backward_reference(q_src, kv_src, dout, shift, lw, heads, c)
+        _close(dq, rq)
+        _close(dkv, rkv)
+        assert not dq[..., c:].any() and not dkv[..., :c].any()
+
+
+def test_fp32_backward_and_autograd(cuda):
+    """fp32 tensors through the autograd functions: bf16 operands, fp32
+    accumulation, fp32 gradients; the launch counts see both backwards."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ba.reset_launch_counts()
+    qkv = torch.randn((4, 100, 3 * 256), generator=g, device=cuda).requires_grad_()
+    ba.self_attention(qkv, 4).square().sum().backward()
+    ref = qkv.detach().requires_grad_()
+    ba.self_attention_reference(ref, 4).square().sum().backward()
+    _close(qkv.grad, ref.grad)
+    src = torch.randn((2, 4, 32, 3 * 128), generator=g, device=cuda).requires_grad_()
+    other = torch.randn((2, 4, 20, 3 * 128), generator=g, device=cuda).requires_grad_()
+    (ba.banded_cross_attention_packed(src, other, 1, 2, 2, 128).sum()
+     + ba.banded_cross_attention_packed(other, src, 1, 2, 2, 128).square().sum()).backward()
+    rs, ro = src.detach().requires_grad_(), other.detach().requires_grad_()
+    (ba.banded_cross_attention_reference(rs, ro, 1, 2, 2, 128).sum()
+     + ba.banded_cross_attention_reference(ro, rs, 1, 2, 2, 128).square().sum()).backward()
+    _close(src.grad, rs.grad)
+    _close(other.grad, ro.grad)
+    assert ba.LAUNCHES["self_attention_bwd"] == 1
+    assert ba.LAUNCHES["banded_attention_bwd"] == 2
+    assert dict(ba.BANDED_BWD_WINDOWS) == {2: 2} and dict(ba.SELF_BWD_LENGTHS) == {100: 1}
+
+
+def test_backward_kernels_are_deterministic(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q_src = torch.randn((1, 16, 64, 3 * 512), generator=g, device=cuda, dtype=torch.bfloat16)
+    kv_src = torch.randn((1, 16, 25, 3 * 512), generator=g, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn((1, 16, 64, 512), generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = ba.banded_attention_cuda(q_src, kv_src, 3, 8, 8, 512)
+    first = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, 3, 8, 8, 512)
+    second = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, 3, 8, 8, 512)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

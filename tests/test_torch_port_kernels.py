@@ -66,7 +66,9 @@ def test_dispatch_launches_and_counts(cuda):
     src = torch.randn((1, 4, 32, 3 * 128), device=cuda, dtype=torch.bfloat16)
     ba.banded_cross_attention_packed(src, src, 1, 2, 2, 128)
     ba.banded_cross_attention_packed(src, src, 2, 1, 2, 128)
-    assert ba.LAUNCHES == {"self_attention": 1, "banded_attention": 2}
+    assert ba.LAUNCHES == {
+        "self_attention": 1, "banded_attention": 2, "self_attention_bwd": 0, "banded_attention_bwd": 0,
+    }
     assert dict(ba.BANDED_WINDOWS) == {2: 1, 1: 1}
 
 
