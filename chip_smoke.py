@@ -12,14 +12,17 @@ Phases, each printed as it runs; any failure exits non-zero:
      main-path shape of the flagship sampler (several RS-MMA shifts, the
      wrap included); max |error| against the stated tolerance, the kernel's,
      the plain version's and, where one PyTorch call computes the same
-     function, that call's time (CUDA events, after a warm-up), and the
-     bound: the least time the card could take for the same work.
+     function, that call's device time, and the bound: the least time the
+     card could take for the same work.  Every time here and in 3b and 7 is
+     device time: a fixed number of calls captured in one CUDA graph and
+     replayed between CUDA events (mm_diffusion_tpu_torch/utils/timing.py).
   3b. the backward kernels the same way, at every main-path shape of the
      flagship training step (batch 4; banded shifts 0, the middle and the
      last of the span), and the forward kernels' out and lse that they
      take, held to phase 3's tolerance at those shapes.  The library call
      timed for the self-attention backward is PyTorch's fused attention's
-     backward alone (its forward+backward is printed beside it).
+     backward alone, one autograd.grad replayed in the graph (its
+     forward+backward is printed beside it).
   4. one model evaluation on the card (bf16, kernels) against the CPU (fp32,
      plain versions) with the same random non-zero weights: the stock
      MM-UNet at batch 1, and the SR U-Net on 2 frames; relative L2 error.
@@ -35,11 +38,24 @@ Phases, each printed as it runs; any failure exits non-zero:
      loss and gradient norm, the median step time after two warm-up steps,
      peak device memory, the kernels' launch counts; then a resume from its
      checkpoint for one more step.
+  7. the kernels of the remaining entry points: 7.1 the flash MHA forward
+     and backward (K8, ops/fused_attention.py) at its hot shapes in both
+     layouts, the K1 variants of the A/B tool (S1/S2: rows, nomax, noexp),
+     the two-part skip GEMM (S3), the direct 3x3 conv and its GEMM core
+     (S4), each against its plain version as in phase 3 with its device
+     time, plain time, library time and bound, and planted faults that
+     the lse and noexp limits must reject; 7.2 the entry points
+     themselves -- flash_mha and flash_mha_bhtd forward and backward
+     through autograd at 7.1's hot shapes against the plain versions,
+     then each A/B tool under
+     mm_diffusion_tpu_torch/tools/ once with few iterations -- with the
+     kernels' launch counts over that run.
 
 The last three lines of standard output are the kernels' JSON record
-(K1-K7: launches on the main paths -- the forward kernels' in phase 5's
-sampling run, the backward kernels' in phase 6's training run -- and the
-per-call numbers of phases 3 and 3b summed over each kernel's shapes), the
+(launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
+phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
+graph replay re-runs captured launches without counting them -- and the
+per-call numbers of phases 3, 3b and 7.1 summed over each kernel's shapes), the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -48,18 +64,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# bf16 kernel vs its plain version (fp32 math on the same bf16 inputs):
-# |kernel - plain| <= ATOL + RTOL * |plain| elementwise.  The kernel rounds P
-# to bf16 before P @ V and rounds the output to bf16 (relative 2^-9 each).
-KERNEL_ATOL, KERNEL_RTOL = 1e-2, 1e-2
+# Each kernel is held to its plain version by the limit its ops module
+# states (FORWARD_TOL, LSE_TOL, BACKWARD_TOL and VARIANT_TOL in
+# block_attention.py, which fused_attention.py shares; GEMM_TOL in
+# gemm_conv.py), here and in the card tests alike.
 # bf16 model on the card vs fp32 on the CPU, relative L2 over the output.
 MODEL_REL_L2_TOL = 5e-2
 BANDED_SHIFTS = 3  # shifts per banded shape: 0, the middle and the last of the span
@@ -109,13 +125,6 @@ TRAIN_BANDED_SHAPES = [  # (label, N, F, Tq, Tk, C, heads, lw)
     ("middle video->audio", 4, 16, 64, 25, 512, 8, 16),
     ("middle audio->video", 4, 16, 25, 64, 512, 8, 16),
 ]
-# Backward kernels vs their plain backwards (fp32 math on the same bf16
-# inputs and output gradient): |kernel - plain| <= BWD_ATOL * max|plain| +
-# BWD_RTOL * |plain| elementwise.  The kernels round P and dS to bf16
-# (relative 2^-9) before the gradient products, whose terms are of the size
-# of the largest gradient, and round dq / dk / dv to bf16: the error of an
-# element scales with the gradient's magnitude, not with the element's.
-BWD_ATOL, BWD_RTOL = 1e-2, 1e-2
 KERNEL_SOURCE = {
     "self_attention": "mm_diffusion_tpu_torch/ops/csrc/self_attention.cu",
     "banded_attention": "mm_diffusion_tpu_torch/ops/csrc/banded_attention.cu",
@@ -135,6 +144,39 @@ REPLACES = {  # the Pallas kernel bodies in the JAX package
 # attributed to K5 for the long sequences that the TPU served with the
 # q-chunked kernel (T = 1024 spatial), to K4 otherwise.
 K5_MIN_T = 513
+
+# Phase 7: the kernels of the fused_attention API (K8) and of the A/B tools
+# (S1-S4), at the hot shapes of ops/fused_attention.py's docstring and of the
+# JAX tools.  (label, B, H, Tq, Tk, D, layout); B = batch * frames.
+FLASH_SHAPES = [
+    ("self", 128, 4, 1024, 1024, 64, "bhtd"),
+    ("video->audio", 128, 4, 1024, 400, 64, "bthd"),
+    ("audio->video", 128, 4, 100, 1024, 64, "bthd"),
+]
+CONV_CHECK_IMAGES = 2  # S4: the fp32 plain version is compared on 2 of the 16 images
+REPLACES.update({
+    "flash_mha_fwd": "mm_diffusion_tpu/ops/fused_attention.py:69 "
+                     "(jax/experimental/pallas/ops/tpu/flash_attention.py:758)",  # K8
+    "flash_mha_bwd": "mm_diffusion_tpu/ops/fused_attention.py:69 "
+                     "(jax/experimental/pallas/ops/tpu/flash_attention.py:1121,1456)",  # K8
+    "self_attention_variant[rows]": "tools/bench_attn_variants.py:36",  # S1
+    "self_attention_variant[nomax]": "tools/bench_attn_variants2.py:40",  # S2
+    "self_attention_variant[noexp]": "tools/bench_attn_variants2.py:40",  # S2
+    "skip_gemm": "tools/bench_skip_conv.py:39",  # S3
+    "conv3x3_chw": "tools/conv_chw_spike.py:69",  # S4
+    "gemm_blocks": "tools/conv_chw_spike.py:217",  # S4 core
+})
+KERNEL_SOURCE.update({
+    "flash_mha_fwd": "mm_diffusion_tpu_torch/ops/csrc/flash_mha.cu",
+    "flash_mha_bwd": "mm_diffusion_tpu_torch/ops/csrc/flash_mha.cu",
+    "self_attention_variant": "mm_diffusion_tpu_torch/ops/csrc/self_attention.cu",
+    "skip_gemm": "mm_diffusion_tpu_torch/ops/csrc/skip_gemm.cu",
+    "conv3x3_chw": "mm_diffusion_tpu_torch/ops/csrc/conv3x3_chw.cu",
+    "gemm_blocks": "mm_diffusion_tpu_torch/ops/csrc/skip_gemm.cu",
+})
+# Device time of a call: TIME_CALLS calls captured in one CUDA graph, the
+# graph replayed TIME_REPLAYS times (utils/timing.py::device_ms).
+TIME_CALLS, TIME_REPLAYS = 5, 4
 
 # The card's peaks for the bound (H100 SXM data sheet, dense, at 700 W).
 PEAK_BF16_FLOPS = 989e12
@@ -162,34 +204,12 @@ def phase(name: str) -> None:
     print(f"\n== {name}", flush=True)
 
 
-def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    import torch
+def time_ms(fn) -> float:
+    """Device ms per call: TIME_CALLS calls captured in one CUDA graph,
+    replayed TIME_REPLAYS times between CUDA events (utils/timing.py)."""
+    from mm_diffusion_tpu_torch.utils.timing import device_ms
 
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def compare(out, ref):
-    """(max |out - ref|, whether every element is within tolerance)."""
-    diff = (out.float() - ref.float()).abs()
-    ok = bool((diff <= KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()).all())
-    return diff.max().item(), ok
-
-
-def bwd_compare(out, ref):
-    """(max |out - ref|, whether every element is within the backward
-    tolerance, which scales with max |ref|)."""
-    ref = ref.float()
-    diff = (out.float() - ref).abs()
-    ok = bool((diff <= BWD_ATOL * ref.abs().max() + BWD_RTOL * ref.abs()).all())
-    return diff.max().item(), ok
+    return device_ms(fn, calls=TIME_CALLS, replays=TIME_REPLAYS)
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -225,48 +245,50 @@ def banded_work(n, f, tq, tk, c, h, lw, backward=False):
     return 10 * n * f * h * tq * keys * d, reads + 2 * n * f * tq * c * 2 + writes
 
 
-def library_attention_ms(qkv, num_heads, layout, dout=None):
-    """The yardstick: ``scaled_dot_product_attention`` on the same packed
-    input (q, k, v as strided [N, H, T, d] views).  Without ``dout``, the
-    forward's ms; with it, ``(backward ms, forward+backward ms)``: the
-    backward alone replays one forward's graph, the function the backward
-    kernel computes.  Timed here only; the port never calls it."""
+def packed_views(layout, num_heads):
+    """``qkv [N, T, 3C] -> (q, k, v)`` as strided ``[N, H, T, d]`` views."""
+
+    def views(x):
+        n, t, c3 = x.shape
+        d = c3 // 3 // num_heads
+        if layout == "thirds":
+            return x.view(n, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+        return x.view(n, t, num_heads, 3, d).permute(3, 0, 2, 1, 4)
+
+    return views
+
+
+def library_attention_ms(views, leaves, dout=None):
+    """The yardstick: ``scaled_dot_product_attention`` on ``views(*leaves)``
+    (q, k, v as ``[N, H, T, d]``), device time (CUDA graph replays).
+    Without ``dout``, the forward's ms; with it (``[N, H, Tq, d]``),
+    ``(backward ms, forward+backward ms)``: the backward alone is one
+    ``autograd.grad`` into ``leaves`` of a forward recorded on the capture
+    stream, replayed in the graph -- the function the backward kernels
+    compute.  Timed here only; the port never calls it."""
     import torch
     import torch.nn.functional as F
 
-    n, t, c3 = qkv.shape
-    c = c3 // 3
-    d = c // num_heads
-    x = qkv.detach().requires_grad_(dout is not None)
-    if layout == "thirds":
-        q, k, v = x.view(n, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-    else:
-        q, k, v = x.view(n, t, num_heads, 3, d).permute(3, 0, 2, 1, 4)
+    from mm_diffusion_tpu_torch.utils.timing import on_capture_stream
 
-    def fwd():
-        return F.scaled_dot_product_attention(q, k, v)
+    def fwd(*xs):
+        return F.scaled_dot_product_attention(*views(*xs))
 
     if dout is None:
         with torch.no_grad():
-            return time_ms(fwd)
-    g = dout.view(n, t, num_heads, c // num_heads).transpose(1, 2)
-    out = fwd()
-    bwd_ms = time_ms(lambda: torch.autograd.grad(out, x, g, retain_graph=True))
-    return bwd_ms, time_ms(lambda: torch.autograd.grad(fwd(), x, g))
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+            return time_ms(lambda: fwd(*leaves))
+    xs = [x.detach().requires_grad_() for x in leaves]
+    with on_capture_stream():
+        out = fwd(*xs)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, xs, dout, retain_graph=True))
+    return bwd_ms, time_ms(lambda: torch.autograd.grad(fwd(*xs), xs, dout))
 
 
 def toolchain() -> str:
     import torch
 
     from mm_diffusion_tpu_torch.ops import cuda_build
+    from mm_diffusion_tpu_torch.utils.timing import nvidia_smi_line
 
     phase("1. toolchain")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -299,7 +321,7 @@ def kernel_parity():
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
 
-    phase(f"3. kernels vs plain versions (bf16, |err| <= {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|)")
+    phase(f"3. kernels vs plain versions (bf16; out {ba.FORWARD_TOL}, lse {ba.LSE_TOL})")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     summary = {}
@@ -311,7 +333,7 @@ def kernel_parity():
         err, lse_err, ok = self_forward_check(qkv, h, layout, out, lse)
         ms = time_ms(lambda: ba.self_attention_cuda(qkv, h, layout))
         plain_ms = time_ms(lambda: ba.self_attention_reference(qkv, h, layout))
-        lib_ms = library_attention_ms(qkv, h, layout)
+        lib_ms = library_attention_ms(packed_views(layout, h), [qkv])
         bound = bound_ms(*self_attention_work(n, t, c, h))
         print(
             f"self_attention {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {layout:8s} "
@@ -348,9 +370,9 @@ def kernel_parity():
 
 
 def self_forward_check(qkv, h, layout, out, lse):
-    """(max |out error|, max |lse error|, both within the forward tolerance)
-    of the self-attention kernel's ``out`` and ``lse`` against the plain
-    version and the logsumexp of the scaled logits."""
+    """(max |out error|, max |lse error|, both within their limits) of the
+    self-attention kernel's ``out`` and ``lse`` against the plain version
+    and the logsumexp of the scaled logits."""
     import torch
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
@@ -358,7 +380,7 @@ def self_forward_check(qkv, h, layout, out, lse):
     ref = ba.self_attention_reference(qkv, h, layout)
     q, k, _ = ba.split_packed_qkv(qkv.float(), h, layout)
     lse_ref = torch.logsumexp(torch.einsum("nqhd,nkhd->nhqk", q, k) / q.shape[-1] ** 0.5, dim=-1)
-    (err, ok), (lse_err, lse_ok) = compare(out, ref), compare(lse, lse_ref)
+    (err, ok), (lse_err, lse_ok) = ba.FORWARD_TOL.check(out, ref), ba.LSE_TOL.check(lse, lse_ref)
     return err, lse_err, ok and lse_ok
 
 
@@ -376,7 +398,7 @@ def banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse):
     q = q_src[..., :c].float().reshape(n, f, tq, h, d)
     k = kv_src[..., c : 2 * c].float()[:, idx].reshape(n, f, lw * tk, h, d)
     lse_ref = torch.logsumexp(torch.einsum("nfqhd,nfkhd->nfhqk", q, k) / d**0.5, dim=-1)
-    (err, ok), (lse_err, lse_ok) = compare(out, ref), compare(lse, lse_ref)
+    (err, ok), (lse_err, lse_ok) = ba.FORWARD_TOL.check(out, ref), ba.LSE_TOL.check(lse, lse_ref)
     return err, lse_err, ok and lse_ok
 
 
@@ -403,13 +425,12 @@ def recorder(summary):
 def backward_parity(forward_summary):
     """Phase 3b: the backward kernels at the training step's shapes, after
     the forward kernels whose out and lse they take, held to the forward
-    tolerance there too (their errors go into ``forward_summary``)."""
+    limits there too (their errors go into ``forward_summary``)."""
     import torch
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
 
-    phase(f"3b. backward kernels vs plain backwards (bf16, |err| <= {BWD_ATOL}*max|plain| "
-          f"+ {BWD_RTOL}*|plain|)")
+    phase(f"3b. backward kernels vs plain backwards (bf16, {ba.BACKWARD_TOL})")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     summary = {}
@@ -427,12 +448,13 @@ def backward_parity(forward_summary):
         worst_fwd("self_attention", fwd_err, lse_err)
         dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)
         ref = ba.self_attention_backward_reference(qkv, dout, h, layout)
-        err, ok = bwd_compare(dqkv, ref)
+        err, ok = ba.BACKWARD_TOL.check(dqkv, ref)
         scale = ref.float().abs().max().item()
         del ref
         ms = time_ms(lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
         plain_ms = time_ms(lambda: ba.self_attention_backward_reference(qkv, dout, h, layout))
-        lib_ms, lib_fwd_bwd_ms = library_attention_ms(qkv, h, layout, dout)
+        g_heads = dout.view(n, t, h, c // h).transpose(1, 2)
+        lib_ms, lib_fwd_bwd_ms = library_attention_ms(packed_views(layout, h), [qkv], g_heads)
         bound = bound_ms(*self_attention_work(n, t, c, h, backward=True))
         print(
             f"self_attention_bwd {label:14s} N={n:5d} T={t:5d} C={c} H={h} "
@@ -462,7 +484,7 @@ def backward_parity(forward_summary):
             got = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
             ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
             for name_, a, b in zip(("dq_src", "dkv_src"), got, ref):
-                err, ok = bwd_compare(a, b)
+                err, ok = ba.BACKWARD_TOL.check(a, b)
                 check(ok, f"banded_attention_bwd {label} shift {s} {name_}: err {err}")
                 worst = max(worst, err)
             check(not got[0][..., c:].any() and not got[1][..., :c].any(),
@@ -673,7 +695,6 @@ def gradient_parity() -> None:
 def training(tmp: str):
     """Phase 6.2-6.3; returns the launch counts of the main path's run."""
     import gc
-    import math
     import statistics
 
     import torch
@@ -741,6 +762,266 @@ def training(tmp: str):
     return counts
 
 
+def flash_work(b, h, tq, tk, d, backward=False):
+    """(FLOPs, bytes) of flash MHA, bf16 in and out, fp32 lse: the
+    forward's two [Tq, Tk] products reading q, k, v and writing out; the
+    backward's five reading q, k, v, out, dout and lse and writing dq, dk,
+    dv."""
+    q, kv, lse = b * h * tq * d * 2, b * h * tk * d * 2, b * h * tq * 4
+    if not backward:
+        return 4 * b * h * tq * tk * d, 2 * q + 2 * kv + lse
+    return 10 * b * h * tq * tk * d, 3 * q + 2 * kv + lse + q + 2 * kv
+
+
+def gemm_work(m, n, k, a_bytes, b_bytes):
+    """(FLOPs, bytes) of an [M, K] x [K, N] product with a bf16 result."""
+    return 2 * m * n * k, a_bytes + b_bytes + m * n * 2
+
+
+def flash_parity(record):
+    """Phase 7.1 (K8): the flash MHA kernels against their plain versions,
+    both layouts, Tq != Tk with ragged ends.  Where Tk is ragged, the lse
+    limit must also reject a planted fault: the logsumexp that a kernel
+    would give if it let the zero keys that pad Tk to 128 into the softmax."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import fused_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    for label, b, h, tq, tk, d, layout in FLASH_SHAPES:
+        def make(t):
+            shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
+            x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+            return x if layout == "bhtd" else x.transpose(1, 2)  # [B, H, T, D] views
+
+        q, k, v, dout = make(tq), make(tk), make(tk), make(tq)
+        bthd = lambda *xs: [x.transpose(1, 2) for x in xs]  # noqa: E731
+        out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+        ref = fa.mha_reference(*bthd(q, k, v)).transpose(1, 2)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d**0.5
+        lse_ref = torch.logsumexp(logits, -1)
+        (err, ok), (lse_err, lse_ok) = fa.FORWARD_TOL.check(out, ref), fa.LSE_TOL.check(lse, lse_ref)
+        del ref, logits
+        check(ok and lse_ok, f"flash_mha_fwd {label}: err {err}, lse {lse_err}")
+        pad = -tk % 128
+        if pad:
+            fault_err, fault_ok = fa.LSE_TOL.check(lse, torch.logaddexp(lse_ref, lse_ref.new_tensor(math.log(pad))))
+            print(f"flash_mha_fwd {label}: lse err {lse_err:.3e} ({fa.LSE_TOL}); planted fault, "
+                  f"{pad} zero keys in the softmax: lse err {fault_err:.3e}, rejected {not fault_ok}")
+            check(not fault_ok, f"flash_mha_fwd {label}: the lse limit lets {pad} stray keys pass")
+        fwd = dict(
+            ms=time_ms(lambda: fa.flash_mha_fwd_cuda(q, k, v)),
+            plain=time_ms(lambda: fa.mha_reference(*bthd(q, k, v))),
+            lib=library_attention_ms(lambda *xs: xs, [q, k, v]),
+            bound=bound_ms(*flash_work(b, h, tq, tk, d)),
+        )
+        record("flash_mha_fwd", max(err, lse_err), fwd["ms"], fwd["plain"], fwd["bound"], fwd["lib"])
+
+        grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+        refs = fa.mha_backward_reference(*bthd(q, k, v, dout))
+        bwd_err = 0.0
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            e, ok = fa.BACKWARD_TOL.check(a, r.transpose(1, 2))
+            check(ok, f"flash_mha_bwd {label} {name}: err {e}")
+            bwd_err = max(bwd_err, e)
+        del grads, refs
+        bwd = dict(
+            ms=time_ms(lambda: fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)),
+            plain=time_ms(lambda: fa.mha_backward_reference(*bthd(q, k, v, dout))),
+            bound=bound_ms(*flash_work(b, h, tq, tk, d, backward=True)),
+        )
+        bwd["lib"], lib_fwd_bwd = library_attention_ms(lambda *xs: xs, [q, k, v], dout)
+        record("flash_mha_bwd", bwd_err, bwd["ms"], bwd["plain"], bwd["bound"], bwd["lib"])
+        for name, r, e in (("fwd", fwd, max(err, lse_err)), ("bwd", bwd, bwd_err)):
+            print(f"flash_mha_{name} {label:13s} {layout} B={b} H={h} Tq={tq:5d} Tk={tk:5d} D={d} "
+                  f"err={e:.3e} kernel={r['ms']:.4f} ms plain={r['plain']:.4f} ms "
+                  f"library={r['lib']:.4f} ms bound={r['bound'][0]:.4f} ms ({r['bound'][1]})"
+                  + (f" (library fwd+bwd {lib_fwd_bwd:.4f} ms)" if name == "bwd" else ""))
+
+
+def variant_parity(record):
+    """Phase 7.1 (S1, S2): the K1 variants that are kernels of their own
+    (rows, nomax, noexp) against their plain versions at the JAX tools'
+    cases (rows: S1's four; nomax, noexp: S2's three).  noexp's limit must
+    also reject two planted faults: the plain output with each sequence's
+    keys and values taken from its neighbour, and without the 1/sqrt(d)
+    scale."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.tools.bench_attn_variants import CASES
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    for variant, cases in (("rows", CASES), ("nomax", CASES[:3]), ("noexp", CASES[:3])):
+        name = f"self_attention_variant[{variant}]"
+        for label, n, t, c, h in cases:
+            qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+            tol = ba.VARIANT_TOL[variant]
+            out = ba.self_attention_variant_cuda(qkv, h, variant)
+            ref = ba.self_attention_variant_reference(qkv, h, variant)
+            err, ok = tol.check(out, ref)
+            check(ok, f"{name} {label}: err {err}")
+            if variant == "noexp":
+                mixed = torch.cat([qkv[..., :c], qkv.roll(1, dims=0)[..., c:]], dim=-1)
+                faults = {
+                    "keys of the neighbouring sequence": ba.self_attention_variant_reference(mixed, h, variant),
+                    "no 1/sqrt(d) scale": ref * (c // h) ** 0.5,
+                }
+                readings = {k: tol.check(out, f) for k, f in faults.items()}
+                print(f"{name} {label}: err {err:.3e}, max|plain| {ref.float().abs().max().item():.3e} "
+                      f"({tol}); planted faults: "
+                      + ", ".join(f"{k} err {e:.3e} rejected {not o}" for k, (e, o) in readings.items()))
+                check(not any(o for _, o in readings.values()), f"{name} {label}: a planted fault passes")
+            del out, ref
+            ms = time_ms(lambda: ba.self_attention_variant_cuda(qkv, h, variant))
+            plain_ms = time_ms(lambda: ba.self_attention_variant_reference(qkv, h, variant))
+            lib_ms = library_attention_ms(packed_views("thirds", h), [qkv])
+            bound = bound_ms(*self_attention_work(n, t, c, h))
+            print(f"{name:30s} {label:13s} N={n:5d} T={t:5d} C={c} H={h:2d} err={err:.3e} "
+                  f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library (SDPA fwd)={lib_ms:.4f} ms "
+                  f"bound={bound[0]:.4f} ms ({bound[1]})")
+            record(name, err, ms, plain_ms, bound, lib_ms)
+
+
+def gemm_conv_parity(record):
+    """Phase 7.1 (S3, S4): the two-part GEMM, the direct 3x3 conv and the
+    GEMM core against their plain versions at the JAX tools' shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from mm_diffusion_tpu_torch.ops import gemm_conv as gc
+    from mm_diffusion_tpu_torch.tools import bench_skip_conv, conv_chw_spike
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+
+    b, h, w, c, co = bench_skip_conv.SHAPE
+    x1 = torch.randn((b, h, w, c), generator=g, device=dev, dtype=bf)
+    x2 = torch.randn((b, h, w, c), generator=g, device=dev, dtype=bf)
+    wt = torch.randn((2 * c, co), generator=g, device=dev) * 0.05
+    err, ok = gc.GEMM_TOL.check(gc.skip_gemm_cuda(x1, x2, wt), gc.skip_gemm_reference(x1, x2, wt))
+    check(ok, f"skip_gemm: err {err}")
+    wb = wt.to(bf)
+    ms = time_ms(lambda: gc.skip_gemm_cuda(x1, x2, wt))
+    plain_ms = time_ms(lambda: gc.skip_gemm_reference(x1, x2, wt))
+    split_ms = time_ms(lambda: x1 @ wb[:c] + x2 @ wb[c:])
+    concat_ms = time_ms(lambda: torch.cat([x1, x2], dim=-1) @ wb)
+    m = b * h * w
+    bound = bound_ms(*gemm_work(m, co, 2 * c, 2 * m * c * 2, wt.numel() * 4))
+    print(f"skip_gemm B={b} {h}x{w} C={c}+{c} -> {co}: err={err:.3e} kernel={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]}); no single library "
+          f"call: split (two matmuls summed) {split_ms:.4f} ms, concat + matmul {concat_ms:.4f} ms")
+    record("skip_gemm", err, ms, plain_ms, bound, None)
+    del x1, x2
+
+    b, ci, co, h, w = conv_chw_spike.BENCH_SHAPE
+    x = torch.randn((b, ci, h, w), generator=g, device=dev, dtype=bf)
+    wt = (torch.randn((co, ci, 3, 3), generator=g, device=dev) * 0.05).to(bf)
+    n = CONV_CHECK_IMAGES
+    err, ok = gc.GEMM_TOL.check(gc.conv3x3_chw_cuda(x[:n], wt), gc.conv3x3_chw_reference(x[:n], wt))
+    check(ok, f"conv3x3_chw: err {err}")
+    ms = time_ms(lambda: gc.conv3x3_chw_cuda(x, wt))
+    plain_ms = time_ms(lambda: gc.conv3x3_chw_reference(x, wt))
+    lib_ms = time_ms(lambda: F.conv2d(x, wt, padding=1))
+    bound = bound_ms(*gemm_work(co, b * h * w, 9 * ci, x.numel() * 2, wt.numel() * 2))
+    print(f"conv3x3_chw B={b} Ci={ci} Co={co} {h}x{w}: err={err:.3e} (on {n} images) "
+          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library (F.conv2d, cuDNN)={lib_ms:.4f} ms "
+          f"bound={bound[0]:.4f} ms ({bound[1]})")
+    record("conv3x3_chw", err, ms, plain_ms, bound, lib_ms)
+    del x
+
+    co, k = conv_chw_spike.GEMM_CO, conv_chw_spike.GEMM_K
+    for npx, nblk in conv_chw_spike.GEMM_CASES:
+        a = (torch.randn((co, k), generator=g, device=dev) * 0.05).to(bf)
+        bb = torch.randn((nblk, k, npx), generator=g, device=dev, dtype=bf)
+        err, ok = gc.GEMM_TOL.check(gc.gemm_blocks_cuda(a, bb), gc.gemm_blocks_reference(a, bb))
+        check(ok, f"gemm_blocks npx={npx} nblk={nblk}: err {err}")
+        ms = time_ms(lambda: gc.gemm_blocks_cuda(a, bb))
+        plain_ms = time_ms(lambda: gc.gemm_blocks_reference(a, bb))
+        lib_ms = time_ms(lambda: torch.matmul(a, bb))
+        bound = bound_ms(*gemm_work(co, npx * nblk, k, a.numel() * 2, bb.numel() * 2))
+        print(f"gemm_blocks [{co}x{k}] x [{nblk}x{k}x{npx}]: err={err:.3e} kernel={ms:.4f} ms "
+              f"plain={plain_ms:.4f} ms library (torch.matmul)={lib_ms:.4f} ms "
+              f"bound={bound[0]:.4f} ms ({bound[1]})")
+        record("gemm_blocks", err, ms, plain_ms, bound, lib_ms)
+        del bb
+
+
+def spike_parity():
+    """Phase 7.1; returns {kernel name: per-call numbers summed over shapes}."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.ops import gemm_conv as gc
+
+    phase(f"7.1 flash MHA (K8) and spike kernels (S1-S4) vs plain versions (bf16; out "
+          f"{ba.FORWARD_TOL}, lse {ba.LSE_TOL}, backward and noexp {ba.BACKWARD_TOL}, "
+          f"GEMM/conv {gc.GEMM_TOL})")
+    summary = {}
+    record = recorder(summary)
+    flash_parity(record)
+    variant_parity(record)
+    gemm_conv_parity(record)
+    torch.cuda.empty_cache()
+    return summary
+
+
+def entry_points():
+    """Phase 7.2: the slice's entry points -- the fused_attention API
+    (forward and backward through autograd, each API at each of phase
+    7.1's hot shapes) and each A/B tool once with few iterations; returns
+    the launch counts of that run."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.ops import fused_attention as fa
+    from mm_diffusion_tpu_torch.ops import gemm_conv as gc
+    from mm_diffusion_tpu_torch.tools import bench_attn_variants, bench_skip_conv, conv_chw_spike
+
+    phase("7.2 entry points: ops/fused_attention.py (flash_mha, flash_mha_bhtd) and the A/B tools")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    for counts in (ba, fa, gc):
+        counts.reset_launch_counts()
+    for api in (fa.flash_mha, fa.flash_mha_bhtd):
+        for label, b, h, tq, tk, d, _ in FLASH_SHAPES:
+            shape = (lambda t: (b, t, h, d)) if api is fa.flash_mha else (lambda t: (b, h, t, d))
+            leaves = [torch.randn(shape(t), generator=g, device=dev, dtype=torch.bfloat16).requires_grad_()
+                      for t in (tq, tk, tk)]
+            dout = torch.randn(shape(tq), generator=g, device=dev, dtype=torch.bfloat16)
+            out = api(*leaves)
+            out.backward(dout)
+            as_bthd = (lambda x: x) if api is fa.flash_mha else (lambda x: x.transpose(1, 2))
+            plain = [as_bthd(x.detach()) for x in leaves]
+            err, ok = fa.FORWARD_TOL.check(as_bthd(out.detach()), fa.mha_reference(*plain))
+            refs = fa.mha_backward_reference(*plain, as_bthd(dout))
+            errs = [fa.BACKWARD_TOL.check(as_bthd(x.grad), r) for x, r in zip(leaves, refs)]
+            print(f"{api.__name__} {label:13s} {tuple(out.shape)} Tq={tq} Tk={tk}: out err {err:.3e}; "
+                  f"dq/dk/dv err {', '.join(f'{e:.3e}' for e, _ in errs)}")
+            check(ok and all(o for _, o in errs), f"{api.__name__} {label}: output or gradients off")
+            del leaves, dout, out, plain, refs
+    few = ["--calls", "2", "--replays", "1"]
+    bench_attn_variants.main(few)
+    bench_skip_conv.main(few)
+    for mode in ("check", "bench", "gemm"):
+        conv_chw_spike.main([mode] + few)
+    torch.cuda.synchronize()
+    counts = {
+        "flash_mha_fwd": fa.LAUNCHES["flash_mha_fwd"],
+        "flash_mha_bwd": fa.LAUNCHES["flash_mha_bwd"],
+        **{f"self_attention_variant[{v}]": ba.VARIANT_LAUNCHES[v] for v in ("rows", "nomax", "noexp")},
+        **gc.LAUNCHES,
+    }
+    print(f"launches over the entry points' run: {counts} (K1 via the stock-kernel variants: "
+          f"{ba.LAUNCHES['self_attention']})")
+    for name, n in counts.items():
+        check(n > 0, f"{name} never launched through its entry point")
+    return counts
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -765,6 +1046,8 @@ def main() -> int:
             launches = flagship(tmp)
             gradient_parity()
             launches.update({k: v for k, v in training(tmp).items() if "_bwd" in k})
+        summary.update(spike_parity())
+        launches.update(entry_points())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

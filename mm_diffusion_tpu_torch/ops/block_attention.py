@@ -20,6 +20,11 @@ Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel (``csrc/``) or raises.  There are no size gates and no
 fallback from a failed build or launch to the plain version.  Each kernel
 wrapper counts its launches in :data:`LAUNCHES`.
+
+:func:`self_attention_variant` serves the A/B tool
+``tools/bench_attn_variants.py`` (the TPU spikes' K1 variants, see
+:data:`VARIANTS`); the model never calls it.  Its launches are counted per
+variant in :data:`VARIANT_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Tuple
 import torch
 
 from . import cuda_build
+from .common import Tolerance, kernel_path
 
 LAYOUTS = ("thirds", "per_head")
 HEAD_DIMS = (64, 96, 128)
@@ -48,12 +54,38 @@ LAUNCHES = {
 BANDED_WINDOWS: collections.Counter = collections.Counter()
 BANDED_BWD_WINDOWS: collections.Counter = collections.Counter()
 SELF_BWD_LENGTHS: collections.Counter = collections.Counter()
+VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+
+# The K1 forward's A/B variants (TPU spikes tools/bench_attn_variants.py and
+# tools/bench_attn_variants2.py), thirds layout.  On this card hoist, recip
+# and exp2 are what the stock kernel already does, so those names launch it;
+# rows, nomax and noexp are compile-time variants of it (csrc/self_attention.cu).
+VARIANTS = ("stock", "hoist", "recip", "exp2", "rows", "nomax", "noexp")
+VARIANT_CODES = {"rows": 1, "nomax": 2, "noexp": 3}
+NOMAX_CLAMP = 40.0  # nomax: logits clamped here; exact only below it
+NOEXP_SCALE = 1e-3  # noexp: p = NOEXP_SCALE * scaled logits
+
+# Each kernel's limit against its plain version (fp32 math on the same bf16
+# inputs); the flash MHA kernels (fused_attention.py) are held to the same.
+# Forward out: the kernel rounds P to bf16 before P @ V and rounds the
+# output to bf16 (relative 2^-9 each).
+FORWARD_TOL = Tolerance(1e-2, 1e-2)
+# Forward logsumexp: fp32 throughout; at |lse| ~ 7, 1e-3 is far below the
+# shift that one stray key would make.
+LSE_TOL = Tolerance(1e-3, 1e-4)
+# Backward: the kernels round P and dS to bf16 before the gradient products,
+# whose terms are of the size of the largest gradient, and round dq / dk / dv
+# to bf16, so the error of an element scales with the gradient's magnitude.
+# noexp's output is such a sum too (no softmax normalises it), and its values
+# are ~1e-3 at T = 16, below any fixed atol that would fit T = 1024.
+BACKWARD_TOL = Tolerance(1e-2, 1e-2, scaled=True)
+VARIANT_TOL = {**{v: FORWARD_TOL for v in VARIANTS}, "noexp": BACKWARD_TOL}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for counter in (BANDED_WINDOWS, BANDED_BWD_WINDOWS, SELF_BWD_LENGTHS):
+    for counter in (BANDED_WINDOWS, BANDED_BWD_WINDOWS, SELF_BWD_LENGTHS, VARIANT_LAUNCHES):
         counter.clear()
 
 
@@ -86,6 +118,29 @@ def self_attention_reference(
     logits = torch.einsum("nqhd,nkhd->nhqk", q, k) * (1.0 / math.sqrt(d))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("nhqk,nkhd->nqhd", w, v)
+    return out.reshape(n, t, c3 // 3).to(qkv.dtype)
+
+
+def self_attention_variant_reference(
+    qkv: torch.Tensor, num_heads: int, variant: str
+) -> torch.Tensor:
+    """Plain version of one K1 variant over thirds-layout ``[N, T, 3C]``, in
+    fp32: softmax attention for stock / hoist / recip / exp2 / rows;
+    ``nomax`` normalises ``exp(min(logit, 40))`` with no max subtracted;
+    ``noexp`` is ``(NOEXP_SCALE * logits) @ v`` with no softmax."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
+    if variant not in ("nomax", "noexp"):
+        return self_attention_reference(qkv, num_heads)
+    n, t, c3 = qkv.shape
+    q, k, v = split_packed_qkv(qkv.float(), num_heads)
+    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    if variant == "nomax":
+        p = torch.exp(logits.clamp(max=NOMAX_CLAMP))
+        p = p / p.sum(dim=-1, keepdim=True)
+    else:
+        p = logits * NOEXP_SCALE
+    out = torch.einsum("nhqk,nkhd->nqhd", p, v)
     return out.reshape(n, t, c3 // 3).to(qkv.dtype)
 
 
@@ -383,15 +438,33 @@ def banded_attention_bwd_cuda(
     return dq_src, dkv_src
 
 
+def self_attention_variant_cuda(qkv: torch.Tensor, num_heads: int, variant: str) -> torch.Tensor:
+    """Launch one K1 variant's kernel on thirds-layout ``qkv``; returns
+    ``out [N, T, C]``.  stock / hoist / recip / exp2 launch the stock kernel."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
+    if variant not in VARIANT_CODES:
+        out, _ = self_attention_cuda(qkv, num_heads)
+        VARIANT_LAUNCHES[variant] += 1
+        return out
+    n, t, c, d = _check_qkv(qkv, num_heads)
+    lib = cuda_build.load().lib
+    out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_self_attention_variant_fwd(
+            qkv.data_ptr(), out.data_ptr(), n, t, num_heads, d, VARIANT_CODES[variant],
+            int(qkv.dtype == torch.float32), stream,
+        )
+    if err:
+        raise RuntimeError(f"self-attention {variant} kernel launch failed: CUDA error {err}")
+    VARIANT_LAUNCHES[variant] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Autograd functions and dispatch
 # ---------------------------------------------------------------------------
-
-
-def _on(x: torch.Tensor) -> str:
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no attention path for device {x.device}")
-    return x.device.type
 
 
 class SelfAttention(torch.autograd.Function):
@@ -402,7 +475,7 @@ class SelfAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, num_heads: int, layout: str):
         ctx.num_heads, ctx.layout = num_heads, layout
-        if _on(qkv) == "cuda":
+        if kernel_path(qkv) == "cuda":
             qkv = qkv.contiguous()
             out, lse = self_attention_cuda(qkv, num_heads, layout)
             ctx.save_for_backward(qkv, out, lse)
@@ -412,7 +485,7 @@ class SelfAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if _on(g) == "cuda":
+        if kernel_path(g) == "cuda":
             qkv, out, lse = ctx.saved_tensors
             dqkv = self_attention_bwd_cuda(qkv, out, lse, g.contiguous(), ctx.num_heads, ctx.layout)
         else:
@@ -430,7 +503,7 @@ class BandedCrossAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q_src, kv_src, shift: int, local_window: int, num_heads: int, channels: int):
         ctx.args = (int(shift), local_window, num_heads, channels)
-        if _on(q_src) == "cuda":
+        if kernel_path(q_src) == "cuda":
             q_src, kv_src = q_src.contiguous(), kv_src.contiguous()
             out, lse = banded_attention_cuda(q_src, kv_src, *ctx.args)
             ctx.save_for_backward(q_src, kv_src, out, lse)
@@ -440,7 +513,7 @@ class BandedCrossAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if _on(g) == "cuda":
+        if kernel_path(g) == "cuda":
             q_src, kv_src, out, lse = ctx.saved_tensors
             dq, dkv = banded_attention_bwd_cuda(q_src, kv_src, out, lse, g.contiguous(), *ctx.args)
         else:
@@ -453,6 +526,14 @@ def self_attention(qkv: torch.Tensor, num_heads: int, layout: str = "thirds") ->
     """Packed-qkv MHA: plain version on the CPU, the CUDA kernel on a GPU;
     differentiable through :class:`SelfAttention`."""
     return SelfAttention.apply(qkv, num_heads, layout)
+
+
+def self_attention_variant(qkv: torch.Tensor, num_heads: int, variant: str) -> torch.Tensor:
+    """One K1 variant over thirds-layout ``qkv`` (forward only): the plain
+    version on the CPU, its kernel on a GPU."""
+    if kernel_path(qkv) == "cuda":
+        return self_attention_variant_cuda(qkv, num_heads, variant)
+    return self_attention_variant_reference(qkv, num_heads, variant)
 
 
 def banded_cross_attention_packed(

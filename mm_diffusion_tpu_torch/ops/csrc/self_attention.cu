@@ -14,8 +14,9 @@
 // the packed projection by offset and head stride, so neither the
 // thirds-major order ([q | k | v], MM-UNet) nor the legacy per-head order
 // ([h0: q k v | h1: q k v | ...], SR U-Net) needs a copy.  The temporal pass
-// (T = 16) wastes three quarters of each 64-row query tile; packing several
-// short sequences per block is left for a later change.
+// (T = 16) wastes three quarters of each 64-row query tile; the `rows`
+// variant below packs several short sequences per block, as an A/B spike
+// that the model does not call yet.
 //
 // Grid: (N, H, ceil(T / 64)); block: 128 threads (4 warps x 16 query rows).
 
@@ -64,6 +65,211 @@ static int dispatch(const void* qkv, void* out, float* lse, int n, int len, int 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// A/B variants of the kernel above (thirds layout, forward only, no lse), for
+// mm_diffusion_tpu_torch/tools/bench_attn_variants.py.  They replace the TPU
+// spike kernels `_fwd_kernel_v2` (tools/bench_attn_variants.py:36, variants
+// hoist / recip / rows_cap) and `_fwd_kernel_v3` (tools/bench_attn_variants2.py:40,
+// softmax modes stock / noexp / exp2 / nomax).  What each means on this card:
+//   hoist  the kernel above already keeps a warp's q rows in registers across
+//          every kv tile: it is the stock kernel.
+//   recip  the stock kernel already multiplies by 1/l (store_rows), and
+//   exp2   already folds log2(e) into the logit scale: both are the stock
+//          kernel, and no copy of it is built.
+//   rows   packs floor(64 / T) short sequences into one 64-row query tile
+//          under a block-diagonal mask (T <= 32): at T = 16 four sequences
+//          fill a tile that the stock kernel leaves three quarters empty, and
+//          one staged kv tile serves all four.  At T > 32 it is the stock
+//          online softmax, one sequence per block.
+//   nomax  p = exp2(min(logit * log2 e, 40 * log2 e)): no running max, no
+//          rescale of the accumulator; exact only while the logits stay
+//          below 40, diagnostic only (as on the TPU).
+//   noexp  p = 0.001 * the scaled logits, no softmax and no normalisation:
+//          the two products alone, a floor and not attention.
+// What bounds them: the stock kernel's limits (blocks in flight at short T,
+// one read of q and ceil(T / 64) of k/v per (sequence, head)); the variants
+// remove softmax work (nomax, noexp) or empty query rows (rows) to measure
+// what each costs.
+// Grid: rows at T <= 32: (ceil(N / pack), H, 1); otherwise (N, H, ceil(T / 64)).
+
+enum Variant { kVariantRows = 1, kVariantNoMax = 2, kVariantNoExp = 3 };
+
+constexpr float kNoMaxClampLog2 = 40.f * kLog2e;  // clamp of nomax, base-2 units
+constexpr float kNoExpScale = 1e-3f;
+
+// One staged tile of `keys` valid keys for variant V.  `seg` > 0 masks keys
+// outside the query row's own sequence (rows of `seg` tokens packed in the
+// tile); `row0` is the warp's first row within the block's query tile.
+template <int D, int V>
+__device__ __forceinline__ void attend_tile_variant(FlashState<D>& st, const SharedTiles<D>& sm,
+                                                    int keys, float scale_log2, float scale,
+                                                    int seg, int row0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float s[kBlockK / 8][4];
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const unsigned short* kr = sm.k + (j * 8 + g) * (D + kPadK) + kk * 16 + 2 * t;
+      mma_16816(s[j], st.q[kk], *reinterpret_cast<const uint32_t*>(kr),
+                *reinterpret_cast<const uint32_t*>(kr + 8));
+    }
+  }
+
+  float mx[2] = {-INFINITY, -INFINITY}, rowsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = j * 8 + 2 * t + (e & 1);
+      const int row = row0 + g + 8 * (e >> 1);
+      const bool ok = key < keys && (seg == 0 || key / seg == row / seg);
+      if (V == kVariantNoExp) {
+        s[j][e] = ok ? s[j][e] * scale * kNoExpScale : 0.f;
+      } else if (V == kVariantNoMax) {
+        const float p = ok ? exp2f(fminf(s[j][e] * scale_log2, kNoMaxClampLog2)) : 0.f;
+        s[j][e] = p;
+        rowsum[e >> 1] += p;
+      } else {
+        const float x = ok ? s[j][e] * scale_log2 : -INFINITY;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+  }
+  if (V == kVariantRows) {
+    float alpha[2], base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mnew = fmaxf(st.m[r], mx[r]);
+      // A query row past the last packed sequence has no valid key.
+      base[r] = mnew == -INFINITY ? 0.f : mnew;
+      alpha[r] = exp2f(st.m[r] - base[r]);
+      st.m[r] = mnew;
+    }
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - base[e >> 1]);
+        s[j][e] = p;
+        rowsum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * alpha[r] + rowsum[r];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st.o[n][e] *= alpha[e >> 1];
+    }
+  } else if (V == kVariantNoMax) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) st.l[r] += rowsum[r];
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    uint32_t a[4];
+    a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const unsigned short* vr = sm.vt + (n * 8 + g) * (kBlockK + kPadK) + kk * 16 + 2 * t;
+      mma_16816(st.o[n], a, *reinterpret_cast<const uint32_t*>(vr),
+                *reinterpret_cast<const uint32_t*>(vr + 8));
+    }
+  }
+}
+
+template <int D, typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    self_attention_variant_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int len,
+                                  int heads, int pack, float scale_log2, float scale) {
+  __shared__ __align__(16) SharedTiles<D> sm;
+  const int h = blockIdx.y;
+  const int c = heads * D;
+  const long stride = 3L * c;
+  const int seq0 = blockIdx.x * pack;
+  // pack > 1: rows [0, rows) of the block are `pack` whole sequences, one
+  // key tile; pack == 1: one sequence, query tile blockIdx.z.
+  const int rows = min(pack, n - seq0) * len;
+  const int seg = pack > 1 ? len : 0;
+  const int row0 = blockIdx.z * kBlockQ + (threadIdx.x >> 5) * 16;
+  const T* q = qkv + (long)seq0 * len * stride + (long)h * D;
+
+  FlashState<D> st;
+  load_queries<D, T>(st, q, stride, row0, rows);
+  for (int k0 = 0; k0 < rows; k0 += kBlockK) {
+    const int keys = min(kBlockK, rows - k0);
+    stage_kv<D, T>(sm, q + c + k0 * stride, q + 2 * c + k0 * stride, stride, keys);
+    __syncthreads();
+    attend_tile_variant<D, V>(st, sm, keys, scale_log2, scale, seg, row0);
+    __syncthreads();
+  }
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float inv[2] = {1.f, 1.f};
+  if (V != kVariantNoExp) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = st.l[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = 1.f / l;
+    }
+  }
+  T* o = out + (long)seq0 * len * c + (long)h * D;
+  const int r0 = row0 + g, r1 = row0 + g + 8;
+#pragma unroll
+  for (int nn = 0; nn < D / 8; ++nn) {
+    const int col = nn * 8 + 2 * t;
+    if (r0 < rows) Io<T>::store_pair(o + r0 * (long)c + col, st.o[nn][0] * inv[0], st.o[nn][1] * inv[0]);
+    if (r1 < rows) Io<T>::store_pair(o + r1 * (long)c + col, st.o[nn][2] * inv[1], st.o[nn][3] * inv[1]);
+  }
+}
+
+template <int D, typename T, int V>
+static int launch_variant(const void* qkv, void* out, int n, int len, int heads,
+                          cudaStream_t stream) {
+  const int pack = (V == kVariantRows && len <= kBlockQ / 2) ? kBlockQ / len : 1;
+  const dim3 grid = pack > 1 ? dim3((n + pack - 1) / pack, heads, 1)
+                             : dim3(n, heads, (len + kBlockQ - 1) / kBlockQ);
+  const float scale = 1.f / sqrtf((float)D);
+  self_attention_variant_kernel<D, T, V><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), n, len, heads, pack, kLog2e * scale,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, typename T>
+static int dispatch_variant_mode(const void* qkv, void* out, int n, int len, int heads,
+                                 int variant, cudaStream_t s) {
+  switch (variant) {
+    case kVariantRows: return launch_variant<D, T, kVariantRows>(qkv, out, n, len, heads, s);
+    case kVariantNoMax: return launch_variant<D, T, kVariantNoMax>(qkv, out, n, len, heads, s);
+    case kVariantNoExp: return launch_variant<D, T, kVariantNoExp>(qkv, out, n, len, heads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+static int dispatch_variant(const void* qkv, void* out, int n, int len, int heads, int head_dim,
+                            int variant, cudaStream_t s) {
+  switch (head_dim) {
+    case 64: return dispatch_variant_mode<64, T>(qkv, out, n, len, heads, variant, s);
+    case 96: return dispatch_variant_mode<96, T>(qkv, out, n, len, heads, variant, s);
+    case 128: return dispatch_variant_mode<128, T>(qkv, out, n, len, heads, variant, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace mmdiff
 
 // Head h reads q at h*head_stride, k at h*head_stride + k_off and v at
@@ -80,4 +286,16 @@ extern "C" int mmdiff_self_attention_fwd(const void* qkv, void* out, float* lse,
                                    v_off, s);
   return mmdiff::dispatch<mmdiff::bf16>(qkv, out, lse, n, len, heads, head_dim, head_stride,
                                         k_off, v_off, s);
+}
+
+// The variants above over thirds-layout qkv [N, T, 3C] -> out [N, T, C];
+// variant 1 = rows, 2 = nomax, 3 = noexp.  Returns the launch's
+// cudaGetLastError() (0 on success).
+extern "C" int mmdiff_self_attention_variant_fwd(const void* qkv, void* out, int n, int len,
+                                                 int heads, int head_dim, int variant,
+                                                 int is_fp32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_fp32)
+    return mmdiff::dispatch_variant<float>(qkv, out, n, len, heads, head_dim, variant, s);
+  return mmdiff::dispatch_variant<mmdiff::bf16>(qkv, out, n, len, heads, head_dim, variant, s);
 }

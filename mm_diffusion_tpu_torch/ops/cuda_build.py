@@ -29,9 +29,12 @@ SOURCES = (
     "banded_attention.cu",
     "self_attention_bwd.cu",
     "banded_attention_bwd.cu",
+    "flash_mha.cu",
+    "skip_gemm.cu",
+    "conv3x3_chw.cu",
 )
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-LIB_NAME = "libmmdiff_attention.so"
+LIB_NAME = "libmmdiff_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,12 +42,18 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of the entry points (see the .cu files).
 SIGNATURES = {
     "mmdiff_self_attention_fwd": [_P, _P, _P] + [_I] * 8 + [_P],
     "mmdiff_banded_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
     "mmdiff_self_attention_bwd": [_P] * 6 + [_I] * 8 + [_P],
     "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 9 + [_P],
+    "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 6 + [_P],
+    "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 5 + [_L] * 6 + [_I, _P],
+    "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 5 + [_L] * 6 + [_I, _P],
+    "mmdiff_gemm_bf16": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 3 + [_P],
+    "mmdiff_conv3x3_chw": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 
@@ -66,7 +75,7 @@ def find_nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the attention "
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the port's "
         "kernels are built from source with the CUDA toolkit"
     )
 

@@ -1,0 +1,220 @@
+"""Flash multi-head attention (counterpart of
+``mm_diffusion_tpu/ops/fused_attention.py``).
+
+* :func:`flash_mha` -- ``[B, T, H, D]`` q, k, v -> ``[B, Tq, H, D]``;
+* :func:`flash_mha_bhtd` -- the same over ``[B, H, T, D]``.
+
+Both have the JAX contract: scale ``1/sqrt(D)``, fp32 softmax, the output in
+v's dtype, ``Tq != Tk`` allowed, differentiable in q, k and v.  They are one
+``torch.autograd.Function`` whose forward and backward are kernels
+(``csrc/flash_mha.cu``): the forward writes the output and an fp32
+logsumexp, the backward a dq pass and a dk/dv pass.  Both layouts reach the
+same kernels through their (batch, head, row) strides, so neither is
+transposed in device memory; nothing is padded (the kernel masks ragged Tq
+and Tk).
+
+Dispatch: a tensor on the CPU takes the plain version (:func:`mha_reference`
+and :func:`mha_backward_reference`); a CUDA tensor launches the kernels or
+raises -- head dims other than :data:`HEAD_DIMS` included.  There is no size
+gate and no fallback.  Each kernel wrapper counts its launches in
+:data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from . import cuda_build
+# The kernels are held to the limits of K1 (forward, logsumexp) and K4
+# (backward): the same rounding at the same places.
+from .block_attention import BACKWARD_TOL, FORWARD_TOL, KERNEL_DTYPES, LSE_TOL, _softmax_backward  # noqa: F401
+from .common import kernel_path
+
+HEAD_DIMS = (64, 96, 128)
+MAX_GRID_DIM = 65535  # B and H are grid dimensions of the kernels
+
+# Launches of each kernel since the last reset_launch_counts().
+LAUNCHES = {"flash_mha_fwd": 0, "flash_mha_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path and the kernels' oracles)
+# ---------------------------------------------------------------------------
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain multi-head attention over ``[B, T, H, D]`` in fp32, out in v's
+    dtype: the port's counterpart of ``models/attention.py::qkv_attention``
+    (one logit scale of ``1/sqrt(D)``)."""
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(v.dtype)
+
+
+def mha_backward_reference(q, k, v, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain backward of :func:`mha_reference` over ``[B, T, H, D]``, in
+    fp32: ``(q, k, v, g [B, Tq, H, D]) -> (dq, dk, dv)`` in the inputs'
+    dtypes."""
+    dq, dk, dv = _softmax_backward(
+        q.float(), k.float(), v.float(), g.float(), 1.0 / math.sqrt(q.shape[-1])
+    )
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def kernel_layout(x: torch.Tensor) -> bool:
+    """Whether the kernels read this ``[B, H, T, D]`` view in place: a
+    contiguous ``[B, H, T, D]`` tensor, or a contiguous ``[B, T, H, D]`` one
+    with its middle axes swapped."""
+    return x.dim() == 4 and (x.is_contiguous() or x.transpose(1, 2).is_contiguous())
+
+
+def same_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes and equal strides on every axis longer than 1 (the
+    kernels never step along an axis of length 1)."""
+    return a.shape == b.shape and all(
+        n == 1 or sa == sb for n, sa, sb in zip(a.shape, a.stride(), b.stride())
+    )
+
+
+def _check_operands(q, k, v):
+    """Validate ``[B, H, T, D]`` q, k, v for the kernels; returns (B, H, Tq, Tk, D)."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got {x.device}")
+        if x.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"{name}: the CUDA kernel takes bf16 or fp32, got {x.dtype}")
+        if not kernel_layout(x):
+            raise ValueError(
+                f"{name}: expected a [B, H, T, D] view of a contiguous [B, H, T, D] or "
+                f"[B, T, H, D] tensor, got shape {tuple(x.shape)} strides {x.stride()}"
+            )
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the CUDA kernel needs a 16-byte aligned tensor")
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if k.shape != (b, h, tk, d) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if not same_layout(k, v):
+        raise ValueError("k and v must share their layout (strides)")
+    if len({q.dtype, k.dtype, v.dtype}) > 1 or len({q.device, k.device, v.device}) > 1:
+        raise ValueError("q, k and v must share dtype and device")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the flash MHA kernel takes head dims {HEAD_DIMS}, got {d}")
+    if min(b, h, tq, tk) == 0 or max(b, h) > MAX_GRID_DIM:
+        raise ValueError(f"B and H must be in [1, {MAX_GRID_DIM}] and T > 0, got {tuple(q.shape)}, Tk {tk}")
+    return b, h, tq, tk, d
+
+
+def flash_mha_fwd_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on ``[B, H, T, D]`` views (see
+    :func:`kernel_layout`).  Returns ``(out [B, H, Tq, D]`` in q's layout,
+    ``lse [B, H, Tq]`` fp32)."""
+    b, h, tq, tk, d = _check_operands(q, k, v)
+    lib = cuda_build.load().lib
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_flash_mha_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            b, h, tq, tk, d, *q.stride()[:3], *k.stride()[:3],
+            int(q.dtype == torch.float32), stream,
+        )
+    if err:
+        raise RuntimeError(f"flash MHA forward kernel launch failed: CUDA error {err}")
+    LAUNCHES["flash_mha_fwd"] += 1
+    return out, lse
+
+
+def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels on the forward's q, k, v, ``out`` and
+    ``lse`` and the output gradient ``g`` (``out``'s layout).  Returns
+    ``(dq, dk, dv)`` in the layouts of q, k, v."""
+    b, h, tq, tk, d = _check_operands(q, k, v)
+    for name, x in (("out", out), ("g", g)):
+        if not same_layout(x, q) or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(
+                f"{name}: expected q's shape {tuple(q.shape)}, strides {q.stride()} and dtype, "
+                f"got {tuple(x.shape)} {x.stride()} {x.dtype}"
+            )
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, tq) or not lse.is_contiguous():
+        raise ValueError(f"lse: expected contiguous fp32 {(b, h, tq)}, got {tuple(lse.shape)}")
+    lib = cuda_build.load().lib
+    delta = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_flash_mha_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, tq, tk, d, *q.stride()[:3], *k.stride()[:3],
+            int(q.dtype == torch.float32), stream,
+        )
+    if err:
+        raise RuntimeError(f"flash MHA backward kernel launch failed: CUDA error {err}")
+    LAUNCHES["flash_mha_bwd"] += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Autograd function and the two entry points
+# ---------------------------------------------------------------------------
+
+
+def _bthd(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(1, 2)
+
+
+class FlashMHA(torch.autograd.Function):
+    """Attention over ``[B, H, T, D]`` views with its backward: the CUDA
+    kernels on a CUDA tensor (the forward's output and logsumexp saved),
+    the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if kernel_path(q) == "cuda":
+            q, k, v = (x if kernel_layout(x) else x.contiguous() for x in (q, k, v))
+            if not same_layout(k, v):
+                k, v = k.contiguous(), v.contiguous()
+            out, lse = flash_mha_fwd_cuda(q, k, v)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
+        return _bthd(mha_reference(_bthd(q), _bthd(k), _bthd(v)))
+
+    @staticmethod
+    def backward(ctx, g):
+        if kernel_path(g) == "cuda":
+            q, k, v, out, lse = ctx.saved_tensors
+            if not same_layout(g, out):
+                g = torch.empty_like(out).copy_(g)
+            return flash_mha_bwd_cuda(q, k, v, out, lse, g)
+        q, k, v = ctx.saved_tensors
+        return tuple(_bthd(x) for x in mha_backward_reference(*map(_bthd, (q, k, v, g))))
+
+
+def flash_mha_bhtd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Multi-head attention over ``[B, H, T, D]`` tensors: the plain version
+    on the CPU, the flash kernels on a GPU."""
+    return FlashMHA.apply(q, k, v)
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Multi-head attention over ``[B, T, H, D]`` tensors (the contract of
+    ``models/attention.py::qkv_attention``); the kernels read this layout in
+    place through its strides, and the output is ``[B, Tq, H, D]``."""
+    return _bthd(FlashMHA.apply(_bthd(q), _bthd(k), _bthd(v)))

@@ -1,0 +1,197 @@
+"""GEMM and convolution kernels of the port's conv spikes: plain PyTorch
+versions and the hand-written CUDA kernels' wrappers.
+
+* :func:`skip_gemm` -- the decoder-skip 1x1 conv over two NHWC channel parts
+  without a concat: ``x1 . w[:C1] + x2 . w[C1:]``, ``[B, H, W, C1]`` and
+  ``[B, H, W, C2]`` -> ``[B, H, W, CO]`` (counterpart of ``skip_gemm`` in
+  ``tools/bench_skip_conv.py``, whose CO is fixed at 192; here it is
+  ``w.shape[1]``).
+* :func:`gemm_blocks` -- ``[Co, K] x [nblk, K, npx] -> [nblk, Co, npx]``,
+  the GEMM core of ``tools/conv_chw_spike.py`` (``gemm()``), on the same
+  kernel (``csrc/skip_gemm.cu``) with one part.
+* :func:`conv3x3_chw` -- 3x3 SAME conv in channel-major layout, ``[B, Ci,
+  H, W]`` and ``[Co, Ci, 3, 3]`` -> ``[B, Co, H, W]``, as a direct implicit
+  GEMM that never writes the im2col matrix (``csrc/conv3x3_chw.cu``;
+  counterpart of ``conv3x3_chw`` in ``tools/conv_chw_spike.py``).
+
+The kernels take bf16 activations, accumulate in fp32 and return bf16 (the
+TPU kernels' contract); the weights are cast to bf16 by the wrapper, as the
+JAX tools cast them.  The plain versions compute in fp32 and return the
+activations' dtype.  Dispatch: a tensor on the CPU takes the plain version;
+a CUDA tensor launches the kernel or raises on what it does not take.  No
+model calls these yet: the tools under ``mm_diffusion_tpu_torch/tools/`` are
+their entry points.  Each kernel wrapper counts its launches in
+:data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+from .common import Tolerance, kernel_path
+
+MAX_GRID_DIM = 65535  # M / 64 and the batch (GEMM), Co / 64 and B (conv) are grid dimensions
+# The three kernels against their fp32 plain versions: bf16 operands and a
+# bf16 output of size ~2 (up to K = 1728 terms of 0.05-scaled weights),
+# rounded at 2^-9 relative, fp32 accumulation in another order.
+GEMM_TOL = Tolerance(2e-2, 1e-2)
+
+LAUNCHES = {"skip_gemm": 0, "gemm_blocks": 0, "conv3x3_chw": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path and the kernels' oracles)
+# ---------------------------------------------------------------------------
+
+
+def skip_gemm_reference(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Concat then one matmul, in fp32: ``cat([x1, x2], -1) @ w``."""
+    return (torch.cat([x1, x2], dim=-1).float() @ w.float()).to(x1.dtype)
+
+
+def gemm_blocks_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched matmul in fp32: ``a [Co, K] @ b [nblk, K, npx]``."""
+    return torch.matmul(a.float(), b.float()).to(b.dtype)
+
+
+def conv3x3_chw_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Explicit im2col (``F.unfold``) and one matmul per image, in fp32: the
+    kernel's arithmetic, with no cuDNN."""
+    b, ci, h, w_px = x.shape
+    co = w.shape[0]
+    cols = F.unfold(x.float(), kernel_size=3, padding=1)  # [B, Ci*9, H*W], (ci, dy, dx) order
+    out = torch.matmul(w.float().reshape(co, ci * 9), cols)
+    return out.reshape(b, co, h, w_px).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_bf16(x: torch.Tensor, name: str, ndim: int) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 activations, got {x.dtype}")
+    if x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {ndim}-d tensor, got {tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the CUDA kernel needs a 16-byte aligned tensor")
+
+
+def _weights(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if w.device != like.device:
+        raise ValueError(f"w on {w.device}, activations on {like.device}")
+    return w.to(torch.bfloat16).contiguous()
+
+
+def _launch_gemm(a0, lda0, a0_batch, k0, a1, lda1, a1_batch, k1, b, ldb, b_batch, c, ldc,
+                 c_batch, m, n, batch, name):
+    if any(x % 8 for x in (k0, k1, n, lda0, lda1, ldb, ldc)):
+        raise ValueError(f"{name}: K of each part, N and the row strides must be multiples of 8")
+    if (m + 63) // 64 > MAX_GRID_DIM or batch > MAX_GRID_DIM:
+        raise ValueError(f"{name}: M = {m} or batch = {batch} is too large for the kernel's grid")
+    lib = cuda_build.load().lib
+    with torch.cuda.device(c.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_gemm_bf16(
+            a0.data_ptr(), lda0, a0_batch, k0,
+            a1.data_ptr() if a1 is not None else None, lda1, a1_batch, k1,
+            b.data_ptr(), ldb, b_batch, c.data_ptr(), ldc, c_batch, m, n, batch, stream,
+        )
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def skip_gemm_cuda(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the two-part GEMM on ``x1 [B, H, W, C1]``, ``x2 [B, H, W,
+    C2]`` and ``w [C1 + C2, CO]``; returns ``[B, H, W, CO]`` bf16."""
+    _check_bf16(x1, "x1", 4)
+    _check_bf16(x2, "x2", 4)
+    c1, c2 = x1.shape[-1], x2.shape[-1]
+    if x2.shape[:-1] != x1.shape[:-1] or x2.device != x1.device:
+        raise ValueError(f"x1 {tuple(x1.shape)} and x2 {tuple(x2.shape)} differ outside the channels")
+    if w.dim() != 2 or w.shape[0] != c1 + c2:
+        raise ValueError(f"w: expected [{c1 + c2}, CO], got {tuple(w.shape)}")
+    wb = _weights(w, x1)
+    co = wb.shape[1]
+    m = x1.numel() // c1
+    out = torch.empty((*x1.shape[:-1], co), dtype=torch.bfloat16, device=x1.device)
+    _launch_gemm(x1, c1, 0, c1, x2, c2, 0, c2, wb, co, 0, out, co, 0, m, co, 1, "skip_gemm")
+    return out
+
+
+def gemm_blocks_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the GEMM on ``a [Co, K]`` (shared) and ``b [nblk, K, npx]``;
+    returns ``[nblk, Co, npx]`` bf16."""
+    _check_bf16(b, "b", 3)
+    nblk, k, npx = b.shape
+    if a.dim() != 2 or a.shape[1] != k:
+        raise ValueError(f"a: expected [Co, {k}], got {tuple(a.shape)}")
+    ab = _weights(a, b)
+    co = ab.shape[0]
+    out = torch.empty((nblk, co, npx), dtype=torch.bfloat16, device=b.device)
+    _launch_gemm(ab, k, 0, k, None, 0, 0, 0, b, npx, k * npx, out, npx, co * npx, co, npx, nblk,
+                 "gemm_blocks")
+    return out
+
+
+def conv3x3_chw_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the direct 3x3 conv on ``x [B, Ci, H, W]`` and ``w [Co, Ci, 3,
+    3]``; returns ``[B, Co, H, W]`` bf16."""
+    _check_bf16(x, "x", 4)
+    b, ci, h, w_px = x.shape
+    if w.dim() != 4 or w.shape[1:] != (ci, 3, 3):
+        raise ValueError(f"w: expected [Co, {ci}, 3, 3], got {tuple(w.shape)}")
+    if b > MAX_GRID_DIM or (w.shape[0] + 63) // 64 > MAX_GRID_DIM:
+        raise ValueError(f"batch {b} or Co {w.shape[0]} too large for the kernel's grid")
+    wb = _weights(w, x)
+    co = wb.shape[0]
+    out = torch.empty((b, co, h, w_px), dtype=torch.bfloat16, device=x.device)
+    lib = cuda_build.load().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_conv3x3_chw(x.data_ptr(), wb.data_ptr(), out.data_ptr(), b, ci, co, h,
+                                     w_px, stream)
+    if err:
+        raise RuntimeError(f"conv3x3_chw kernel launch failed: CUDA error {err}")
+    LAUNCHES["conv3x3_chw"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def skip_gemm(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``cat([x1, x2], -1) @ w`` without the concat: the plain version on
+    the CPU, the two-part GEMM kernel on a GPU."""
+    if kernel_path(x1) == "cuda":
+        return skip_gemm_cuda(x1, x2, w)
+    return skip_gemm_reference(x1, x2, w)
+
+
+def gemm_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [Co, K] @ b [nblk, K, npx]``: the plain version on the CPU, the
+    GEMM kernel on a GPU."""
+    if kernel_path(b) == "cuda":
+        return gemm_blocks_cuda(a, b)
+    return gemm_blocks_reference(a, b)
+
+
+def conv3x3_chw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME conv, ``[B, Ci, H, W]`` -> ``[B, Co, H, W]``: the plain
+    version on the CPU, the direct implicit-GEMM kernel on a GPU."""
+    if kernel_path(x) == "cuda":
+        return conv3x3_chw_cuda(x, w)
+    return conv3x3_chw_reference(x, w)

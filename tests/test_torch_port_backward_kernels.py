@@ -11,7 +11,7 @@ CUDA kernels have no CPU or interpret mode, so every test here is marked
 import pytest
 import torch
 
-from chip_smoke import TRAIN_BANDED_SHAPES, TRAIN_SELF_SHAPES, bwd_compare
+from chip_smoke import TRAIN_BANDED_SHAPES, TRAIN_SELF_SHAPES
 from mm_diffusion_tpu_torch.ops import block_attention as ba
 
 pytestmark = pytest.mark.cuda
@@ -27,7 +27,7 @@ def cuda():
 
 def _close(out, ref):
     assert out.shape == ref.shape and out.dtype == ref.dtype
-    err, ok = bwd_compare(out, ref)
+    err, ok = ba.BACKWARD_TOL.check(out, ref)
     assert ok, f"max |error| {err} against max |plain| {ref.float().abs().max().item()}"
 
 

@@ -1,0 +1,174 @@
+"""The flash MHA kernels (K8) and the spike kernels (S1-S4) against their
+plain PyTorch versions, on the card: both K8 layouts, Tq != Tk with ragged
+ends, every head dim; the K1 variants at ragged and packed lengths; the
+GEMM and the conv at ragged sizes.
+
+CUDA kernels have no CPU or interpret mode, so every test here is marked
+``cuda`` and skips without a CUDA device.  On a GPU machine:
+
+    python -m pytest --noconftest tests/test_torch_port_flash_and_spike_kernels.py -q
+"""
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from mm_diffusion_tpu_torch.ops import block_attention as ba
+from mm_diffusion_tpu_torch.ops import fused_attention as fa
+from mm_diffusion_tpu_torch.ops import gemm_conv as gc
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(out, ref, tol=fa.FORWARD_TOL):
+    assert out.shape == ref.shape
+    err, ok = tol.check(out, ref)
+    assert ok, f"max |error| {err} against max |plain| {ref.float().abs().max().item()}: not {tol}"
+
+
+def _bwd_close(out, ref):
+    assert out.dtype == ref.dtype
+    _close(out, ref, fa.BACKWARD_TOL)
+
+
+def _operands(gen, dev, b, h, tq, tk, d, layout, dtype=torch.bfloat16):
+    def make(t):
+        shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
+        x = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        return x if layout == "bhtd" else x.transpose(1, 2)
+
+    return make(tq), make(tk), make(tk), make(tq)
+
+
+def _bthd(*xs):
+    return [x.transpose(1, 2) for x in xs]
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("tq,tk", [(1, 5), (17, 33), (64, 64), (100, 1024), (130, 65), (1024, 400)])
+def test_flash_mha_kernels_ragged(cuda, layout, d, tq, tk):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, dout = _operands(g, cuda, 3, 2, tq, tk, d, layout)
+    out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+    assert out.stride() == q.stride()
+    _close(out, fa.mha_reference(*_bthd(q, k, v)).transpose(1, 2))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d**0.5
+    _close(lse, torch.logsumexp(logits, dim=-1), fa.LSE_TOL)
+    grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+    refs = fa.mha_backward_reference(*_bthd(q, k, v, dout))
+    for got, ref in zip(grads, refs):
+        _bwd_close(got, ref.transpose(1, 2))
+
+
+def test_flash_mha_autograd_both_entry_points_and_counts(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    fa.reset_launch_counts()
+    leaves = [torch.randn((2, t, 4, 64), generator=g, device=cuda).requires_grad_() for t in (50, 70, 70)]
+    dout = torch.randn((2, 50, 4, 64), generator=g, device=cuda)
+    fa.flash_mha(*leaves).backward(dout)
+    refs = fa.mha_backward_reference(*(x.detach() for x in leaves), dout)
+    for leaf, ref in zip(leaves, refs):
+        _bwd_close(leaf.grad, ref)
+    bhtd = [x.detach().transpose(1, 2).contiguous().requires_grad_() for x in leaves]
+    out = fa.flash_mha_bhtd(*bhtd)
+    assert out.dtype == torch.float32 and out.is_contiguous()
+    out.backward(dout.transpose(1, 2))
+    for leaf, ref in zip(bhtd, refs):
+        _bwd_close(leaf.grad, ref.transpose(1, 2))
+    assert fa.LAUNCHES == {"flash_mha_fwd": 2, "flash_mha_bwd": 2}
+
+
+def test_flash_mha_backward_is_deterministic(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, dout = _operands(g, cuda, 4, 4, 300, 129, 64, "bthd")
+    out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+    first = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+    second = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_mha_unsupported_inputs_raise(cuda):
+    x = torch.randn((1, 2, 16, 32), device=cuda)
+    with pytest.raises(ValueError, match=r"head dims \(64, 96, 128\)"):
+        fa.flash_mha_bhtd(x, x, x)
+    with pytest.raises(TypeError):
+        fa.flash_mha_fwd_cuda(*(torch.randn((1, 2, 16, 64), device=cuda).half(),) * 3)
+    y = torch.randn((1, 2, 32, 64), device=cuda)
+    with pytest.raises(ValueError, match="view"):
+        fa.flash_mha_fwd_cuda(y[:, :, ::2], y[:, :, ::2], y[:, :, ::2])
+
+
+@pytest.mark.parametrize("variant", ba.VARIANTS)
+@pytest.mark.parametrize("n,t", [(1, 1), (5, 7), (9, 16), (3, 25), (4, 32), (2, 33), (3, 100)])
+def test_attention_variants(cuda, variant, n, t):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for heads, c in ((2, 128), (2, 192), (2, 256)):
+        qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+        _close(ba.self_attention_variant(qkv, heads, variant),
+               ba.self_attention_variant_reference(qkv, heads, variant), ba.VARIANT_TOL[variant])
+
+
+def test_attention_variant_counts(cuda):
+    ba.reset_launch_counts()
+    qkv = torch.randn((8, 16, 3 * 128), device=cuda, dtype=torch.bfloat16)
+    for variant in ba.VARIANTS:
+        ba.self_attention_variant(qkv, 2, variant)
+    assert dict(ba.VARIANT_LAUNCHES) == {v: 1 for v in ba.VARIANTS}
+    assert ba.LAUNCHES["self_attention"] == 4  # stock, hoist, recip, exp2 launch the stock kernel
+
+
+@pytest.mark.parametrize("shape,c1,c2,co", [
+    ((1, 3, 7), 16, 40, 8), ((2, 5, 9), 192, 192, 192), ((1, 4, 33), 64, 8, 200),
+])
+def test_skip_gemm(cuda, shape, c1, c2, co):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x1 = torch.randn((*shape, c1), generator=g, device=cuda, dtype=torch.bfloat16)
+    x2 = torch.randn((*shape, c2), generator=g, device=cuda, dtype=torch.bfloat16)
+    w = torch.randn((c1 + c2, co), generator=g, device=cuda) * 0.05
+    out = gc.skip_gemm(x1, x2, w)
+    assert out.dtype == torch.bfloat16 and out.shape == (*shape, co)
+    _close(out, gc.skip_gemm_reference(x1, x2, w), gc.GEMM_TOL)
+
+
+@pytest.mark.parametrize("co,k,nblk,npx", [(192, 1728, 2, 256), (100, 72, 3, 24), (8, 8, 1, 8)])
+def test_gemm_blocks(cuda, co, k, nblk, npx):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((co, k), generator=g, device=cuda) * 0.05
+    b = torch.randn((nblk, k, npx), generator=g, device=cuda, dtype=torch.bfloat16)
+    _close(gc.gemm_blocks(a, b), gc.gemm_blocks_reference(a, b), gc.GEMM_TOL)
+
+
+@pytest.mark.parametrize("b,ci,co,h,w", [
+    (1, 5, 7, 9, 13), (2, 16, 64, 3, 130), (1, 192, 192, 17, 256), (1, 20, 70, 8, 1),
+])
+def test_conv3x3_chw(cuda, b, ci, co, h, w):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((b, ci, h, w), generator=g, device=cuda, dtype=torch.bfloat16)
+    wt = torch.randn((co, ci, 3, 3), generator=g, device=cuda) * 0.05
+    out = gc.conv3x3_chw(x, wt)
+    _close(out, gc.conv3x3_chw_reference(x, wt), gc.GEMM_TOL)
+    _close(out, F.conv2d(x.float(), wt.float(), padding=1), gc.GEMM_TOL)
+
+
+def test_gemm_conv_counts_and_refusals(cuda):
+    gc.reset_launch_counts()
+    x = torch.randn((1, 4, 4, 8), device=cuda, dtype=torch.bfloat16)
+    gc.skip_gemm(x, x, torch.randn((16, 8), device=cuda))
+    gc.gemm_blocks(torch.randn((8, 8), device=cuda), torch.randn((2, 8, 8), device=cuda).bfloat16())
+    gc.conv3x3_chw(x, torch.randn((8, 4, 3, 3), device=cuda))
+    assert gc.LAUNCHES == {"skip_gemm": 1, "gemm_blocks": 1, "conv3x3_chw": 1}
+    x6 = torch.randn((1, 4, 4, 6), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gc.skip_gemm(x6, x6, torch.randn((12, 8), device=cuda))
+    with pytest.raises(TypeError):
+        gc.conv3x3_chw(x.float(), torch.randn((8, 4, 3, 3), device=cuda))

@@ -10,7 +10,7 @@ CUDA kernels have no CPU or interpret mode, so every test here is marked
 import pytest
 import torch
 
-from chip_smoke import BANDED_SHAPES, KERNEL_ATOL, KERNEL_RTOL, SELF_SHAPES
+from chip_smoke import BANDED_SHAPES, SELF_SHAPES
 from mm_diffusion_tpu_torch.ops import block_attention as ba
 
 pytestmark = pytest.mark.cuda
@@ -23,8 +23,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(out, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL):
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+def _close(out, ref, tol=ba.FORWARD_TOL):
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol.atol, rtol=tol.rtol)
 
 
 @pytest.mark.parametrize("label,n,t,c,heads,layout", SELF_SHAPES, ids=[s[0] for s in SELF_SHAPES])
@@ -35,7 +35,7 @@ def test_self_attention_kernel(cuda, label, n, t, c, heads, layout):
     _close(out, ba.self_attention_reference(qkv, heads, layout))
     q, k, _ = ba.split_packed_qkv(qkv.float(), heads, layout)
     logits = torch.einsum("nqhd,nkhd->nhqk", q, k) / (c // heads) ** 0.5
-    _close(lse, torch.logsumexp(logits, dim=-1), atol=1e-3, rtol=1e-4)
+    _close(lse, torch.logsumexp(logits, dim=-1), tol=ba.LSE_TOL)
 
 
 @pytest.mark.parametrize(

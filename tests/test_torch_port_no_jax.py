@@ -1,6 +1,7 @@
 """The PyTorch port never imports JAX nor anything of the JAX package: every
-module imports, a tiny forward of both models and a tiny training loss and
-backward run, in a fresh interpreter where jax / flax / optax cannot be
+module imports, a tiny forward of both models, a tiny training loss and
+backward, the flash MHA and spike-kernel entry points and the A/B tools run,
+in a fresh interpreter where jax / flax / optax cannot be
 imported, and no module of the JAX package gets loaded -- not even one that
 does not import JAX.  No port module and not chip_smoke.py has an import of
 the JAX package, and library attention is timed only as chip_smoke.py's
@@ -55,15 +56,41 @@ loss = diffusion.training_losses(mm_model_fn(model, 1), x0, torch.tensor([0, 7])
 loss.backward()
 assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
 
+from mm_diffusion_tpu_torch.ops import block_attention, fused_attention, gemm_conv
+x = torch.randn(1, 8, 2, 64, requires_grad=True)
+fused_attention.flash_mha(x, x, x).sum().backward()
+fused_attention.flash_mha_bhtd(x, x, x)
+for variant in block_attention.VARIANTS:
+    block_attention.self_attention_variant(torch.randn(2, 16, 3 * 64), 1, variant)
+y = torch.randn(1, 4, 4, 8)
+gemm_conv.skip_gemm(y, y, torch.randn(16, 8))
+gemm_conv.conv3x3_chw(y, torch.randn(8, 4, 3, 3))
+gemm_conv.gemm_blocks(torch.randn(8, 4), y)
+from mm_diffusion_tpu_torch.tools import bench_attn_variants, bench_skip_conv, conv_chw_spike
+bench_attn_variants.main(["--device", "cpu", "--small", "--replays", "1"])
+bench_skip_conv.main(["--device", "cpu", "--small", "--replays", "1"])
+conv_chw_spike.main(["gemm", "--device", "cpu", "--small", "--replays", "1"])
+
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax") and mod is not None]
 assert not loaded, loaded
 jax_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "mm_diffusion_tpu")
 print("MODULES", len(names))
+print("NAMES", ",".join(names))
 print("JAXPKG", ",".join(jax_pkg))
 """
 
 ALLOWED_FROM_JAX_PACKAGE: set = set()
+# The flash MHA and spike-kernel modules and the A/B tools: imported and run
+# (plain versions, small shapes) by the probe above, and scanned below.
+NEW_MODULES = {
+    "mm_diffusion_tpu_torch.ops.fused_attention",
+    "mm_diffusion_tpu_torch.ops.gemm_conv",
+    "mm_diffusion_tpu_torch.utils.timing",
+    "mm_diffusion_tpu_torch.tools.bench_attn_variants",
+    "mm_diffusion_tpu_torch.tools.bench_skip_conv",
+    "mm_diffusion_tpu_torch.tools.conv_chw_spike",
+}
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+mm_diffusion_tpu(\.|\s|$)", re.M)
 
@@ -75,8 +102,10 @@ def test_port_imports_and_runs_with_jax_blocked():
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
-    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines() if " " in line)
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
+                 if line.split(" ", 1)[0] in ("MODULES", "NAMES", "JAXPKG"))
     assert int(lines["MODULES"]) >= 25
+    assert NEW_MODULES <= set(lines["NAMES"].split(","))
     assert set(filter(None, lines["JAXPKG"].split(","))) <= ALLOWED_FROM_JAX_PACKAGE
 
 
@@ -104,6 +133,8 @@ def test_port_sources_use_no_jax_and_no_library_attention(needle):
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
+    scanned = {".".join(p.relative_to(REPO).with_suffix("").parts) for p in SOURCES}
+    assert NEW_MODULES <= scanned
     hits = [str(p.relative_to(REPO)) for p in SOURCES if JAX_PACKAGE_IMPORT.search(p.read_text())]
     assert hits == []
     assert JAX_PACKAGE_IMPORT.search("from mm_diffusion_tpu.data import media")  # the needle works
