@@ -6,23 +6,29 @@
 Phases, each printed as it runs; any failure exits non-zero:
   1. toolchain: torch / CUDA versions, nvcc, the card's name and power limit;
      TF32 off for matmuls and convolutions.
-  2. build: the hand-written attention kernels from ops/csrc with nvcc
-     (sm_90a), timed.
+  2. build: the hand-written kernels from ops/csrc with nvcc (sm_90a),
+     timed, with each kernel's registers and spills as ptxas reports them.
   3. kernels vs their plain PyTorch versions on the card, in bf16, at every
      main-path shape of the flagship sampler (several RS-MMA shifts, the
      wrap included); max |error| against the stated tolerance, the kernel's,
      the plain version's and, where one PyTorch call computes the same
      function, that call's device time, and the bound: the least time the
-     card could take for the same work.  Every time here and in 3b and 7 is
-     device time: a fixed number of calls captured in one CUDA graph and
-     replayed between CUDA events (mm_diffusion_tpu_torch/utils/timing.py).
+     card could take for the same work.  The self-attention forward (K1, the
+     Hopper design) is also timed and checked in its previous design
+     (mma.sync) at each shape, and checked at ragged T with N >= 2, at T = 16
+     with a partial pack and at head dims 32 and 48.  Every time here and in
+     3b and 7 is device time: a fixed number of calls captured in one CUDA
+     graph and replayed between CUDA events
+     (mm_diffusion_tpu_torch/utils/timing.py).
   3b. the backward kernels the same way, at every main-path shape of the
      flagship training step (batch 4; banded shifts 0, the middle and the
      last of the span), and the forward kernels' out and lse that they
-     take, held to phase 3's tolerance at those shapes.  The library call
-     timed for the self-attention backward is PyTorch's fused attention's
-     backward alone, one autograd.grad replayed in the graph (its
-     forward+backward is printed beside it).
+     take, held to phase 3's tolerance at those shapes; the self-attention
+     backward (K4/K5) beside its previous design and at phase 3's extra
+     cases.  The library call timed for the self-attention backward is
+     PyTorch's fused attention's backward alone, one autograd.grad replayed
+     in the graph (its forward+backward is printed beside it).  At T = 1024
+     the Hopper K1 and K5 must beat their previous design.
   4. one model evaluation on the card (bf16, kernels) against the CPU (fp32,
      plain versions) with the same random non-zero weights: the stock
      MM-UNet at batch 1, and the SR U-Net on 2 frames; relative L2 error.
@@ -40,7 +46,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      checkpoint for one more step.
   7. the kernels of the remaining entry points: 7.1 the flash MHA forward
      and backward (K8, ops/fused_attention.py) at its hot shapes in both
-     layouts, the K1 variants of the A/B tool (S1/S2: rows, nomax, noexp),
+     layouts (and at head dims 32 and 256), the K1 variants of the A/B tool
+     (S1/S2: rows, nomax, noexp),
      the two-part skip GEMM (S3), the direct 3x3 conv and its GEMM core
      (S4), each against its plain version as in phase 3 with its device
      time, plain time, library time and bound, and planted faults that
@@ -55,9 +62,10 @@ The last three lines of standard output are the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
 phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
 graph replay re-runs captured launches without counting them -- and the
-per-call numbers of phases 3, 3b and 7.1 summed over each kernel's shapes), the
-card's ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
-{...}}``.
+per-call numbers of phases 3, 3b and 7.1 summed over each kernel's main-path
+or hot shapes; K1, K4 and K5 also carry ``previous_ms``, their previous
+design's time in the same run), the card's ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -125,6 +133,17 @@ TRAIN_BANDED_SHAPES = [  # (label, N, F, Tq, Tk, C, heads, lw)
     ("middle video->audio", 4, 16, 64, 25, 512, 8, 16),
     ("middle audio->video", 4, 16, 25, 64, 512, 8, 16),
 ]
+# Extra self-attention cases of phases 3 and 3b (checked and timed, not in
+# the sums): ragged T with N >= 2, whose rows past T are the next sequence's;
+# T = 16 with an N that leaves the last packed tile partial; head dims 32
+# and 48, which run on the kernels built for 32 and 64.
+SELF_EXTRA_SHAPES = [  # (label, N, T, C, heads, layout)
+    ("ragged N=3 T=400", 3, 400, 512, 4, "thirds"),
+    ("ragged N=5 T=100", 5, 100, 256, 4, "per_head"),
+    ("packed N=1023 T=16", 1023, 16, 256, 4, "thirds"),
+    ("head dim 32", 16, 256, 128, 4, "thirds"),
+    ("head dim 48", 16, 256, 192, 4, "per_head"),
+]
 KERNEL_SOURCE = {
     "self_attention": "mm_diffusion_tpu_torch/ops/csrc/self_attention.cu",
     "banded_attention": "mm_diffusion_tpu_torch/ops/csrc/banded_attention.cu",
@@ -152,6 +171,11 @@ FLASH_SHAPES = [
     ("self", 128, 4, 1024, 1024, 64, "bhtd"),
     ("video->audio", 128, 4, 1024, 400, 64, "bthd"),
     ("audio->video", 128, 4, 100, 1024, 64, "bthd"),
+]
+# K8 at head dims 32 and 256 (checked and timed, not in the sums).
+FLASH_EXTRA_SHAPES = [
+    ("self d=32", 128, 4, 1024, 1024, 32, "bhtd"),
+    ("video->audio d=256", 32, 4, 1024, 400, 256, "bthd"),
 ]
 CONV_CHECK_IMAGES = 2  # S4: the fp32 plain version is compared on 2 of the 16 images
 REPLACES.update({
@@ -302,6 +326,29 @@ def toolchain() -> str:
     return smi
 
 
+def ptxas_table(log: str):
+    """[(kernel, registers, spill stores, spill loads)] from nvcc's
+    ``-Xptxas -v`` output; kernels named ``name<template ints, type>``."""
+    import re
+
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN6mmdiff\d+([a-z0-9_]+)(\w*)'", line)
+        if m:
+            tmpl = m.group(2) if m.group(2).startswith("I") else ""
+            kind = "bf16" if "bfloat16" in tmpl else ("f32" if re.search(r"E(f|S\d_)", tmpl) else "")
+            args = re.findall(r"Li(\d+)E", tmpl) + ([kind] if kind else [])
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
+
+
 def build() -> None:
     from mm_diffusion_tpu_torch.ops import cuda_build
 
@@ -310,9 +357,11 @@ def build() -> None:
     built = cuda_build.load()
     print(f"library: {built.path}")
     print(f"nvcc compile {built.build_seconds:.2f} s, load total {time.perf_counter() - t0:.2f} s")
-    for line in built.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("  ptxas:", line.strip())
+    table = ptxas_table(built.log)
+    print(f"ptxas per kernel ({len(table)}): registers, spill stores / loads (bytes)")
+    for name, regs, st, ld in table:
+        flag = " (Hopper design)" if "sm90" in name else ""
+        print(f"  {name:48s} {regs:4d} regs  spill {st}/{ld}{flag}")
 
 
 def kernel_parity():
@@ -327,22 +376,31 @@ def kernel_parity():
     summary = {}
     record = recorder(summary)
 
-    for label, n, t, c, h, layout in SELF_SHAPES:
+    for label, n, t, c, h, layout in SELF_SHAPES + SELF_EXTRA_SHAPES:
+        main = (label, n, t, c, h, layout) in SELF_SHAPES
         qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
         out, lse = ba.self_attention_cuda(qkv, h, layout)
         err, lse_err, ok = self_forward_check(qkv, h, layout, out, lse)
+        prev_out, prev_lse = ba._self_attention_previous_cuda(qkv, h, layout)
+        prev_err, prev_lse_err, prev_ok = self_forward_check(qkv, h, layout, prev_out, prev_lse)
         ms = time_ms(lambda: ba.self_attention_cuda(qkv, h, layout))
+        prev_ms = time_ms(lambda: ba._self_attention_previous_cuda(qkv, h, layout))
         plain_ms = time_ms(lambda: ba.self_attention_reference(qkv, h, layout))
         lib_ms = library_attention_ms(packed_views(layout, h), [qkv])
         bound = bound_ms(*self_attention_work(n, t, c, h))
         print(
             f"self_attention {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {layout:8s} "
-            f"err={err:.3e} lse_err={lse_err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-            f"library={lib_ms if lib_ms is None else round(lib_ms, 4)} ms "
-            f"bound={bound[0]:.4f} ms ({bound[1]})"
+            f"err={err:.3e} lse_err={lse_err:.3e} kernel={ms:.4f} ms previous design={prev_ms:.4f} ms "
+            f"(err={prev_err:.3e}, x{ms / prev_ms:.2f}) plain={plain_ms:.4f} ms "
+            f"library (SDPA fwd)={lib_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})"
+            + ("" if main else " [extra case, not summed]")
         )
         check(ok, f"self_attention {label}: err {err}, lse {lse_err}")
-        record("self_attention", max(err, lse_err), ms, plain_ms, bound, lib_ms)
+        check(prev_ok, f"self_attention previous design {label}: err {prev_err}, lse {prev_lse_err}")
+        if t >= K5_MIN_T:
+            check(ms < prev_ms, f"self_attention {label}: {ms} ms, not faster than the previous design")
+        if main:
+            record("self_attention", max(err, lse_err), ms, plain_ms, bound, lib_ms, prev_ms)
 
     for label, f, tq, tk, c, h, lw in BANDED_SHAPES:
         q_src = torch.randn((1, f, tq, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
@@ -403,17 +461,20 @@ def banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse):
 
 
 def recorder(summary):
-    """``record(name, err, ms, plain_ms, (bound_ms, bound_by), library_ms)``
-    into ``summary``: the worst error, per-call times summed over the
-    shapes, the limiter of the largest bound share."""
+    """``record(name, err, ms, plain_ms, (bound_ms, bound_by), library_ms,
+    previous_ms=None)`` into ``summary``: the worst error, per-call times
+    summed over the shapes (the previous design's too, where given), the
+    limiter of the largest bound share."""
 
-    def record(name, err, ms, plain_ms, bound, lib_ms):
+    def record(name, err, ms, plain_ms, bound, lib_ms, prev_ms=None):
         s = summary.setdefault(name, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "by": {"bytes": 0.0, "operations": 0.0}, "library_ms": 0.0,
         })
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["ms"] += ms
+        if prev_ms is not None:
+            s["previous_ms"] = s.get("previous_ms", 0.0) + prev_ms
         s["plain_ms"] += plain_ms
         s["bound_ms"] += bound[0]
         s["by"][bound[1]] += bound[0]
@@ -439,33 +500,47 @@ def backward_parity(forward_summary):
     def worst_fwd(name, *errs):
         forward_summary[name]["max_abs_err"] = max(forward_summary[name]["max_abs_err"], *errs)
 
-    for label, n, t, c, h, layout in TRAIN_SELF_SHAPES:
+    extra = [(label, n * (4 if t > 16 else 1), t, c, h, layout)
+             for label, n, t, c, h, layout in SELF_EXTRA_SHAPES]
+    for label, n, t, c, h, layout in TRAIN_SELF_SHAPES + extra:
+        main = (label, n, t, c, h, layout) in TRAIN_SELF_SHAPES
         qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
         dout = torch.randn((n, t, c), generator=g, device=dev, dtype=torch.bfloat16)
         out, lse = ba.self_attention_cuda(qkv, h, layout)
         fwd_err, lse_err, fwd_ok = self_forward_check(qkv, h, layout, out, lse)
         check(fwd_ok, f"self_attention {label} (training shape): err {fwd_err}, lse {lse_err}")
-        worst_fwd("self_attention", fwd_err, lse_err)
+        if main:
+            worst_fwd("self_attention", fwd_err, lse_err)
         dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)
+        check(torch.equal(dqkv, ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)),
+              f"self_attention_bwd {label}: two runs differ")
+        prev = ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout)
         ref = ba.self_attention_backward_reference(qkv, dout, h, layout)
         err, ok = ba.BACKWARD_TOL.check(dqkv, ref)
+        prev_err, prev_ok = ba.BACKWARD_TOL.check(prev, ref)
         scale = ref.float().abs().max().item()
-        del ref
+        del ref, prev
         ms = time_ms(lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
+        prev_ms = time_ms(lambda: ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout))
         plain_ms = time_ms(lambda: ba.self_attention_backward_reference(qkv, dout, h, layout))
         g_heads = dout.view(n, t, h, c // h).transpose(1, 2)
         lib_ms, lib_fwd_bwd_ms = library_attention_ms(packed_views(layout, h), [qkv], g_heads)
         bound = bound_ms(*self_attention_work(n, t, c, h, backward=True))
         print(
-            f"self_attention_bwd {label:14s} N={n:5d} T={t:5d} C={c} H={h} "
+            f"self_attention_bwd {label:18s} N={n:5d} T={t:5d} C={c} H={h} {layout:8s} "
             f"forward err={fwd_err:.3e} lse_err={lse_err:.3e}; err={err:.3e} "
-            f"(max|plain| {scale:.3e}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+            f"(max|plain| {scale:.3e}) kernel={ms:.4f} ms previous design={prev_ms:.4f} ms "
+            f"(err={prev_err:.3e}, x{ms / prev_ms:.2f}) plain={plain_ms:.4f} ms "
             f"library bwd={lib_ms:.4f} ms (fwd+bwd {lib_fwd_bwd_ms:.4f} ms) "
-            f"bound={bound[0]:.4f} ms ({bound[1]})"
+            f"bound={bound[0]:.4f} ms ({bound[1]})" + ("" if main else " [extra case, not summed]")
         )
         check(ok, f"self_attention_bwd {label}: err {err}")
+        check(prev_ok, f"self_attention_bwd previous design {label}: err {prev_err}")
+        if t >= K5_MIN_T:
+            check(ms < prev_ms, f"self_attention_bwd {label}: {ms} ms, not faster than the previous design")
         name = "self_attention_bwd[T>512]" if t >= K5_MIN_T else "self_attention_bwd[T<=512]"
-        record(name, err, ms, plain_ms, bound, lib_ms)
+        if main:
+            record(name, err, ms, plain_ms, bound, lib_ms, prev_ms)
 
     for label, n, f, tq, tk, c, h, lw in TRAIN_BANDED_SHAPES:
         q_src = torch.randn((n, f, tq, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
@@ -789,7 +864,9 @@ def flash_parity(record):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
-    for label, b, h, tq, tk, d, layout in FLASH_SHAPES:
+    for label, b, h, tq, tk, d, layout in FLASH_SHAPES + FLASH_EXTRA_SHAPES:
+        main = (label, b, h, tq, tk, d, layout) in FLASH_SHAPES
+        rec = record if main else (lambda *args: None)
         def make(t):
             shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
             x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
@@ -816,7 +893,7 @@ def flash_parity(record):
             lib=library_attention_ms(lambda *xs: xs, [q, k, v]),
             bound=bound_ms(*flash_work(b, h, tq, tk, d)),
         )
-        record("flash_mha_fwd", max(err, lse_err), fwd["ms"], fwd["plain"], fwd["bound"], fwd["lib"])
+        rec("flash_mha_fwd", max(err, lse_err), fwd["ms"], fwd["plain"], fwd["bound"], fwd["lib"])
 
         grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
         refs = fa.mha_backward_reference(*bthd(q, k, v, dout))
@@ -832,12 +909,13 @@ def flash_parity(record):
             bound=bound_ms(*flash_work(b, h, tq, tk, d, backward=True)),
         )
         bwd["lib"], lib_fwd_bwd = library_attention_ms(lambda *xs: xs, [q, k, v], dout)
-        record("flash_mha_bwd", bwd_err, bwd["ms"], bwd["plain"], bwd["bound"], bwd["lib"])
+        rec("flash_mha_bwd", bwd_err, bwd["ms"], bwd["plain"], bwd["bound"], bwd["lib"])
         for name, r, e in (("fwd", fwd, max(err, lse_err)), ("bwd", bwd, bwd_err)):
             print(f"flash_mha_{name} {label:13s} {layout} B={b} H={h} Tq={tq:5d} Tk={tk:5d} D={d} "
                   f"err={e:.3e} kernel={r['ms']:.4f} ms plain={r['plain']:.4f} ms "
                   f"library={r['lib']:.4f} ms bound={r['bound'][0]:.4f} ms ({r['bound'][1]})"
-                  + (f" (library fwd+bwd {lib_fwd_bwd:.4f} ms)" if name == "bwd" else ""))
+                  + (f" (library fwd+bwd {lib_fwd_bwd:.4f} ms)" if name == "bwd" else "")
+                  + ("" if main else " [extra case, not summed]"))
 
 
 def variant_parity(record):
@@ -1064,6 +1142,7 @@ def main() -> int:
             "bound_ms": summary[name]["bound_ms"],
             "bound_by": max(summary[name]["by"], key=summary[name]["by"].get),
             "library_ms": summary[name]["library_ms"],
+            **({"previous_ms": summary[name]["previous_ms"]} if "previous_ms" in summary[name] else {}),
         }
         for name in REPLACES
     ]

@@ -21,6 +21,19 @@ launches the kernel (``csrc/``) or raises.  There are no size gates and no
 fallback from a failed build or launch to the plain version.  Each kernel
 wrapper counts its launches in :data:`LAUNCHES`.
 
+Head dims: the kernels take every head dim ``d`` with ``d % 8 == 0`` and
+``8 <= d <= 128``; :func:`kernel_head_dim` maps ``d`` to the kernel built for
+the next size at or above it (32, 64, 96, 128), whose lanes past ``d`` are
+zero-filled and never stored.  Any other ``d`` raises ``ValueError`` on a
+CUDA tensor (the plain version on the CPU takes any ``d``).
+
+bf16 self-attention (K1 forward, K4/K5 backward) runs the Hopper kernels
+(TMA, mbarrier rings, ``wgmma``; ``csrc/attention_sm90.cuh``); fp32 runs the
+previous mma.sync design, whose bf16 build stays reachable through
+``_self_attention_previous_cuda`` and ``_self_attention_bwd_previous_cuda``
+for the same-run comparison in ``chip_smoke.py`` and the card tests (counted
+in :data:`PREVIOUS_LAUNCHES`, never by the model).
+
 :func:`self_attention_variant` serves the A/B tool
 ``tools/bench_attn_variants.py`` (the TPU spikes' K1 variants, see
 :data:`VARIANTS`); the model never calls it.  Its launches are counted per
@@ -39,7 +52,7 @@ from . import cuda_build
 from .common import Tolerance, kernel_path
 
 LAYOUTS = ("thirds", "per_head")
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128)  # the head dims the kernels are built for
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 # Launches of each kernel since the last reset_launch_counts(); the banded
@@ -55,6 +68,8 @@ BANDED_WINDOWS: collections.Counter = collections.Counter()
 BANDED_BWD_WINDOWS: collections.Counter = collections.Counter()
 SELF_BWD_LENGTHS: collections.Counter = collections.Counter()
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+# Launches of the previous self-attention design (same-run comparison only).
+PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
 
 # The K1 forward's A/B variants (TPU spikes tools/bench_attn_variants.py and
 # tools/bench_attn_variants2.py), thirds layout.  On this card hoist, recip
@@ -85,8 +100,21 @@ VARIANT_TOL = {**{v: FORWARD_TOL for v in VARIANTS}, "noexp": BACKWARD_TOL}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for counter in (BANDED_WINDOWS, BANDED_BWD_WINDOWS, SELF_BWD_LENGTHS, VARIANT_LAUNCHES):
+    for counter in (BANDED_WINDOWS, BANDED_BWD_WINDOWS, SELF_BWD_LENGTHS, VARIANT_LAUNCHES,
+                    PREVIOUS_LAUNCHES):
         counter.clear()
+
+
+def kernel_head_dim(d: int, built: Tuple[int, ...] = HEAD_DIMS) -> int:
+    """The built head dim that head dim ``d`` runs on: the smallest of
+    ``built`` at or above ``d``.  ``d`` must be a multiple of 8 in
+    ``[8, max(built)]`` (16-byte rows for the kernels' copies); any other
+    ``d`` raises ``ValueError``."""
+    if d % 8 or not 8 <= d <= built[-1]:
+        raise ValueError(
+            f"the CUDA kernels take head dims d with d % 8 == 0 and 8 <= d <= {built[-1]}, got {d}"
+        )
+    return next(b for b in built if b >= d)
 
 
 # ---------------------------------------------------------------------------
@@ -266,9 +294,16 @@ def _check_heads(c: int, num_heads: int) -> int:
     if num_heads <= 0 or c % num_heads:
         raise ValueError(f"{c} channels do not split into {num_heads} heads")
     d = c // num_heads
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels take head dims {HEAD_DIMS}, got {d}")
+    kernel_head_dim(d)
     return d
+
+
+def _check_aligned(*xs: torch.Tensor) -> None:
+    """The Hopper kernels read bf16 operands by TMA, from 16-byte aligned
+    addresses."""
+    for x in xs:
+        if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
+            raise ValueError("the CUDA kernel needs 16-byte aligned bf16 tensors")
 
 
 def _layout_offsets(layout: str, c: int, d: int) -> Tuple[int, int, int]:
@@ -315,25 +350,41 @@ def _check_banded(q_src, kv_src, local_window: int, num_heads: int, channels: in
     return n, f, tq, tk, _check_heads(channels, num_heads)
 
 
-def self_attention_cuda(
-    qkv: torch.Tensor, num_heads: int, layout: str = "thirds"
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the self-attention kernel.  Returns ``(out [N, T, C],
-    lse [N, H, T] fp32)``."""
+def _self_attention_launch(entry: str, qkv: torch.Tensor, num_heads: int, layout: str):
     n, t, c, d = _check_qkv(qkv, num_heads)
+    _check_aligned(qkv)
     head_stride, k_off, v_off = _layout_offsets(layout, c, d)
     lib = cuda_build.load().lib
     out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((n, num_heads, t), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_self_attention_fwd(
+        err = getattr(lib, entry)(
             qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), n, t, num_heads, d,
-            head_stride, k_off, v_off, int(qkv.dtype == torch.float32), stream,
+            kernel_head_dim(d), head_stride, k_off, v_off, int(qkv.dtype == torch.float32), stream,
         )
     if err:
         raise RuntimeError(f"self-attention kernel launch failed: CUDA error {err}")
+    return out, lse
+
+
+def self_attention_cuda(
+    qkv: torch.Tensor, num_heads: int, layout: str = "thirds"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the self-attention kernel (bf16: the Hopper design; fp32: the
+    previous one).  Returns ``(out [N, T, C], lse [N, H, T] fp32)``."""
+    out, lse = _self_attention_launch("mmdiff_self_attention_fwd", qkv, num_heads, layout)
     LAUNCHES["self_attention"] += 1
+    return out, lse
+
+
+def _self_attention_previous_cuda(
+    qkv: torch.Tensor, num_heads: int, layout: str = "thirds"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The previous design (mma.sync) of :func:`self_attention_cuda` on the
+    same arguments, for the same-run comparison only."""
+    out, lse = _self_attention_launch("mmdiff_self_attention_fwd_mma", qkv, num_heads, layout)
+    PREVIOUS_LAUNCHES["self_attention"] += 1
     return out, lse
 
 
@@ -356,7 +407,7 @@ def banded_attention_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mmdiff_banded_attention_fwd(
             q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), lse.data_ptr(), n, f, tq,
-            tk, num_heads, d, int(shift) % f, local_window,
+            tk, num_heads, d, kernel_head_dim(d), int(shift) % f, local_window,
             int(q_src.dtype == torch.float32), stream,
         )
     if err:
@@ -364,6 +415,29 @@ def banded_attention_cuda(
     LAUNCHES["banded_attention"] += 1
     BANDED_WINDOWS[local_window] += 1
     return out, lse
+
+
+def _self_attention_bwd_launch(entry, qkv, out, lse, g, num_heads, layout) -> torch.Tensor:
+    n, t, c, d = _check_qkv(qkv, num_heads)
+    head_stride, k_off, v_off = _layout_offsets(layout, c, d)
+    _check_like(out, qkv, "out", (n, t, c))
+    _check_like(g, qkv, "g", (n, t, c))
+    _check_aligned(qkv, g)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (n, num_heads, t) or not lse.is_contiguous():
+        raise ValueError(f"lse: expected contiguous fp32 {(n, num_heads, t)}, got {tuple(lse.shape)}")
+    lib = cuda_build.load().lib
+    delta = torch.empty_like(lse)
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            qkv.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dqkv.data_ptr(), n, t, num_heads, d, kernel_head_dim(d), head_stride, k_off, v_off,
+            int(qkv.dtype == torch.float32), stream,
+        )
+    if err:
+        raise RuntimeError(f"self-attention backward kernel launch failed: CUDA error {err}")
+    return dqkv
 
 
 def self_attention_bwd_cuda(
@@ -374,29 +448,25 @@ def self_attention_bwd_cuda(
     num_heads: int,
     layout: str = "thirds",
 ) -> torch.Tensor:
-    """Launch the self-attention backward kernels on the forward's ``qkv``,
-    ``out`` and ``lse`` and the output gradient ``g`` [N, T, C].  Returns
-    ``dqkv`` [N, T, 3C] in ``layout``."""
-    n, t, c, d = _check_qkv(qkv, num_heads)
-    head_stride, k_off, v_off = _layout_offsets(layout, c, d)
-    _check_like(out, qkv, "out", (n, t, c))
-    _check_like(g, qkv, "g", (n, t, c))
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (n, num_heads, t) or not lse.is_contiguous():
-        raise ValueError(f"lse: expected contiguous fp32 {(n, num_heads, t)}, got {tuple(lse.shape)}")
-    lib = cuda_build.load().lib
-    delta = torch.empty_like(lse)
-    dqkv = torch.empty_like(qkv)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_self_attention_bwd(
-            qkv.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dqkv.data_ptr(), n, t, num_heads, d, head_stride, k_off, v_off,
-            int(qkv.dtype == torch.float32), stream,
-        )
-    if err:
-        raise RuntimeError(f"self-attention backward kernel launch failed: CUDA error {err}")
+    """Launch the self-attention backward kernels (bf16: the Hopper design;
+    fp32: the previous one) on the forward's ``qkv``, ``out`` and ``lse`` and
+    the output gradient ``g`` [N, T, C].  Returns ``dqkv`` [N, T, 3C] in
+    ``layout``."""
+    dqkv = _self_attention_bwd_launch(
+        "mmdiff_self_attention_bwd", qkv, out, lse, g, num_heads, layout
+    )
     LAUNCHES["self_attention_bwd"] += 1
-    SELF_BWD_LENGTHS[t] += 1
+    SELF_BWD_LENGTHS[qkv.shape[1]] += 1
+    return dqkv
+
+
+def _self_attention_bwd_previous_cuda(qkv, out, lse, g, num_heads: int, layout: str = "thirds"):
+    """The previous design (mma.sync) of :func:`self_attention_bwd_cuda` on
+    the same arguments, for the same-run comparison only."""
+    dqkv = _self_attention_bwd_launch(
+        "mmdiff_self_attention_bwd_mma", qkv, out, lse, g, num_heads, layout
+    )
+    PREVIOUS_LAUNCHES["self_attention_bwd"] += 1
     return dqkv
 
 
@@ -429,7 +499,8 @@ def banded_attention_bwd_cuda(
         err = lib.mmdiff_banded_attention_bwd(
             q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq_src.data_ptr(), dkv_src.data_ptr(), n, f, tq, tk, num_heads, d,
-            int(shift) % f, local_window, int(q_src.dtype == torch.float32), stream,
+            kernel_head_dim(d), int(shift) % f, local_window, int(q_src.dtype == torch.float32),
+            stream,
         )
     if err:
         raise RuntimeError(f"banded attention backward kernel launch failed: CUDA error {err}")
@@ -453,8 +524,8 @@ def self_attention_variant_cuda(qkv: torch.Tensor, num_heads: int, variant: str)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mmdiff_self_attention_variant_fwd(
-            qkv.data_ptr(), out.data_ptr(), n, t, num_heads, d, VARIANT_CODES[variant],
-            int(qkv.dtype == torch.float32), stream,
+            qkv.data_ptr(), out.data_ptr(), n, t, num_heads, d, kernel_head_dim(d),
+            VARIANT_CODES[variant], int(qkv.dtype == torch.float32), stream,
         )
     if err:
         raise RuntimeError(f"self-attention {variant} kernel launch failed: CUDA error {err}")

@@ -1,8 +1,13 @@
-// Shared pieces of the two attention backward kernels
-// (self_attention_bwd.cu, banded_attention_bwd.cu): a flash-attention
-// backward in two passes on Hopper's warp-level bf16 tensor-core product
-// (mma.sync m16n8k16, fp32 accumulate), with P recomputed from the
-// logsumexp that the forward kernels write.
+// Shared pieces of the mma.sync attention backward kernels: the banded
+// backward (banded_attention_bwd.cu, replacing `_banded_bwd_lw1_kernel` and
+// `_banded_bwd_oneshot_kernel`, mm_diffusion_tpu/ops/block_attention.py:792,
+// :877), the flash MHA backward (flash_mha.cu) and the self-attention
+// backward's previous design for fp32 inputs (self_attention_bwd.cu; bf16
+// runs attention_sm90.cuh): a flash-attention backward in two passes on
+// Hopper's warp-level bf16 tensor-core product (mma.sync m16n8k16, fp32
+// accumulate), with P recomputed from the logsumexp that the forward kernels
+// write.  Bound on this card by the re-reads of K/V and Q/dO per tile and
+// the blocks in flight.
 //
 //   dq pass   one block per (sequence, head, 64 query rows); each warp holds
 //             16 query rows and their dO rows as mma A fragments and loops
@@ -26,7 +31,8 @@
 // an operand that the product needs transposed is read as two 16-bit loads
 // (lds_b_cols) instead of being stored twice.  Inputs are read in place by
 // offset and row stride from the packed projections, fp32 inputs rounded to
-// bf16 when staged; rows past a sequence's end are zero-filled and masked.
+// bf16 when staged; rows past a sequence's end are zero-filled and masked,
+// and so are the lanes past the real head dim `dim` (attention_common.cuh).
 
 #pragma once
 
@@ -55,16 +61,17 @@ struct Load2<float> {
   }
 };
 
-// Stage `rows` rows of D elements (row stride `stride`) into a bf16 tile of
-// `tile_rows` rows; the rows past `rows` are zero.
+// Stage `rows` rows of `dim` elements (row stride `stride`) into a bf16 tile
+// of `tile_rows` rows and D lanes; the rows past `rows` and lanes past `dim`
+// are zero.
 template <int D, typename T>
 __device__ __forceinline__ void stage_rows(unsigned short* dst, const T* src, long stride,
-                                           int rows, int tile_rows) {
+                                           int rows, int tile_rows, int dim) {
   constexpr int kPairs = D / 2;
   for (int idx = threadIdx.x; idx < tile_rows * kPairs; idx += kThreads) {
     const int r = idx / kPairs;
     const int c = (idx - r * kPairs) * 2;
-    const uint32_t v = r < rows ? Io<T>::load_pair(src + r * stride + c) : 0u;
+    const uint32_t v = r < rows && c < dim ? Io<T>::load_pair(src + r * stride + c) : 0u;
     *reinterpret_cast<uint32_t*>(dst + r * (D + kPadK) + c) = v;
   }
 }
@@ -105,45 +112,49 @@ static __device__ __forceinline__ void lds_b_cols(uint32_t& b0, uint32_t& b1,
 }
 
 // A fragments of a warp's rows [row0, row0 + 16) of a global row-major array
-// (row stride `stride`, D columns); rows at or past `rows` are zero.
+// (row stride `stride`, `dim` columns, D lanes); rows at or past `rows` and
+// lanes past `dim` are zero.
 template <int D, typename T>
 __device__ __forceinline__ void load_frags(uint32_t (&a)[D / 16][4], const T* x, long stride,
-                                           int row0, int rows) {
+                                           int row0, int rows, int dim) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = row0 + g, r1 = row0 + g + 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk * 16 + 2 * t;
-    a[kk][0] = r0 < rows ? Io<T>::load_pair(x + r0 * stride + c) : 0u;
-    a[kk][1] = r1 < rows ? Io<T>::load_pair(x + r1 * stride + c) : 0u;
-    a[kk][2] = r0 < rows ? Io<T>::load_pair(x + r0 * stride + c + 8) : 0u;
-    a[kk][3] = r1 < rows ? Io<T>::load_pair(x + r1 * stride + c + 8) : 0u;
+    const bool c0 = c < dim, c1 = c + 8 < dim;
+    a[kk][0] = r0 < rows && c0 ? Io<T>::load_pair(x + r0 * stride + c) : 0u;
+    a[kk][1] = r1 < rows && c0 ? Io<T>::load_pair(x + r1 * stride + c) : 0u;
+    a[kk][2] = r0 < rows && c1 ? Io<T>::load_pair(x + r0 * stride + c + 8) : 0u;
+    a[kk][3] = r1 < rows && c1 ? Io<T>::load_pair(x + r1 * stride + c + 8) : 0u;
   }
 }
 
-// Store a warp's C-fragment accumulator of rows [row0, row0 + 16) x D
+// Store a warp's C-fragment accumulator of rows [row0, row0 + 16) x `dim`
 // columns (row stride `stride`), rows at or past `rows` skipped.
 template <int D, typename T>
 __device__ __forceinline__ void store_frags(const float (&acc)[D / 8][4], T* x, long stride,
-                                            int row0, int rows) {
+                                            int row0, int rows, int dim) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = row0 + g, r1 = row0 + g + 8;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t;
+    if (c >= dim) continue;
     if (r0 < rows) Io<T>::store_pair(x + r0 * stride + c, acc[n][0], acc[n][1]);
     if (r1 < rows) Io<T>::store_pair(x + r1 * stride + c, acc[n][2], acc[n][3]);
   }
 }
 
-// Zero a warp's rows [row0, row0 + 16) x D columns.
+// Zero a warp's rows [row0, row0 + 16) x `dim` columns.
 template <int D, typename T>
-__device__ __forceinline__ void zero_rows(T* x, long stride, int row0, int rows) {
+__device__ __forceinline__ void zero_rows(T* x, long stride, int row0, int rows, int dim) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = row0 + g, r1 = row0 + g + 8;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t;
+    if (c >= dim) continue;
     if (r0 < rows) Io<T>::store_pair(x + r0 * stride + c, 0.f, 0.f);
     if (r1 < rows) Io<T>::store_pair(x + r1 * stride + c, 0.f, 0.f);
   }
@@ -185,10 +196,10 @@ struct DqState {
 template <int D, typename T>
 __device__ __forceinline__ void dq_begin(DqState<D>& st, const T* q, long q_stride, const T* o,
                                          const T* dout, long o_stride, const float* lse,
-                                         float* delta_out, int row0, int rows) {
+                                         float* delta_out, int row0, int rows, int dim) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  load_frags<D, T>(st.q, q, q_stride, row0, rows);
-  load_frags<D, T>(st.go, dout, o_stride, row0, rows);
+  load_frags<D, T>(st.q, q, q_stride, row0, rows, dim);
+  load_frags<D, T>(st.go, dout, o_stride, row0, rows, dim);
   zero_acc<D>(st.dq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -200,6 +211,7 @@ __device__ __forceinline__ void dq_begin(DqState<D>& st, const T* q, long q_stri
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int c = kk * 16 + 2 * t + 8 * half;
+          if (c >= dim) continue;
           const float2 a = Load2<T>::get(o + r * o_stride + c);
           const float2 b = Load2<T>::get(dout + r * o_stride + c);
           acc += a.x * b.x + a.y * b.y;
@@ -265,11 +277,11 @@ __device__ __forceinline__ void dq_tile(DqState<D>& st, const unsigned short* sk
 template <int D, typename T>
 __device__ __forceinline__ void dq_sequence(DqState<D>& st, unsigned short* sk, unsigned short* sv,
                                             const T* k, const T* v, long stride, int len,
-                                            float scale_log2, float scale) {
+                                            int dim, float scale_log2, float scale) {
   for (int k0 = 0; k0 < len; k0 += kBwdTile) {
     const int rows = min(kBwdTile, len - k0);
-    stage_rows<D, T>(sk, k + k0 * stride, stride, rows, kBwdTile);
-    stage_rows<D, T>(sv, v + k0 * stride, stride, rows, kBwdTile);
+    stage_rows<D, T>(sk, k + k0 * stride, stride, rows, kBwdTile, dim);
+    stage_rows<D, T>(sv, v + k0 * stride, stride, rows, kBwdTile, dim);
     __syncthreads();
     dq_tile<D>(st, sk, sv, rows, scale_log2, scale);
     __syncthreads();
@@ -370,12 +382,12 @@ template <int D, typename T>
 __device__ __forceinline__ void dkv_sequence(DkvState<D>& st, const DkvSmem<D>& sm, const T* q,
                                              long q_stride, const T* dout, long g_stride,
                                              const float* lse, const float* delta, int len,
-                                             float scale_log2, float scale) {
+                                             int dim, float scale_log2, float scale) {
   const int key_row0 = (threadIdx.x >> 5) * 16;
   for (int q0 = 0; q0 < len; q0 += kBwdTile) {
     const int rows = min(kBwdTile, len - q0);
-    stage_rows<D, T>(sm.q, q + q0 * q_stride, q_stride, rows, kBwdTile);
-    stage_rows<D, T>(sm.go, dout + q0 * g_stride, g_stride, rows, kBwdTile);
+    stage_rows<D, T>(sm.q, q + q0 * q_stride, q_stride, rows, kBwdTile, dim);
+    stage_rows<D, T>(sm.go, dout + q0 * g_stride, g_stride, rows, kBwdTile, dim);
     if (threadIdx.x < kBwdTile) {
       const int i = threadIdx.x;
       sm.lse2[i] = i < rows ? lse[q0 + i] * kLog2e : INFINITY;
@@ -387,8 +399,8 @@ __device__ __forceinline__ void dkv_sequence(DkvState<D>& st, const DkvSmem<D>& 
   }
 }
 
-// Host side: allow the dkv kernel its dynamic shared memory (above 48 KB at
-// head dim 128), then launch.
+// Host side: allow a kernel its dynamic shared memory (the dkv pass above
+// 48 KB at head dim 128), then launch.
 template <typename Kernel>
 static int set_dynamic_smem(Kernel kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

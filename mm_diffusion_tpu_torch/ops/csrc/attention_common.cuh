@@ -1,6 +1,12 @@
-// Shared pieces of the two attention forward kernels (self_attention.cu,
-// banded_attention.cu): a flash-attention inner loop on Hopper's warp-level
-// bf16 tensor-core product (mma.sync m16n8k16, fp32 accumulate).
+// Shared pieces of the mma.sync attention forward kernels: the banded
+// RS-MMA kernel (banded_attention.cu, replacing `_banded_oneshot_kernel` and
+// `_banded_fwd_kernel`, mm_diffusion_tpu/ops/block_attention.py:609, :534),
+// the flash MHA forward (flash_mha.cu), the K1 variants and K1's previous
+// design for fp32 inputs (self_attention.cu; the bf16 K1 runs
+// attention_sm90.cuh): a flash-attention inner loop on Hopper's warp-level
+// bf16 tensor-core product (mma.sync m16n8k16, fp32 accumulate).  Bound on
+// this card by the bytes moved and the blocks in flight at the model's short
+// sequences, and by this loop's unpipelined staging at T = 1024.
 //
 // Block shape: 4 warps, 16 query rows per warp (64 rows per block).  The
 // query rows of a warp live in registers as mma A fragments for the whole
@@ -12,6 +18,11 @@
 // Inputs are read in place from the packed qkv projection by offset and row
 // stride: no layout copy is made.  bf16 inputs are staged as they are; fp32
 // inputs are rounded to bf16 when staged (bf16 operands, fp32 accumulation).
+//
+// Head dims: a kernel built for D serves every head dim `dim` <= D with
+// dim % 8 == 0 (ops/block_attention.py::kernel_head_dim picks D).  The lanes
+// at or past `dim` are zero-filled on load and never stored: zero q/k lanes
+// add nothing to a logit, and zero v lanes give output lanes nobody reads.
 
 #pragma once
 
@@ -92,19 +103,21 @@ struct FlashState {
 };
 
 // Load rows [row0, row0 + 16) of a query block (row stride `stride`,
-// `rows` valid rows in all) into A fragments; rows past the end are zero.
+// `rows` valid rows in all, `dim` lanes) into A fragments; rows past the end
+// and lanes past `dim` are zero.
 template <int D, typename T>
 __device__ __forceinline__ void load_queries(FlashState<D>& st, const T* q, long stride,
-                                             int row0, int rows) {
+                                             int row0, int rows, int dim) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = row0 + g, r1 = row0 + g + 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk * 16 + 2 * t;
-    st.q[kk][0] = r0 < rows ? Io<T>::load_pair(q + r0 * stride + c) : 0u;
-    st.q[kk][1] = r1 < rows ? Io<T>::load_pair(q + r1 * stride + c) : 0u;
-    st.q[kk][2] = r0 < rows ? Io<T>::load_pair(q + r0 * stride + c + 8) : 0u;
-    st.q[kk][3] = r1 < rows ? Io<T>::load_pair(q + r1 * stride + c + 8) : 0u;
+    const bool c0 = c < dim, c1 = c + 8 < dim;
+    st.q[kk][0] = r0 < rows && c0 ? Io<T>::load_pair(q + r0 * stride + c) : 0u;
+    st.q[kk][1] = r1 < rows && c0 ? Io<T>::load_pair(q + r1 * stride + c) : 0u;
+    st.q[kk][2] = r0 < rows && c1 ? Io<T>::load_pair(q + r0 * stride + c + 8) : 0u;
+    st.q[kk][3] = r1 < rows && c1 ? Io<T>::load_pair(q + r1 * stride + c + 8) : 0u;
   }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -115,17 +128,18 @@ __device__ __forceinline__ void load_queries(FlashState<D>& st, const T* q, long
   st.l[0] = st.l[1] = 0.f;
 }
 
-// Stage `rows` (<= kBlockK) key and value rows into shared memory; the rest
-// of the tile is zero so that masked keys never read stale values.
+// Stage `rows` (<= kBlockK) key and value rows of `dim` lanes into shared
+// memory; the rest of the tile is zero so that masked keys never read stale
+// values and lanes past `dim` add nothing.
 template <int D, typename T>
 __device__ __forceinline__ void stage_kv(SharedTiles<D>& sm, const T* k, const T* v,
-                                         long stride, int rows) {
+                                         long stride, int rows, int dim) {
   constexpr int kPairs = D / 2;
   for (int idx = threadIdx.x; idx < kBlockK * kPairs; idx += kThreads) {
     const int r = idx / kPairs;
     const int c = (idx - r * kPairs) * 2;
     uint32_t kp = 0u, vp = 0u;
-    if (r < rows) {
+    if (r < rows && c < dim) {
       kp = Io<T>::load_pair(k + r * stride + c);
       vp = Io<T>::load_pair(v + r * stride + c);
     }
@@ -211,21 +225,21 @@ __device__ __forceinline__ void attend_tile(FlashState<D>& st, const SharedTiles
 template <int D, typename T>
 __device__ __forceinline__ void attend_sequence(FlashState<D>& st, SharedTiles<D>& sm,
                                                 const T* k, const T* v, long stride,
-                                                int len, float scale_log2) {
+                                                int len, int dim, float scale_log2) {
   for (int k0 = 0; k0 < len; k0 += kBlockK) {
     const int rows = min(kBlockK, len - k0);
-    stage_kv<D, T>(sm, k + k0 * stride, v + k0 * stride, stride, rows);
+    stage_kv<D, T>(sm, k + k0 * stride, v + k0 * stride, stride, rows, dim);
     __syncthreads();
     attend_tile<D>(st, sm, rows, scale_log2);
     __syncthreads();
   }
 }
 
-// out[row, :D] = O / l for the warp's valid rows (row stride `stride`), and
-// lse[row] = natural-log logsumexp of the scaled logits.
+// out[row, :dim] = O / l for the warp's valid rows (row stride `stride`),
+// and lse[row] = natural-log logsumexp of the scaled logits.
 template <int D, typename T>
 __device__ __forceinline__ void store_rows(FlashState<D>& st, T* out, long stride, float* lse,
-                                           int row0, int rows) {
+                                           int row0, int rows, int dim) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -237,6 +251,7 @@ __device__ __forceinline__ void store_rows(FlashState<D>& st, T* out, long strid
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * t;
+    if (c >= dim) continue;
     if (r0 < rows) Io<T>::store_pair(out + r0 * stride + c, st.o[n][0] * inv0, st.o[n][1] * inv0);
     if (r1 < rows) Io<T>::store_pair(out + r1 * stride + c, st.o[n][2] * inv1, st.o[n][3] * inv1);
   }

@@ -1,78 +1,320 @@
 // Multi-head self-attention over packed qkv [N, T, 3C] -> [N, T, C], plus the
-// per-row logsumexp [N, H, T] (fp32) that a backward pass will reuse.
+// per-row logsumexp [N, H, T] (fp32) that the backward reuses.
 //
 // Replaces the TPU kernel `_self_fwd_kernel` of
-// mm_diffusion_tpu/ops/block_attention.py (launched by `_self_attention_pallas`
-// through `self_attention_packed`).
+// mm_diffusion_tpu/ops/block_attention.py:165 (launched by
+// `_self_attention_pallas` through `self_attention_packed`).
 //
 // What bounds it on this card: the model's sequences are short (T <= 1024,
-// head dim 64/96/128), so one (sequence, head) pair is at most ~0.5 GFLOP and
-// the whole call is bound by reading qkv once per query tile and by the
-// number of blocks in flight, not by the tensor cores.  The design keeps the
-// traffic to one read of q and ceil(T/64) reads of k/v per (sequence, head),
-// never materialises the [T, T] logits, and reads q, k and v straight out of
-// the packed projection by offset and head stride, so neither the
-// thirds-major order ([q | k | v], MM-UNet) nor the legacy per-head order
-// ([h0: q k v | h1: q k v | ...], SR U-Net) needs a copy.  The temporal pass
-// (T = 16) wastes three quarters of each 64-row query tile; the `rows`
-// variant below packs several short sequences per block, as an A/B spike
-// that the model does not call yet.
+// head dim 64/96/128), so one (sequence, head) pair is at most ~0.5 GFLOP;
+// at T = 1024 the call is bound by the tensor cores (4 T^2 d FLOPs per pair
+// against one read of qkv), at T <= 256 by the bytes of qkv and by the blocks
+// in flight.  The previous design (mma.sync, attention_common.cuh) ran at
+// 70-90 TFLOP/s at T = 1024 (PERF.md): its K/V staging went through
+// registers with no load in flight during the products, and warp-level
+// m16n8k16 products reach about two thirds of the card's dense rate at best.
 //
-// Grid: (N, H, ceil(T / 64)); block: 128 threads (4 warps x 16 query rows).
+// The design (bf16; attention_sm90.cuh):
+//   - a warp-specialised block: one producer warp keeps TMA loads of 64-key
+//     K and V tiles in flight through a ring of kFwdStages stages (full /
+//     empty mbarriers); one or two consumer warpgroups each own 64 query
+//     rows, whose Q tile TMA brings once;
+//   - both products on wgmma (m64nNk16, bf16 in, fp32 accumulate):
+//     S = Q K^T with Q and K read from shared memory (K-major), and
+//     O += P V with P packed to bf16 from S's accumulators in registers and
+//     V read in its natural [key][dim] order as an MN-major operand;
+//   - the online softmax of the previous design, in fp32 on the accumulator
+//     fragments (base 2, scale folded in, running max and sum per row);
+//   - one tensor map serves both qkv layouts (the thirds' [q | k | v] and the
+//     SR U-Net's per-head [h0: q k v | h1: ...]); keys past T are the next
+//     sequence's rows and are masked by index;
+//   - T <= 32: up to floor(64 / T) sequences share one 64-row tile under a
+//     block-diagonal mask, so the temporal sites (T = 16, N up to 4096) fill
+//     the warpgroup instead of a quarter of it (fewer when that would leave
+//     SMs idle, pack_for);
+//   - two consumer warpgroups (128 query rows sharing each K/V tile) when
+//     T > 64 and that still gives a block per SM; one otherwise.
+// fp32 inputs keep the previous design (wgmma reads bf16 from shared
+// memory); its bf16 build stays callable through
+// mmdiff_self_attention_fwd_mma for the same-run comparison.
+//
+// Grids: Hopper (blocks, H), blocks = N * ceil(T / (64 * warpgroups)) or
+// ceil(N / pack); previous design (N, H, ceil(T / 64)), 128 threads.
 
 #include "attention_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace mmdiff {
+
+// ---------------------------------------------------------------------------
+// The Hopper kernel (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdStages = 2;  // depth of the K/V ring
+
+template <int DK, int WG>
+struct FwdSmem {
+  uint8_t q[WG][sm90::Tile<DK>::kBytes];
+  uint8_t k[kFwdStages][sm90::Tile<DK>::kBytes];
+  uint8_t v[kFwdStages][sm90::Tile<DK>::kBytes];
+  uint64_t q_full;
+  uint64_t full[kFwdStages];
+  uint64_t empty[kFwdStages];
+};
+
+struct FwdArgs {
+  bf16* out;
+  float* lse;
+  int n, len, heads, dim, per_head;
+  int pack;   // > 1: `pack` whole sequences share one 64-row tile (T <= 32)
+  int tiles;  // query tiles of 64 * WG rows per sequence (pack == 1)
+  float scale_log2;
+};
+
+// At DK <= 64 the compiler is asked for two resident blocks per SM (17%
+// faster at T = 1024 than one, PERF.md); at DK 96 and 128 the accumulators
+// would spill under the register cap that two blocks impose.
+template <int DK, int WG>
+__global__ void __launch_bounds__(WG * sm90::kWarpgroup + sm90::kProducerThreads,
+                                  DK <= 64 ? 2 : 1)
+    self_attention_sm90_kernel(const __grid_constant__ CUtensorMap qkv_map, const FwdArgs a) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  FwdSmem<DK, WG>& sm = sm90::aligned_smem<FwdSmem<DK, WG>>(smem_raw);
+  constexpr int kTileBytes = Tile<DK>::kBytes;
+  const int h = blockIdx.y, len = a.len;
+  // pack > 1: rows [seq * T, seq * T + 64) hold `pack` whole sequences, of
+  // which `valid` rows are real; pack == 1: sequence `seq`, query rows
+  // [q0, q0 + 64 * WG) of it.
+  int seq, q0, ntiles, valid;
+  if (a.pack > 1) {
+    seq = blockIdx.x * a.pack;
+    q0 = 0;
+    ntiles = 1;
+    valid = min(a.pack, a.n - seq) * len;
+  } else {
+    seq = blockIdx.x / a.tiles;
+    q0 = (blockIdx.x - seq * a.tiles) * (kRows * WG);
+    ntiles = (len + kRows - 1) / kRows;
+    valid = len;
+  }
+  const int row0 = seq * len;  // qkv row of the sequence's (or the pack's) first token
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], WG * kWarpgroup);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {  // producer warp: one lane issues every copy
+    if ((threadIdx.x & 31) == 0) {
+      mbar_expect_tx(&sm.q_full, WG * kTileBytes);
+      for (int w = 0; w < WG; ++w)
+        load_tile<DK>(sm.q[w], &qkv_map, &sm.q_full, 0, h, a.per_head, row0 + q0 + w * kRows);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kFwdStages;
+        mbar_wait(&sm.empty[s], ((j / kFwdStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+        load_tile<DK>(sm.k[s], &qkv_map, &sm.full[s], 1, h, a.per_head, row0 + j * kRows);
+        load_tile<DK>(sm.v[s], &qkv_map, &sm.full[s], 2, h, a.per_head, row0 + j * kRows);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: query rows q0 + 64 wg + [0, 64); this thread
+  // holds rows qr[0] and qr[1] (of the sequence, or of the pack).
+  const int wg = warp >> 2, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r_lo = q0 + wg * kRows + (warp & 3) * 16 + g;
+  const int qr[2] = {r_lo, r_lo + 8};
+  float o[DK / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(&sm.q_full, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % kFwdStages;
+    mbar_wait(&sm.full[s], (j / kFwdStages) & 1);
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss_n64(sc, desc_k(sm.q[wg], kk), desc_k(sm.k[s], kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = j * kRows + 8 * (i >> 2) + 2 * t + (i & 1), r = (i >> 1) & 1;
+      const bool ok = a.pack > 1 ? key < valid && key / len == qr[r] / len : key < len;
+      sc[i] = ok ? sc[i] * a.scale_log2 : -INFINITY;
+      mx[r] = fmaxf(mx[r], sc[i]);
+    }
+    float base[2], alpha[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mnew = fmaxf(m[r], mx[r]);
+      base[r] = mnew == -INFINITY ? 0.f : mnew;  // a packed row with no key yet
+      alpha[r] = exp2f(m[r] - base[r]);
+      m[r] = mnew;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = exp2f(sc[i] - base[(i >> 1) & 1]);
+      rowsum[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
+#pragma unroll
+    for (int i = 0; i < DK / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t pa[4][4];
+    acc_to_a(pa, sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DK>(o, pa[kk], desc_mn(sm.v[s], kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+  const int c = a.heads * a.dim;
+  float inv[2];
+  bool ok[2];
+  bf16* rows[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+    ok[r] = qr[r] < valid;
+    rows[r] = a.out + (long)(row0 + qr[r]) * c + (long)h * a.dim;
+    if (ok[r] && t == 0) {
+      const int sq = seq + qr[r] / len, i = qr[r] % len;
+      a.lse[((long)sq * a.heads + h) * len + i] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+  store_acc<DK>(o, rows[0], rows[1], ok[0], ok[1], inv[0], inv[1], a.dim);
+}
+
+template <int DK, int WG>
+static int launch_sm90(const CUtensorMap& map, FwdArgs a, cudaStream_t stream) {
+  a.tiles = (a.len + sm90::kRows * WG - 1) / (sm90::kRows * WG);
+  const int blocks = a.pack > 1 ? (a.n + a.pack - 1) / a.pack : a.n * a.tiles;
+  constexpr size_t smem = sizeof(FwdSmem<DK, WG>) + 1024;
+  int err = (int)cudaFuncSetAttribute(self_attention_sm90_kernel<DK, WG>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  self_attention_sm90_kernel<DK, WG>
+      <<<dim3(blocks, a.heads), WG * sm90::kWarpgroup + sm90::kProducerThreads, smem, stream>>>(
+          map, a);
+  return (int)cudaGetLastError();
+}
+
+// Two consumer warpgroups share each K/V tile when T > 64 and the grid of
+// 128-row tiles still covers the card; one otherwise.
+template <int DK>
+static int launch_sm90_rows(const CUtensorMap& map, const FwdArgs& a, cudaStream_t stream) {
+  const long wide = (long)a.n * a.heads * ((a.len + 2 * sm90::kRows - 1) / (2 * sm90::kRows));
+  if (a.pack == 1 && a.len > sm90::kRows && wide >= sm_count())
+    return launch_sm90<DK, 2>(map, a, stream);
+  return launch_sm90<DK, 1>(map, a, stream);
+}
+
+static int dispatch_sm90(const void* qkv, void* out, float* lse, int n, int len, int heads,
+                         int dim, int kernel_dim, int head_stride, int k_off,
+                         cudaStream_t stream) {
+  CUtensorMap map;
+  int err = encode_qkv_map(&map, qkv, (long)n * len, heads, dim, head_stride, k_off);
+  if (err) return err;
+  FwdArgs a;
+  a.out = static_cast<bf16*>(out);
+  a.lse = lse;
+  a.n = n;
+  a.len = len;
+  a.heads = heads;
+  a.dim = dim;
+  a.per_head = head_stride != dim;
+  a.pack = pack_for(n, len, heads);
+  a.tiles = 1;
+  a.scale_log2 = kLog2e / sqrtf((float)dim);
+  switch (kernel_dim) {
+    case 32: return launch_sm90_rows<32>(map, a, stream);
+    case 64: return launch_sm90_rows<64>(map, a, stream);
+    case 96: return launch_sm90_rows<96>(map, a, stream);
+    case 128: return launch_sm90_rows<128>(map, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The previous design (mma.sync; fp32 inputs, and bf16 for the comparison)
+// ---------------------------------------------------------------------------
 
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
     self_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                              float* __restrict__ lse, int len, int heads, int head_stride,
-                              int k_off, int v_off, float scale_log2) {
+                              float* __restrict__ lse, int len, int heads, int dim,
+                              int head_stride, int k_off, int v_off, float scale_log2) {
   __shared__ __align__(16) SharedTiles<D> sm;
   const int n = blockIdx.x, h = blockIdx.y;
-  const int c = heads * D;
+  const int c = heads * dim;
   const long stride = 3L * c;
   const T* q = qkv + (long)n * len * stride + (long)h * head_stride;
   const int row0 = blockIdx.z * kBlockQ + (threadIdx.x >> 5) * 16;
 
   FlashState<D> st;
-  load_queries<D, T>(st, q, stride, row0, len);
-  attend_sequence<D, T>(st, sm, q + k_off, q + v_off, stride, len, scale_log2);
-  store_rows<D, T>(st, out + (long)n * len * c + (long)h * D, c,
-                   lse + ((long)n * heads + h) * len, row0, len);
+  load_queries<D, T>(st, q, stride, row0, len, dim);
+  attend_sequence<D, T>(st, sm, q + k_off, q + v_off, stride, len, dim, scale_log2);
+  store_rows<D, T>(st, out + (long)n * len * c + (long)h * dim, c,
+                   lse + ((long)n * heads + h) * len, row0, len, dim);
 }
 
 template <int D, typename T>
-static void launch(const void* qkv, void* out, float* lse, int n, int len, int heads,
-                   int head_stride, int k_off, int v_off, cudaStream_t stream) {
+static int launch(const void* qkv, void* out, float* lse, int n, int len, int heads, int dim,
+                  int head_stride, int k_off, int v_off, cudaStream_t stream) {
   const dim3 grid(n, heads, (len + kBlockQ - 1) / kBlockQ);
-  const float scale_log2 = kLog2e / sqrtf((float)D);
+  const float scale_log2 = kLog2e / sqrtf((float)dim);
   self_attention_fwd_kernel<D, T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), lse, len, heads, head_stride, k_off,
+      static_cast<const T*>(qkv), static_cast<T*>(out), lse, len, heads, dim, head_stride, k_off,
       v_off, scale_log2);
-}
-
-template <typename T>
-static int dispatch(const void* qkv, void* out, float* lse, int n, int len, int heads,
-                    int head_dim, int head_stride, int k_off, int v_off, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64: launch<64, T>(qkv, out, lse, n, len, heads, head_stride, k_off, v_off, stream); break;
-    case 96: launch<96, T>(qkv, out, lse, n, len, heads, head_stride, k_off, v_off, stream); break;
-    case 128: launch<128, T>(qkv, out, lse, n, len, heads, head_stride, k_off, v_off, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int dispatch(const void* qkv, void* out, float* lse, int n, int len, int heads, int dim,
+                    int kernel_dim, int head_stride, int k_off, int v_off, cudaStream_t stream) {
+#define MMDIFF_CASE(D) \
+  case D: return launch<D, T>(qkv, out, lse, n, len, heads, dim, head_stride, k_off, v_off, stream);
+  switch (kernel_dim) {
+    MMDIFF_CASE(32)
+    MMDIFF_CASE(64)
+    MMDIFF_CASE(96)
+    MMDIFF_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MMDIFF_CASE
+}
+
 // ---------------------------------------------------------------------------
-// A/B variants of the kernel above (thirds layout, forward only, no lse), for
+// A/B variants of the previous design (thirds layout, forward only, no lse), for
 // mm_diffusion_tpu_torch/tools/bench_attn_variants.py.  They replace the TPU
 // spike kernels `_fwd_kernel_v2` (tools/bench_attn_variants.py:36, variants
 // hoist / recip / rows_cap) and `_fwd_kernel_v3` (tools/bench_attn_variants2.py:40,
 // softmax modes stock / noexp / exp2 / nomax).  What each means on this card:
-//   hoist  the kernel above already keeps a warp's q rows in registers across
-//          every kv tile: it is the stock kernel.
+//   hoist  the stock kernel already loads a block's q rows once for every
+//          kv tile (both designs): it is the stock kernel.
 //   recip  the stock kernel already multiplies by 1/l (store_rows), and
 //   exp2   already folds log2(e) into the logit scale: both are the stock
 //          kernel, and no copy of it is built.
@@ -191,10 +433,10 @@ __device__ __forceinline__ void attend_tile_variant(FlashState<D>& st, const Sha
 template <int D, typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     self_attention_variant_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int len,
-                                  int heads, int pack, float scale_log2, float scale) {
+                                  int heads, int dim, int pack, float scale_log2, float scale) {
   __shared__ __align__(16) SharedTiles<D> sm;
   const int h = blockIdx.y;
-  const int c = heads * D;
+  const int c = heads * dim;
   const long stride = 3L * c;
   const int seq0 = blockIdx.x * pack;
   // pack > 1: rows [0, rows) of the block are `pack` whole sequences, one
@@ -202,13 +444,13 @@ __global__ void __launch_bounds__(kThreads)
   const int rows = min(pack, n - seq0) * len;
   const int seg = pack > 1 ? len : 0;
   const int row0 = blockIdx.z * kBlockQ + (threadIdx.x >> 5) * 16;
-  const T* q = qkv + (long)seq0 * len * stride + (long)h * D;
+  const T* q = qkv + (long)seq0 * len * stride + (long)h * dim;
 
   FlashState<D> st;
-  load_queries<D, T>(st, q, stride, row0, rows);
+  load_queries<D, T>(st, q, stride, row0, rows, dim);
   for (int k0 = 0; k0 < rows; k0 += kBlockK) {
     const int keys = min(kBlockK, rows - k0);
-    stage_kv<D, T>(sm, q + c + k0 * stride, q + 2 * c + k0 * stride, stride, keys);
+    stage_kv<D, T>(sm, q + c + k0 * stride, q + 2 * c + k0 * stride, stride, keys, dim);
     __syncthreads();
     attend_tile_variant<D, V>(st, sm, keys, scale_log2, scale, seg, row0);
     __syncthreads();
@@ -225,77 +467,109 @@ __global__ void __launch_bounds__(kThreads)
       inv[r] = 1.f / l;
     }
   }
-  T* o = out + (long)seq0 * len * c + (long)h * D;
+  T* o = out + (long)seq0 * len * c + (long)h * dim;
   const int r0 = row0 + g, r1 = row0 + g + 8;
 #pragma unroll
   for (int nn = 0; nn < D / 8; ++nn) {
     const int col = nn * 8 + 2 * t;
+    if (col >= dim) continue;
     if (r0 < rows) Io<T>::store_pair(o + r0 * (long)c + col, st.o[nn][0] * inv[0], st.o[nn][1] * inv[0]);
     if (r1 < rows) Io<T>::store_pair(o + r1 * (long)c + col, st.o[nn][2] * inv[1], st.o[nn][3] * inv[1]);
   }
 }
 
 template <int D, typename T, int V>
-static int launch_variant(const void* qkv, void* out, int n, int len, int heads,
+static int launch_variant(const void* qkv, void* out, int n, int len, int heads, int dim,
                           cudaStream_t stream) {
   const int pack = (V == kVariantRows && len <= kBlockQ / 2) ? kBlockQ / len : 1;
   const dim3 grid = pack > 1 ? dim3((n + pack - 1) / pack, heads, 1)
                              : dim3(n, heads, (len + kBlockQ - 1) / kBlockQ);
-  const float scale = 1.f / sqrtf((float)D);
+  const float scale = 1.f / sqrtf((float)dim);
   self_attention_variant_kernel<D, T, V><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), n, len, heads, pack, kLog2e * scale,
+      static_cast<const T*>(qkv), static_cast<T*>(out), n, len, heads, dim, pack, kLog2e * scale,
       scale);
   return (int)cudaGetLastError();
 }
 
 template <int D, typename T>
-static int dispatch_variant_mode(const void* qkv, void* out, int n, int len, int heads,
+static int dispatch_variant_mode(const void* qkv, void* out, int n, int len, int heads, int dim,
                                  int variant, cudaStream_t s) {
+#define MMDIFF_CASE(V) \
+  case V: return launch_variant<D, T, V>(qkv, out, n, len, heads, dim, s);
   switch (variant) {
-    case kVariantRows: return launch_variant<D, T, kVariantRows>(qkv, out, n, len, heads, s);
-    case kVariantNoMax: return launch_variant<D, T, kVariantNoMax>(qkv, out, n, len, heads, s);
-    case kVariantNoExp: return launch_variant<D, T, kVariantNoExp>(qkv, out, n, len, heads, s);
+    MMDIFF_CASE(kVariantRows)
+    MMDIFF_CASE(kVariantNoMax)
+    MMDIFF_CASE(kVariantNoExp)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef MMDIFF_CASE
 }
 
 template <typename T>
-static int dispatch_variant(const void* qkv, void* out, int n, int len, int heads, int head_dim,
-                            int variant, cudaStream_t s) {
-  switch (head_dim) {
-    case 64: return dispatch_variant_mode<64, T>(qkv, out, n, len, heads, variant, s);
-    case 96: return dispatch_variant_mode<96, T>(qkv, out, n, len, heads, variant, s);
-    case 128: return dispatch_variant_mode<128, T>(qkv, out, n, len, heads, variant, s);
+static int dispatch_variant(const void* qkv, void* out, int n, int len, int heads, int dim,
+                            int kernel_dim, int variant, cudaStream_t s) {
+  switch (kernel_dim) {
+    case 32: return dispatch_variant_mode<32, T>(qkv, out, n, len, heads, dim, variant, s);
+    case 64: return dispatch_variant_mode<64, T>(qkv, out, n, len, heads, dim, variant, s);
+    case 96: return dispatch_variant_mode<96, T>(qkv, out, n, len, heads, dim, variant, s);
+    case 128: return dispatch_variant_mode<128, T>(qkv, out, n, len, heads, dim, variant, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace mmdiff
 
+static bool head_dim_fits(int head_dim, int kernel_dim) {
+  return head_dim % 8 == 0 && head_dim >= 8 && head_dim <= kernel_dim;
+}
+
 // Head h reads q at h*head_stride, k at h*head_stride + k_off and v at
 // h*head_stride + v_off within each row of 3*heads*head_dim elements:
 //   thirds:   head_stride = D,   k_off = C, v_off = 2C
 //   per_head: head_stride = 3D,  k_off = D, v_off = 2D
-// Returns the launch's cudaGetLastError() (0 on success).
+// `head_dim` runs on the kernel built for `kernel_dim`
+// (ops/block_attention.py::kernel_head_dim).  bf16 takes the Hopper kernel
+// (qkv 16-byte aligned), fp32 the previous design.  Returns the launch's
+// CUDA error (0 on success).
 extern "C" int mmdiff_self_attention_fwd(const void* qkv, void* out, float* lse, int n, int len,
-                                         int heads, int head_dim, int head_stride, int k_off,
-                                         int v_off, int is_fp32, void* stream) {
+                                         int heads, int head_dim, int kernel_dim,
+                                         int head_stride, int k_off, int v_off, int is_fp32,
+                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
-    return mmdiff::dispatch<float>(qkv, out, lse, n, len, heads, head_dim, head_stride, k_off,
-                                   v_off, s);
-  return mmdiff::dispatch<mmdiff::bf16>(qkv, out, lse, n, len, heads, head_dim, head_stride,
-                                        k_off, v_off, s);
+    return mmdiff::dispatch<float>(qkv, out, lse, n, len, heads, head_dim, kernel_dim,
+                                   head_stride, k_off, v_off, s);
+  return mmdiff::dispatch_sm90(qkv, out, lse, n, len, heads, head_dim, kernel_dim, head_stride,
+                               k_off, s);
+}
+
+// The previous design (mma.sync, attention_common.cuh) on the same
+// arguments, for the same-run comparison with the Hopper kernel.
+extern "C" int mmdiff_self_attention_fwd_mma(const void* qkv, void* out, float* lse, int n,
+                                             int len, int heads, int head_dim, int kernel_dim,
+                                             int head_stride, int k_off, int v_off, int is_fp32,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
+  if (is_fp32)
+    return mmdiff::dispatch<float>(qkv, out, lse, n, len, heads, head_dim, kernel_dim,
+                                   head_stride, k_off, v_off, s);
+  return mmdiff::dispatch<mmdiff::bf16>(qkv, out, lse, n, len, heads, head_dim, kernel_dim,
+                                        head_stride, k_off, v_off, s);
 }
 
 // The variants above over thirds-layout qkv [N, T, 3C] -> out [N, T, C];
 // variant 1 = rows, 2 = nomax, 3 = noexp.  Returns the launch's
 // cudaGetLastError() (0 on success).
 extern "C" int mmdiff_self_attention_variant_fwd(const void* qkv, void* out, int n, int len,
-                                                 int heads, int head_dim, int variant,
-                                                 int is_fp32, void* stream) {
+                                                 int heads, int head_dim, int kernel_dim,
+                                                 int variant, int is_fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
-    return mmdiff::dispatch_variant<float>(qkv, out, n, len, heads, head_dim, variant, s);
-  return mmdiff::dispatch_variant<mmdiff::bf16>(qkv, out, n, len, heads, head_dim, variant, s);
+    return mmdiff::dispatch_variant<float>(qkv, out, n, len, heads, head_dim, kernel_dim, variant,
+                                           s);
+  return mmdiff::dispatch_variant<mmdiff::bf16>(qkv, out, n, len, heads, head_dim, kernel_dim,
+                                                variant, s);
 }

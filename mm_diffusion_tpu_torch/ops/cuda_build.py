@@ -25,6 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "attention_common.cuh",
     "attention_bwd_common.cuh",
+    "attention_sm90.cuh",
     "self_attention.cu",
     "banded_attention.cu",
     "self_attention_bwd.cu",
@@ -45,13 +46,15 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of the entry points (see the .cu files).
 SIGNATURES = {
-    "mmdiff_self_attention_fwd": [_P, _P, _P] + [_I] * 8 + [_P],
-    "mmdiff_banded_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
-    "mmdiff_self_attention_bwd": [_P] * 6 + [_I] * 8 + [_P],
-    "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 9 + [_P],
-    "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 6 + [_P],
-    "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 5 + [_L] * 6 + [_I, _P],
-    "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 5 + [_L] * 6 + [_I, _P],
+    "mmdiff_self_attention_fwd": [_P, _P, _P] + [_I] * 9 + [_P],
+    "mmdiff_self_attention_fwd_mma": [_P, _P, _P] + [_I] * 9 + [_P],
+    "mmdiff_banded_attention_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    "mmdiff_self_attention_bwd": [_P] * 6 + [_I] * 9 + [_P],
+    "mmdiff_self_attention_bwd_mma": [_P] * 6 + [_I] * 9 + [_P],
+    "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 10 + [_P],
+    "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 7 + [_P],
+    "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 6 + [_L] * 6 + [_I, _P],
+    "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 6 + [_L] * 6 + [_I, _P],
     "mmdiff_gemm_bf16": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 3 + [_P],
     "mmdiff_conv3x3_chw": [_P] * 3 + [_I] * 5 + [_P],
 }

@@ -15,9 +15,11 @@ and Tk).
 
 Dispatch: a tensor on the CPU takes the plain version (:func:`mha_reference`
 and :func:`mha_backward_reference`); a CUDA tensor launches the kernels or
-raises -- head dims other than :data:`HEAD_DIMS` included.  There is no size
-gate and no fallback.  Each kernel wrapper counts its launches in
-:data:`LAUNCHES`.
+raises.  The kernels take every head dim ``D`` with ``D % 8 == 0`` and
+``8 <= D <= 256`` (JAX's flash gate), on the kernel built for the next of
+:data:`HEAD_DIMS` at or above ``D`` (:func:`kernel_head_dim`); any other ``D``
+raises ``ValueError``.  There is no size gate and no fallback.  Each kernel
+wrapper counts its launches in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -27,13 +29,13 @@ from typing import Tuple
 
 import torch
 
-from . import cuda_build
+from . import block_attention, cuda_build
 # The kernels are held to the limits of K1 (forward, logsumexp) and K4
 # (backward): the same rounding at the same places.
 from .block_attention import BACKWARD_TOL, FORWARD_TOL, KERNEL_DTYPES, LSE_TOL, _softmax_backward  # noqa: F401
 from .common import kernel_path
 
-HEAD_DIMS = (64, 96, 128)
+HEAD_DIMS = (32, 64, 96, 128, 192, 256)  # the head dims the kernels are built for
 MAX_GRID_DIM = 65535  # B and H are grid dimensions of the kernels
 
 # Launches of each kernel since the last reset_launch_counts().
@@ -43,6 +45,12 @@ LAUNCHES = {"flash_mha_fwd": 0, "flash_mha_bwd": 0}
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kernel_head_dim(d: int) -> int:
+    """The built head dim that head dim ``d`` runs on (the rule of
+    ``block_attention.kernel_head_dim`` over :data:`HEAD_DIMS`, up to 256)."""
+    return block_attention.kernel_head_dim(d, HEAD_DIMS)
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +120,7 @@ def _check_operands(q, k, v):
         raise ValueError("k and v must share their layout (strides)")
     if len({q.dtype, k.dtype, v.dtype}) > 1 or len({q.device, k.device, v.device}) > 1:
         raise ValueError("q, k and v must share dtype and device")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the flash MHA kernel takes head dims {HEAD_DIMS}, got {d}")
+    kernel_head_dim(d)
     if min(b, h, tq, tk) == 0 or max(b, h) > MAX_GRID_DIM:
         raise ValueError(f"B and H must be in [1, {MAX_GRID_DIM}] and T > 0, got {tuple(q.shape)}, Tk {tk}")
     return b, h, tq, tk, d
@@ -131,7 +138,7 @@ def flash_mha_fwd_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mmdiff_flash_mha_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, h, tq, tk, d, *q.stride()[:3], *k.stride()[:3],
+            b, h, tq, tk, d, kernel_head_dim(d), *q.stride()[:3], *k.stride()[:3],
             int(q.dtype == torch.float32), stream,
         )
     if err:
@@ -161,7 +168,7 @@ def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor
         err = lib.mmdiff_flash_mha_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, tq, tk, d, *q.stride()[:3], *k.stride()[:3],
+            b, h, tq, tk, d, kernel_head_dim(d), *q.stride()[:3], *k.stride()[:3],
             int(q.dtype == torch.float32), stream,
         )
     if err:

@@ -1,0 +1,89 @@
+"""Time the self-attention kernels of several checkouts of the port on one
+card, in turns.
+
+    python -m mm_diffusion_tpu_torch.tools.ab_self_attention DIR [DIR ...]
+        [--rounds 2] [--backward] [--calls 10] [--replays 10]
+
+Run it from the root of a checkout (it reads ``chip_smoke.py``'s shape
+lists there).  Each DIR holds another checkout: its ``mm_diffusion_tpu_torch``
+builds its own kernels into ``DIR/build/kernels`` and runs in a fresh
+process.  The checkouts run in order, then in reverse order, ``--rounds``
+times in all (A B B A ...), so that drift on the card shows beside the
+difference.  Every time is device ms per call from CUDA-graph replays
+(``utils/timing.py::device_ms``) of the bf16 self-attention forward (K1) at
+the flagship sampler's shapes (``chip_smoke.SELF_SHAPES``) and, with
+``--backward``, of its backward (K4/K5) at the training step's shapes
+(``chip_smoke.TRAIN_SELF_SHAPES``); each output is checked against the
+plain version first.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+
+def child(root: str, backward: bool, calls: int, replays: int) -> None:
+    sys.path.insert(0, os.getcwd())
+    from chip_smoke import SELF_SHAPES, TRAIN_SELF_SHAPES
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.ops import cuda_build
+    from mm_diffusion_tpu_torch.utils.timing import device_ms, nvidia_smi_line
+
+    built = cuda_build.load()
+    print(f"[{root}] {nvidia_smi_line()}; library {built.path}, built in {built.build_seconds:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    time = lambda fn: device_ms(fn, calls=calls, replays=replays)  # noqa: E731
+    for kind, shapes in (("fwd", SELF_SHAPES), ("bwd", TRAIN_SELF_SHAPES if backward else [])):
+        total = 0.0
+        for label, n, t, c, h, layout in shapes:
+            qkv = torch.randn((n, t, 3 * c), generator=g, device="cuda", dtype=torch.bfloat16)
+            out, lse = ba.self_attention_cuda(qkv, h, layout)
+            if kind == "fwd":
+                err, ok = ba.FORWARD_TOL.check(out, ba.self_attention_reference(qkv, h, layout))
+                ms = time(lambda: ba.self_attention_cuda(qkv, h, layout))
+            else:
+                dout = torch.randn((n, t, c), generator=g, device="cuda", dtype=torch.bfloat16)
+                got = ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)
+                ref = ba.self_attention_backward_reference(qkv, dout, h, layout)
+                err, ok = ba.BACKWARD_TOL.check(got, ref)
+                ms = time(lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
+            if not ok:
+                raise SystemExit(f"[{root}] {kind} {label}: error {err} over the limit")
+            total += ms
+            print(f"[{root}] {kind} {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {ms:.4f} ms")
+        if shapes:
+            print(f"[{root}] {kind} summed {total:.4f} ms")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("dirs", nargs="+", help="checkouts to compare")
+    ap.add_argument("--rounds", type=int, default=2, help="passes over the checkouts, alternating order")
+    ap.add_argument("--backward", action="store_true", help="also time the backward")
+    ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--replays", type=int, default=10)
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        child(args.child, args.backward, args.calls, args.replays)
+        return 0
+    for r in range(args.rounds):
+        for root in args.dirs if r % 2 == 0 else args.dirs[::-1]:
+            # the file, not the module: the child must import the package from `root`
+            cmd = [sys.executable, os.path.abspath(__file__), root, "--child", root,
+                   "--calls", str(args.calls), "--replays", str(args.replays)]
+            rc = subprocess.run(cmd + (["--backward"] if args.backward else [])).returncode
+            if rc:
+                return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

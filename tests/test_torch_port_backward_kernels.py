@@ -1,6 +1,9 @@
 """The hand-written CUDA backward kernels against their plain PyTorch
 backwards, on the card, at the flagship training step's main-path shapes
-(chip_smoke.py's lists), every banded shift included.
+(chip_smoke.py's lists), every banded shift included; the self-attention
+backward (K4/K5) also at ragged T with N >= 2, at T = 16 with an N that does
+not fill the last packed tile, and against its previous design; K4-K7 at
+head dims that run on a larger built kernel (32, 48, 72).
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 ``cuda`` and skips without a CUDA device.  On a GPU machine:
@@ -56,6 +59,57 @@ def test_self_attention_backward_ragged_and_layouts(cuda, layout, t):
 
 
 @pytest.mark.parametrize(
+    "label,n,t,c,heads,layout", TRAIN_SELF_SHAPES, ids=[s[0] for s in TRAIN_SELF_SHAPES]
+)
+def test_self_attention_backward_new_and_previous_designs_agree(cuda, label, n, t, c, heads, layout):
+    """The Hopper backward and the previous (mma.sync) design on the same
+    inputs: the same gradient within the backward limit."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn((n, t, c), generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = ba.self_attention_cuda(qkv, heads, layout)
+    new = ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout)
+    _close(new, ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, heads, layout))
+
+
+@pytest.mark.parametrize("n,t,c,heads,layout", [
+    (3, 400, 512, 4, "thirds"), (3, 400, 512, 4, "per_head"), (5, 100, 256, 4, "thirds"),
+    (5, 100, 256, 4, "per_head"), (1023, 16, 256, 4, "thirds"), (1023, 16, 256, 4, "per_head"),
+])
+def test_self_attention_backward_ragged_and_packed(cuda, n, t, c, heads, layout):
+    """Ragged T with N >= 2 (the rows past T are the next sequence's) and a
+    partial last pack at T = 16."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn((n, t, c), generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = ba.self_attention_cuda(qkv, heads, layout)
+    dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout)
+    _close(dqkv, ba.self_attention_backward_reference(qkv, dout, heads, layout))
+
+
+@pytest.mark.parametrize("d", [32, 48, 72])
+def test_backward_head_dims_on_larger_kernels(cuda, d):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    heads, c = 3, 3 * d
+    for n, t, layout in ((3, 100, "thirds"), (7, 16, "per_head")):
+        qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+        dout = torch.randn((n, t, c), generator=g, device=cuda, dtype=torch.bfloat16)
+        out, lse = ba.self_attention_cuda(qkv, heads, layout)
+        dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout)
+        _close(dqkv, ba.self_attention_backward_reference(qkv, dout, heads, layout))
+    q_src = torch.randn((2, 4, 40, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    kv_src = torch.randn((2, 4, 24, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn((2, 4, 40, c), generator=g, device=cuda, dtype=torch.bfloat16)
+    for shift, lw in ((3, 1), (1, 2)):
+        out, lse = ba.banded_attention_cuda(q_src, kv_src, shift, lw, heads, c)
+        dq, dkv = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, shift, lw, heads, c)
+        rq, rkv = ba.banded_attention_backward_reference(q_src, kv_src, dout, shift, lw, heads, c)
+        _close(dq, rq)
+        _close(dkv, rkv)
+        assert not dq[..., c:].any() and not dkv[..., :c].any()
+
+
+@pytest.mark.parametrize(
     "label,n,f,tq,tk,c,heads,lw", TRAIN_BANDED_SHAPES, ids=[s[0] for s in TRAIN_BANDED_SHAPES]
 )
 def test_banded_backward_kernel_every_shift(cuda, label, n, f, tq, tk, c, heads, lw):
@@ -99,6 +153,12 @@ def test_fp32_backward_and_autograd(cuda):
 
 def test_backward_kernels_are_deterministic(cuda):
     g = torch.Generator(device=cuda).manual_seed(4)
+    for n, t, c in ((4, 400, 512), (1023, 16, 256), (8, 1024, 256)):
+        qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+        dout = torch.randn((n, t, c), generator=g, device=cuda, dtype=torch.bfloat16)
+        out, lse = ba.self_attention_cuda(qkv, 4)
+        first = ba.self_attention_bwd_cuda(qkv, out, lse, dout, 4)
+        assert torch.equal(first, ba.self_attention_bwd_cuda(qkv, out, lse, dout, 4))
     q_src = torch.randn((1, 16, 64, 3 * 512), generator=g, device=cuda, dtype=torch.bfloat16)
     kv_src = torch.randn((1, 16, 25, 3 * 512), generator=g, device=cuda, dtype=torch.bfloat16)
     dout = torch.randn((1, 16, 64, 512), generator=g, device=cuda, dtype=torch.bfloat16)

@@ -1,6 +1,6 @@
 """The flash MHA kernels (K8) and the spike kernels (S1-S4) against their
 plain PyTorch versions, on the card: both K8 layouts, Tq != Tk with ragged
-ends, every head dim; the K1 variants at ragged and packed lengths; the
+ends, head dims on every built size (32 and 192 included) and between two; the K1 variants at ragged and packed lengths; the
 GEMM and the conv at ragged sizes.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
@@ -54,7 +54,7 @@ def _bthd(*xs):
 
 
 @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
-@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 192])
 @pytest.mark.parametrize("tq,tk", [(1, 5), (17, 33), (64, 64), (100, 1024), (130, 65), (1024, 400)])
 def test_flash_mha_kernels_ragged(cuda, layout, d, tq, tk):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -97,10 +97,24 @@ def test_flash_mha_backward_is_deterministic(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("d", [8, 40, 160, 256])
+def test_flash_mha_head_dims_between_built_sizes(cuda, d):
+    """Head dims that run on the next larger built kernel (the lanes past d
+    zero-filled and never stored), forward and backward."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, dout = _operands(g, cuda, 2, 3, 70, 50, d, "bthd")
+    out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+    _close(out, fa.mha_reference(*_bthd(q, k, v)).transpose(1, 2))
+    grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+    for got, ref in zip(grads, fa.mha_backward_reference(*_bthd(q, k, v, dout))):
+        _bwd_close(got, ref.transpose(1, 2))
+
+
 def test_flash_mha_unsupported_inputs_raise(cuda):
-    x = torch.randn((1, 2, 16, 32), device=cuda)
-    with pytest.raises(ValueError, match=r"head dims \(64, 96, 128\)"):
-        fa.flash_mha_bhtd(x, x, x)
+    for d in (12, 264):
+        x = torch.randn((1, 2, 16, d), device=cuda)
+        with pytest.raises(ValueError, match=r"d % 8 == 0 and 8 <= d <= 256"):
+            fa.flash_mha_bhtd(x, x, x)
     with pytest.raises(TypeError):
         fa.flash_mha_fwd_cuda(*(torch.randn((1, 2, 16, 64), device=cuda).half(),) * 3)
     y = torch.randn((1, 2, 32, 64), device=cuda)

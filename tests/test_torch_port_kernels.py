@@ -1,5 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, at the flagship sampler's main-path shapes (chip_smoke.py's lists).
+card, at the flagship sampler's main-path shapes (chip_smoke.py's lists);
+the self-attention forward (K1) also at ragged T with N >= 2 (the rows past
+T of one sequence are the next one's), at T = 16 with an N that does not
+fill the last packed tile, and against its previous design; K1 and K2/K3 at
+head dims that run on a larger built kernel (32, 48, 72).
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 ``cuda`` and skips without a CUDA device.  On a GPU machine:
@@ -38,6 +42,55 @@ def test_self_attention_kernel(cuda, label, n, t, c, heads, layout):
     _close(lse, torch.logsumexp(logits, dim=-1), tol=ba.LSE_TOL)
 
 
+@pytest.mark.parametrize("label,n,t,c,heads,layout", SELF_SHAPES, ids=[s[0] for s in SELF_SHAPES])
+def test_self_attention_new_and_previous_designs_agree(cuda, label, n, t, c, heads, layout):
+    """The Hopper kernel and the previous (mma.sync) design on the same
+    inputs: the same outputs within the forward limit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = ba.self_attention_cuda(qkv, heads, layout)
+    prev_out, prev_lse = ba._self_attention_previous_cuda(qkv, heads, layout)
+    _close(out, prev_out)
+    _close(lse, prev_lse, tol=ba.LSE_TOL)
+
+
+SELF_EXTRA = [  # (n, t, c, heads, layout): ragged T with N >= 2, T = 16 with a partial pack
+    (3, 400, 512, 4, "thirds"), (3, 400, 512, 4, "per_head"), (5, 100, 256, 4, "thirds"),
+    (5, 100, 256, 4, "per_head"), (1023, 16, 256, 4, "thirds"), (1023, 16, 256, 4, "per_head"),
+]
+
+
+@pytest.mark.parametrize("n,t,c,heads,layout", SELF_EXTRA)
+def test_self_attention_ragged_and_packed(cuda, n, t, c, heads, layout):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = ba.self_attention_cuda(qkv, heads, layout)
+    _close(out, ba.self_attention_reference(qkv, heads, layout))
+    q, k, _ = ba.split_packed_qkv(qkv.float(), heads, layout)
+    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) / (c // heads) ** 0.5
+    _close(lse, torch.logsumexp(logits, dim=-1), tol=ba.LSE_TOL)
+
+
+@pytest.mark.parametrize("layout", ["thirds", "per_head"])
+@pytest.mark.parametrize("d", [32, 48, 72])
+def test_head_dims_on_larger_kernels(cuda, d, layout):
+    """K1 (ragged T, a partial pack) and K2/K3 at a head dim below the
+    built size it runs on (the lanes past d zero-filled, never stored)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    heads, c = 3, 3 * d
+    for n, t in ((3, 100), (7, 16)):
+        qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+        out, lse = ba.self_attention_cuda(qkv, heads, layout)
+        _close(out, ba.self_attention_reference(qkv, heads, layout))
+        q, k, _ = ba.split_packed_qkv(qkv.float(), heads, layout)
+        _close(lse, torch.logsumexp(torch.einsum("nqhd,nkhd->nhqk", q, k) / d**0.5, dim=-1), tol=ba.LSE_TOL)
+    q_src = torch.randn((2, 4, 40, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    kv_src = torch.randn((2, 4, 24, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    for shift, lw in ((3, 1), (1, 2), (0, 4)):
+        out, _ = ba.banded_attention_cuda(q_src, kv_src, shift, lw, heads, c)
+        _close(out, ba.banded_cross_attention_reference(q_src, kv_src, shift, lw, heads, c))
+
+
 @pytest.mark.parametrize(
     "label,f,tq,tk,c,heads,lw", BANDED_SHAPES, ids=[s[0] for s in BANDED_SHAPES]
 )
@@ -73,8 +126,10 @@ def test_dispatch_launches_and_counts(cuda):
 
 
 def test_unsupported_inputs_raise(cuda):
-    with pytest.raises(ValueError, match="head dims"):
-        ba.self_attention_cuda(torch.randn((1, 16, 3 * 64), device=cuda), 2)  # d = 32
+    with pytest.raises(ValueError, match=r"d % 8 == 0 and 8 <= d <= 128"):
+        ba.self_attention_cuda(torch.randn((1, 16, 3 * 24), device=cuda), 2)  # d = 12
+    with pytest.raises(ValueError, match=r"d % 8 == 0 and 8 <= d <= 128"):
+        ba.self_attention_cuda(torch.randn((1, 16, 3 * 136), device=cuda), 1)  # d = 136
     with pytest.raises(TypeError):
         ba.self_attention_cuda(torch.randn((1, 16, 3 * 64), device=cuda).half(), 1)
     with pytest.raises(ValueError, match="contiguous"):
@@ -82,3 +137,6 @@ def test_unsupported_inputs_raise(cuda):
     src = torch.randn((1, 4, 8, 3 * 64), device=cuda)
     with pytest.raises(ValueError, match="local_window"):
         ba.banded_attention_cuda(src, src, 0, 5, 1, 64)
+    src = torch.randn((1, 4, 8, 3 * 20), device=cuda)
+    with pytest.raises(ValueError, match=r"d % 8 == 0"):
+        ba.banded_attention_cuda(src, src, 0, 1, 1, 20)  # d = 20
