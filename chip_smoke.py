@@ -22,13 +22,18 @@ Phases, each printed as it runs; any failure exits non-zero:
      (mm_diffusion_tpu_torch/utils/timing.py).
   3b. the backward kernels the same way, at every main-path shape of the
      flagship training step (batch 4; banded shifts 0, the middle and the
-     last of the span), and the forward kernels' out and lse that they
-     take, held to phase 3's tolerance at those shapes; the self-attention
-     backward (K4/K5) beside its previous design and at phase 3's extra
-     cases.  The library call timed for the self-attention backward is
-     PyTorch's fused attention's backward alone, one autograd.grad replayed
-     in the graph (its forward+backward is printed beside it).  At T = 1024
-     the Hopper K1 and K5 must beat their previous design.
+     last of the span, where the window wraps), and the forward kernels'
+     out and lse that they take, held to phase 3's tolerance at those
+     shapes; the self-attention backward (K4/K5) and the banded backward
+     (K6/K7) beside their previous designs (both checked, both timed, two
+     runs bitwise equal), K4/K5 also at phase 3's extra cases.  The library
+     call timed for the self-attention backward is PyTorch's fused
+     attention's backward alone, one autograd.grad replayed in the graph
+     (its forward+backward is printed beside it); beside each banded shape,
+     as a yardstick and not one call for the same function, the same SDPA
+     backward on the window gathered into [N*F, H, lw*Tk, d] (the gather
+     untimed).  At T = 1024 the Hopper K1 and K5, and at both ds2 shapes
+     the Hopper K6, must beat their previous design.
   4. one model evaluation on the card (bf16, kernels) against the CPU (fp32,
      plain versions) with the same random non-zero weights: the stock
      MM-UNet at batch 1, and the SR U-Net on 2 frames; relative L2 error.
@@ -63,7 +68,7 @@ The last three lines of standard output are the kernels' JSON record
 phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
 graph replay re-runs captured launches without counting them -- and the
 per-call numbers of phases 3, 3b and 7.1 summed over each kernel's main-path
-or hot shapes; K1, K4 and K5 also carry ``previous_ms``, their previous
+or hot shapes; K1 and K4-K7 also carry ``previous_ms``, their previous
 design's time in the same run), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -308,6 +313,20 @@ def library_attention_ms(views, leaves, dout=None):
     return bwd_ms, time_ms(lambda: torch.autograd.grad(fwd(*xs), xs, dout))
 
 
+def gathered_window(q_src, kv_src, dout, shift, lw, h, c):
+    """The banded attention's window gathered for SDPA, outside any timing:
+    ``([q, k, v], dout)`` as contiguous ``[N*F, H, T, d]`` tensors, k and v
+    over the lw * Tk keys of each query frame's window."""
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    n, f, tq, _ = q_src.shape
+    tk, d = kv_src.shape[2], c // h
+    kv = kv_src[:, ba.window_frame_indices(f, lw, shift, q_src.device)]  # [N, F, lw, Tk, 3C]
+    heads = lambda x, t: x.reshape(n * f, t, h, d).transpose(1, 2).contiguous()  # noqa: E731
+    k, v = (heads(kv[..., i * c:(i + 1) * c], lw * tk) for i in (1, 2))
+    return [heads(q_src[..., :c], tq), k, v], heads(dout, tq)
+
+
 def toolchain() -> str:
     import torch
 
@@ -548,7 +567,7 @@ def backward_parity(forward_summary):
         dout = torch.randn((n, f, tq, c), generator=g, device=dev, dtype=torch.bfloat16)
         span = f - lw
         shifts = sorted({0, span // 2, span})
-        worst = fwd_worst = 0.0
+        worst = prev_worst = fwd_worst = 0.0
         for s in shifts:
             out, lse = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
             fwd_err, lse_err, fwd_ok = banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse)
@@ -557,25 +576,41 @@ def backward_parity(forward_summary):
             worst_fwd("banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]",
                       fwd_err, lse_err)
             got = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
+            prev = ba._banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
             ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
-            for name_, a, b in zip(("dq_src", "dkv_src"), got, ref):
-                err, ok = ba.BACKWARD_TOL.check(a, b)
+            for name_, a, p, b in zip(("dq_src", "dkv_src"), got, prev, ref):
+                (err, ok), (prev_err, prev_ok) = ba.BACKWARD_TOL.check(a, b), ba.BACKWARD_TOL.check(p, b)
                 check(ok, f"banded_attention_bwd {label} shift {s} {name_}: err {err}")
-                worst = max(worst, err)
+                check(prev_ok, f"banded_attention_bwd previous design {label} shift {s} {name_}: err {prev_err}")
+                worst, prev_worst = max(worst, err), max(prev_worst, prev_err)
             check(not got[0][..., c:].any() and not got[1][..., :c].any(),
                   f"banded_attention_bwd {label} shift {s}: non-zero lanes outside q / k|v")
+            check(all(torch.equal(a, b) for a, b in zip(
+                got, ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))),
+                f"banded_attention_bwd {label} shift {s}: two runs differ")
+            del got, prev, ref
         ms = time_ms(lambda: ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))
+        prev_ms = time_ms(
+            lambda: ba._banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
+        )
         plain_ms = time_ms(
             lambda: ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
+        )
+        sdpa_ms, sdpa_fwd_bwd_ms = library_attention_ms(
+            lambda *xs: xs, *gathered_window(q_src, kv_src, dout, s, lw, h, c)
         )
         bound = bound_ms(*banded_work(n, f, tq, tk, c, h, lw, backward=True))
         print(
             f"banded_attention_bwd {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} "
             f"lw={lw:2d} shifts={shifts} forward err={fwd_worst:.3e}; err={worst:.3e} kernel={ms:.4f} ms "
-            f"plain={plain_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})"
+            f"previous design={prev_ms:.4f} ms (err={prev_worst:.3e}, x{ms / prev_ms:.2f}) "
+            f"plain={plain_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]}); yardstick, not the same "
+            f"function: SDPA bwd on the gathered window {sdpa_ms:.4f} ms (fwd+bwd {sdpa_fwd_bwd_ms:.4f} ms)"
         )
+        if lw == 1:
+            check(ms < prev_ms, f"banded_attention_bwd {label}: {ms} ms, not faster than the previous design")
         name = "banded_attention_bwd[lw=1]" if lw == 1 else "banded_attention_bwd[lw>1]"
-        record(name, worst, ms, plain_ms, bound, None)
+        record(name, worst, ms, plain_ms, bound, None, prev_ms)
     return summary
 
 

@@ -27,12 +27,14 @@ the next size at or above it (32, 64, 96, 128), whose lanes past ``d`` are
 zero-filled and never stored.  Any other ``d`` raises ``ValueError`` on a
 CUDA tensor (the plain version on the CPU takes any ``d``).
 
-bf16 self-attention (K1 forward, K4/K5 backward) runs the Hopper kernels
-(TMA, mbarrier rings, ``wgmma``; ``csrc/attention_sm90.cuh``); fp32 runs the
-previous mma.sync design, whose bf16 build stays reachable through
-``_self_attention_previous_cuda`` and ``_self_attention_bwd_previous_cuda``
+bf16 self-attention (K1 forward, K4/K5 backward) and the bf16 banded
+backward (K6/K7) run the Hopper kernels (TMA, mbarrier rings, ``wgmma``;
+``csrc/attention_sm90.cuh``); fp32 runs the previous mma.sync design, whose
+bf16 build stays reachable through ``_self_attention_previous_cuda``,
+``_self_attention_bwd_previous_cuda`` and ``_banded_attention_bwd_previous_cuda``
 for the same-run comparison in ``chip_smoke.py`` and the card tests (counted
-in :data:`PREVIOUS_LAUNCHES`, never by the model).
+in :data:`PREVIOUS_LAUNCHES`, never by the model).  The banded forward
+(K2/K3) is mma.sync.
 
 :func:`self_attention_variant` serves the A/B tool
 ``tools/bench_attn_variants.py`` (the TPU spikes' K1 variants, see
@@ -68,7 +70,7 @@ BANDED_WINDOWS: collections.Counter = collections.Counter()
 BANDED_BWD_WINDOWS: collections.Counter = collections.Counter()
 SELF_BWD_LENGTHS: collections.Counter = collections.Counter()
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
-# Launches of the previous self-attention design (same-run comparison only).
+# Launches of the previous designs (same-run comparison only).
 PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
 
 # The K1 forward's A/B variants (TPU spikes tools/bench_attn_variants.py and
@@ -470,6 +472,32 @@ def _self_attention_bwd_previous_cuda(qkv, out, lse, g, num_heads: int, layout: 
     return dqkv
 
 
+def _banded_attention_bwd_launch(entry, q_src, kv_src, out, lse, g, shift, local_window,
+                                 num_heads, channels):
+    n, f, tq, tk, d = _check_banded(q_src, kv_src, local_window, num_heads, channels)
+    c = channels
+    _check_like(out, q_src, "out", (n, f, tq, c))
+    _check_like(g, q_src, "g", (n, f, tq, c))
+    _check_aligned(q_src, kv_src, out, g)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (n, f, num_heads, tq) or not lse.is_contiguous():
+        raise ValueError(f"lse: expected contiguous fp32 {(n, f, num_heads, tq)}, got {tuple(lse.shape)}")
+    lib = cuda_build.load().lib
+    delta = torch.empty_like(lse)
+    dq_src = torch.empty_like(q_src)
+    dkv_src = torch.empty_like(kv_src)
+    with torch.cuda.device(q_src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(
+            q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq_src.data_ptr(), dkv_src.data_ptr(), n, f, tq, tk, num_heads, d,
+            kernel_head_dim(d), int(shift) % f, local_window, int(q_src.dtype == torch.float32),
+            stream,
+        )
+    if err:
+        raise RuntimeError(f"banded attention backward kernel launch failed: CUDA error {err}")
+    return dq_src, dkv_src
+
+
 def banded_attention_bwd_cuda(
     q_src: torch.Tensor,
     kv_src: torch.Tensor,
@@ -481,32 +509,39 @@ def banded_attention_bwd_cuda(
     num_heads: int,
     channels: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the banded backward kernels on the forward's sources, ``out``
-    and ``lse`` and the output gradient ``g`` [N, F, Tq, C].  Returns the
-    packed ``(dq_src, dkv_src)`` (zeros outside the q and k|v lanes)."""
-    n, f, tq, tk, d = _check_banded(q_src, kv_src, local_window, num_heads, channels)
-    c = channels
-    _check_like(out, q_src, "out", (n, f, tq, c))
-    _check_like(g, q_src, "g", (n, f, tq, c))
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (n, f, num_heads, tq) or not lse.is_contiguous():
-        raise ValueError(f"lse: expected contiguous fp32 {(n, f, num_heads, tq)}, got {tuple(lse.shape)}")
-    lib = cuda_build.load().lib
-    delta = torch.empty_like(lse)
-    dq_src = torch.empty_like(q_src)
-    dkv_src = torch.empty_like(kv_src)
-    with torch.cuda.device(q_src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_banded_attention_bwd(
-            q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq_src.data_ptr(), dkv_src.data_ptr(), n, f, tq, tk, num_heads, d,
-            kernel_head_dim(d), int(shift) % f, local_window, int(q_src.dtype == torch.float32),
-            stream,
-        )
-    if err:
-        raise RuntimeError(f"banded attention backward kernel launch failed: CUDA error {err}")
+    """Launch the banded backward kernels (bf16: the Hopper design; fp32:
+    the previous one) on the forward's sources, ``out`` and ``lse`` and the
+    output gradient ``g`` [N, F, Tq, C].  Returns the packed ``(dq_src,
+    dkv_src)`` (zeros outside the q and k|v lanes)."""
+    grads = _banded_attention_bwd_launch(
+        "mmdiff_banded_attention_bwd", q_src, kv_src, out, lse, g, shift, local_window,
+        num_heads, channels,
+    )
     LAUNCHES["banded_attention_bwd"] += 1
     BANDED_BWD_WINDOWS[local_window] += 1
-    return dq_src, dkv_src
+    return grads
+
+
+def _banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, g, shift: int,
+                                        local_window: int, num_heads: int, channels: int):
+    """The previous design (mma.sync) of :func:`banded_attention_bwd_cuda`
+    on the same arguments, for the same-run comparison only."""
+    grads = _banded_attention_bwd_launch(
+        "mmdiff_banded_attention_bwd_mma", q_src, kv_src, out, lse, g, shift, local_window,
+        num_heads, channels,
+    )
+    PREVIOUS_LAUNCHES["banded_attention_bwd"] += 1
+    return grads
+
+
+def banded_bwd_frames_per_tile(n: int, frames: int, length: int, num_heads: int) -> int:
+    """Frames of ``length`` rows that the Hopper banded backward packs into
+    one 64-row tile of an ``[N, F, length]`` side on the current card (1
+    unless ``length <= 32``; fewer than ``64 // length`` where the grid
+    would leave SMs idle).  Needs the built kernels (a CUDA device)."""
+    return cuda_build.load().lib.mmdiff_banded_attention_bwd_frames_per_tile(
+        n, frames, length, num_heads
+    )
 
 
 def self_attention_variant_cuda(qkv: torch.Tensor, num_heads: int, variant: str) -> torch.Tensor:

@@ -1,16 +1,20 @@
-// Hopper (sm_90a) machinery of the self-attention kernels, forward
-// (self_attention.cu) and backward (self_attention_bwd.cu): TMA tile loads
-// through one tensor map of the packed projection, mbarrier rings between a
-// producer warp and the consumer warpgroups, and warpgroup products
-// (wgmma.mma_async, bf16 in, fp32 accumulate).
+// Hopper (sm_90a) machinery of the attention kernels: the self-attention
+// forward (self_attention.cu) and backward (self_attention_bwd.cu) and the
+// banded RS-MMA backward (banded_attention_bwd.cu).  TMA tile loads through
+// tensor maps of the packed projections, mbarrier rings between a producer
+// warp and the consumer warpgroups, and warpgroup products (wgmma.mma_async,
+// bf16 in, fp32 accumulate); the backward's two tile products (dq_products,
+// dkv_products), which the self-attention and banded backwards share, each with
+// its own mask.
 //
 // The kernels it serves replace the TPU kernels `_self_fwd_kernel`,
-// `_self_bwd_kernel` and `_self_bwd_chunked_kernel` of
-// mm_diffusion_tpu/ops/block_attention.py (:165, :195, :264).  On this card
-// they are bound by the tensor cores at T = 1024 and by the bytes of the
-// packed projection and the blocks in flight below it; this header is what
-// lets them reach the first bound: copies that need no registers and stay
-// in flight during the products, and products at warpgroup width.
+// `_self_bwd_kernel`, `_self_bwd_chunked_kernel`, `_banded_bwd_lw1_kernel`
+// and `_banded_bwd_oneshot_kernel` of mm_diffusion_tpu/ops/block_attention.py
+// (:165, :195, :264, :792, :877).  On this card they are bound by the tensor
+// cores at T = 1024 and by the bytes of the packed projections and the
+// blocks in flight below it; this header is what lets them reach the first
+// bound: copies that need no registers and stay in flight during the
+// products, and products at warpgroup width.
 //
 // What it replaces: the mma.sync design of attention_common.cuh, which
 // staged K and V through registers with no load in flight during the
@@ -337,6 +341,111 @@ __device__ __forceinline__ void store_acc(const float (&acc)[DK / 2], __nv_bfloa
       *reinterpret_cast<__nv_bfloat162*>(row1 + c) =
           __floats2bfloat162_rn(acc[4 * j + 2] * mul1, acc[4 * j + 3] * mul1);
   }
+}
+
+template <int DK>
+__device__ __forceinline__ void zero(float (&acc)[DK / 2]) {
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) acc[i] = 0.f;
+}
+
+// This thread's rows r and r + 8 of its warpgroup's 64-row tile.
+__device__ __forceinline__ void thread_rows(int (&rows)[2], int r0) {
+  const int r = r0 + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
+  rows[0] = r;
+  rows[1] = r + 8;
+}
+
+// ---------------------------------------------------------------------------
+// The backward's tile products (self-attention and banded backward)
+// ---------------------------------------------------------------------------
+// Column x of a tile's accumulator held by this thread: x = col(i) for its
+// element i, row (i >> 1) & 1 of its two rows.
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// dQ += dS K for one 64-key tile (k, v) against the block's 64 query rows (q,
+// go; this thread's rows r = 0, 1 with base-2 logsumexp lse2[r] and delta[r]):
+// S = Q K^T, dP = dO V^T, P = exp2(S scale_log2 - lse2), dS = P (dP - delta)
+// scale, P zero where meets(key, r) is false.
+template <int DK, typename Meets>
+__device__ __forceinline__ void dq_products(float (&dq)[DK / 2], const uint8_t* q,
+                                            const uint8_t* go, const uint8_t* k, const uint8_t* v,
+                                            const float (&lse2)[2], const float (&delta)[2],
+                                            float scale_log2, float scale, Meets meets) {
+  float sc[32], dp[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) wgmma_ss_n64(sc, desc_k(q, kk), desc_k(k, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) wgmma_ss_n64(dp, desc_k(go, kk), desc_k(v, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const float p = meets(acc_col(i), r) ? exp2f(sc[i] * scale_log2 - lse2[r]) : 0.f;
+    sc[i] = p * (dp[i] - delta[r]) * scale;  // dS
+  }
+  uint32_t ds[4][4];
+  acc_to_a(ds, sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DK>(dq, ds[kk], desc_mn(k, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq);
+}
+
+// dV += P^T dO and dK += dS^T Q for one 64-query tile (q, go, with each query
+// column's lse2 -- +inf where there is no row -- and delta) against the
+// block's 64 keys (k, v): S^T = K Q^T, dP^T = V dO^T, P^T = exp2(S^T
+// scale_log2 - lse2), dS^T = P^T (dP^T - delta) scale, P^T zero where
+// meets(query column, r) is false for this thread's key row r = 0, 1.
+template <int DK, typename Meets>
+__device__ __forceinline__ void dkv_products(float (&dk)[DK / 2], float (&dv)[DK / 2],
+                                             const uint8_t* k, const uint8_t* v, const uint8_t* q,
+                                             const uint8_t* go, const float* lse2,
+                                             const float* delta, float scale_log2, float scale,
+                                             Meets meets) {
+  float sc[32], dp[32];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) wgmma_ss_n64(sc, desc_k(k, kk), desc_k(q, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < DK / 16; ++kk) wgmma_ss_n64(dp, desc_k(v, kk), desc_k(go, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {  // P^T
+    const int x = acc_col(i);
+    sc[i] = meets(x, (i >> 1) & 1) ? exp2f(sc[i] * scale_log2 - lse2[x]) : 0.f;
+  }
+  uint32_t pa[4][4];
+  acc_to_a(pa, sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DK>(dv, pa[kk], desc_mn(go, kk));
+  wgmma_commit();  // dV runs while dS^T is formed
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {  // dS^T
+    const int x = acc_col(i);
+    dp[i] = sc[i] * (dp[i] - delta[x]) * scale;
+  }
+  uint32_t ds[4][4];
+  acc_to_a(ds, dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DK>(dk, ds[kk], desc_mn(q, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dk);
+  fence_regs(dv);
 }
 
 }  // namespace sm90

@@ -7,35 +7,569 @@
 //      dkv_src [N, F, Tk, 3C] (dk in [C, 2C), dv in [2C, 3C), zeros in [0, C))
 //
 // Replaces both TPU backward kernels of mm_diffusion_tpu/ops/block_attention.py:
-// `_banded_bwd_lw1_kernel` (lw == 1, launched by `_banded_bwd_lw1_pallas`) and
-// `_banded_bwd_oneshot_kernel` (lw > 1, launched by `_banded_bwd_oneshot_pallas`,
-// which emits lw dkv partials that the caller sums).  One kernel pair serves
-// every window:
-//   dq pass   one block per (clip * query frame, head, 64 query rows) loops
-//             over j < lw and the key tiles of kv frame (f + shift + j) % F,
-//             with P recomputed from the forward's joint logsumexp;
-//   dkv pass  one block per (clip * kv frame g, head, 64 keys) loops over the
-//             query frames that attended to g, f = (g - shift - j) mod F for
-//             j < lw (distinct because lw <= F), and sums their dK, dV in
-//             registers.
-// Up to lw query frames feed one kv frame's gradient; the dkv pass sums them
-// in one block, so there are no float atomics, no lw partial outputs and no
-// extra summing pass, and the result is the same on every run.
+// `_banded_bwd_lw1_kernel` (:792, lw == 1, launched by `_banded_bwd_lw1_pallas`)
+// and `_banded_bwd_oneshot_kernel` (:877, lw > 1, launched by
+// `_banded_bwd_oneshot_pallas`, which emits lw dkv partials that the caller
+// sums).  One kernel pair serves every window.
 //
-// What bounds it on this card: each (frame, head) pair is small (Tq, Tk <=
-// 1024, head dim 64 in the flagship model; any multiple of 8 up to 128 runs
-// on the kernels built for 32, 64, 96 and 128), so the call is bound by blocks in flight and by the
-// re-reads of K/V and Q/dO per 64-row tile, not by the tensor cores.  The
-// zero lanes of both packed gradients are written by the same blocks, so
-// the wrapper needs no zero-fill pass; `shift` is an argument, so one build
-// serves every shift.
+// What bounds it on this card: bytes, at every training shape (the packed
+// sources, out, dout and lse read once, both packed gradients written whole,
+// zeros included).  A (frame, head) pair is small -- Tq x lw Tk of 1024 x 400
+// down to 25 x 8 * 64 at head dim 64 -- so what keeps a kernel from that
+// bound is how full its tiles are, how many blocks are in flight and whether
+// a copy is in flight while the products run.
 //
-// Grids: dq pass (N * F, H, ceil(Tq / 64)), dkv pass (N * F, H, ceil(Tk / 64));
-// 128 threads per block.
+// The design (bf16; the machinery and the tile products of attention_sm90.cuh,
+// shared with the self-attention backward), two passes, deterministic (every
+// gradient row summed in registers by the one block that owns it, no float
+// atomics, no lw partial outputs):
+//   dq pass   a work item is 64 query rows: their Q and dO tiles come once
+//             by TMA, a producer warp streams 64-row K and V tiles of kv_src
+//             through a ring of 2-4 stages.  The consumer warpgroup first
+//             writes delta = rowsum(dO * O) for the dkv pass, then per tile,
+//             on wgmma, S = Q K^T, dP = dO V^T, P and dS on the accumulators,
+//             dQ += dS K (dS from registers, K read MN-major);
+//   dkv pass  a work item is 64 keys: their K and V tiles stay in shared
+//             memory, the producer streams Q and dO tiles of q_src with each
+//             query row's lse and delta, loaded one tile ahead:
+//             dV += P^T dO, dK += dS^T Q.
+// The window as row ranges, not lw frames: the kv frames f + shift + j, j <
+// lw, are adjacent rows of kv_src but where the window wraps past frame
+// F - 1, and the softmax does not depend on key order, so a query tile's key
+// stream is one contiguous range of the clip's rows, or two at the wrap, read
+// in 64-row TMA boxes that may cross frame boundaries (lw = F: the whole
+// clip).  The query frames that feed one kv frame, g - shift - j, are
+// contiguous the same way.  Short frames share a tile: at T <= 32 a block's
+// 64-row tile packs up to floor(64 / T) frames of one clip (fewer where the
+// grid would leave SMs idle, as pack_for does), and streams the union of
+// their windows (lw + frames - 1 frames); each pair of rows of such a tile
+// is tested by index, (key frame - query frame - shift) mod F < lw.  A
+// one-frame tile meets every row of its range, so only the rows past the
+// range's end (the next frame's, the next clip's, or past the tensor, which
+// TMA zero-fills) are masked: keys by index in the dq pass, queries by a
+// +inf lse in the dkv pass.  The zero lanes of both packed gradients are
+// written by the same blocks: no zero-fill pass, no extra launch.  lw = 1 is
+// the same kernel with a one-frame window.
+// fp32 inputs keep the previous design (mma.sync, attention_bwd_common.cuh:
+// per-frame loops over 32-row tiles staged through registers); its bf16
+// build stays callable through mmdiff_banded_attention_bwd_mma.
+//
+// Grids: both passes are persistent, as many blocks of 160 threads (one
+// consumer warpgroup and the producer warp) as fit on the card, each walking
+// the pass's work items (head, own tile) with its own tiles double-buffered,
+// so that one item's stores overlap the next item's copies.  The dq pass
+// writes delta, which the dkv pass reads, so the two run in this order on
+// the caller's stream.  Previous design: (N * F, H, ceil(T / 64)), 128
+// threads.
+
+#include <algorithm>
 
 #include "attention_bwd_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace mmdiff {
+
+// ---------------------------------------------------------------------------
+// The Hopper kernels (bf16)
+// ---------------------------------------------------------------------------
+
+// Depth of the K/V (dq pass) and Q/dO (dkv pass) rings: as deep as two
+// blocks per SM allow in shared memory beside two own tiles.
+constexpr int stages_for(int dk) { return dk <= 64 ? 4 : 2; }
+constexpr int kNoFrame = -(1 << 28);  // frame of a streamed row outside the range: meets nothing
+
+struct BandedArgs {
+  const bf16* out;
+  const bf16* dout;
+  const float* lse;
+  float* delta;
+  bf16* dq_src;
+  bf16* dkv_src;
+  int n, frames, tq, tk, heads, dim, shift, window;
+  int pack_q, pack_k;  // frames per 64-row tile of queries (dq pass) / keys (dkv pass)
+  float scale_log2, scale;
+};
+
+// Whether query frame fq meets key frame gk (frames of one clip): (gk - fq -
+// shift) mod F < lw.  kNoFrame on either side meets nothing.
+__device__ __forceinline__ bool in_window(const BandedArgs& a, int gk, int fq) {
+  int d = gk - fq - a.shift;
+  d += d < 0 ? a.frames : 0;
+  d += d < 0 ? a.frames : 0;
+  return (unsigned)d < (unsigned)a.window;
+}
+
+// 64-row tiles per clip of a [F, T] row space with `pack` frames per tile.
+__host__ __device__ __forceinline__ int tiles_per_clip(int frames, int len, int pack) {
+  return pack > 1 ? (frames + pack - 1) / pack : frames * ((len + sm90::kRows - 1) / sm90::kRows);
+}
+
+// Tile `index` (clip-major) of an [N, F, T] row space: clip n, first frame
+// f0 and the frames it holds (more than one only when packed), first row r0
+// within f0, its first row of the whole tensor and its real rows.  Row x of
+// the tile is row (r0 + x) % T of frame f0 + (r0 + x) / T.
+struct OwnTile {
+  int n, f0, frames, r0, valid;
+  long row0;
+  __device__ OwnTile(int index, int nframes, int len, int pack) {
+    const int per_clip = tiles_per_clip(nframes, len, pack);
+    n = index / per_clip;
+    const int t = index - n * per_clip;
+    if (pack > 1) {
+      f0 = t * pack;
+      frames = min(pack, nframes - f0);
+      r0 = 0;
+      valid = frames * len;
+    } else {
+      const int tiles = (len + sm90::kRows - 1) / sm90::kRows;
+      f0 = t / tiles;
+      frames = 1;
+      r0 = (t - f0 * tiles) * sm90::kRows;
+      valid = min(sm90::kRows, len - r0);
+    }
+    row0 = ((long)n * nframes + f0) * len + r0;
+  }
+  // Frame within the clip of tile row x.
+  __device__ int frame(int x, int len) const { return f0 + (r0 + x) / len; }
+};
+
+// The other side's rows that a tile meets: `span` frames from frame `first`,
+// mod F, as at most two contiguous ranges of the clip's rows, [a0, a0 + alen)
+// and [0, blen), streamed in boxes of 64 rows (na + nb of them).
+struct Stream {
+  int a0, alen, blen, na, nb;
+  __device__ Stream(int first, int span, int nframes, int len) {
+    const int fa = min(span, nframes - first);
+    a0 = first * len;
+    alen = fa * len;
+    blen = (span - fa) * len;
+    na = (alen + sm90::kRows - 1) / sm90::kRows;
+    nb = (blen + sm90::kRows - 1) / sm90::kRows;
+  }
+  __device__ int boxes() const { return na + nb; }
+  // Box j: the clip row of its first row, and the rows of its range from there.
+  __device__ void box(int j, int& row, int& left) const {
+    const int b = j < na ? j : j - na;
+    row = (j < na ? a0 : 0) + b * sm90::kRows;
+    left = (j < na ? alen : blen) - b * sm90::kRows;
+  }
+};
+
+// A pass's own side: its rows per frame, frames per tile, and tiles per head.
+__host__ __device__ __forceinline__ int own_len(const BandedArgs& a, bool dq) {
+  return dq ? a.tq : a.tk;
+}
+__host__ __device__ __forceinline__ int own_pack(const BandedArgs& a, bool dq) {
+  return dq ? a.pack_q : a.pack_k;
+}
+__host__ __device__ __forceinline__ int own_tiles(const BandedArgs& a, bool dq) {
+  return a.n * tiles_per_clip(a.frames, own_len(a, dq), own_pack(a, dq));
+}
+
+// Work items of a pass: own tiles x heads, tile-major within a head.
+__host__ __device__ __forceinline__ int work_items(const BandedArgs& a, bool dq) {
+  return own_tiles(a, dq) * a.heads;
+}
+
+// Work item w of a pass: head h, its own 64-row tile, and the rows of the
+// other side that the tile's frames meet -- the union of their windows,
+// lw + frames - 1 frames, at most F (then the whole clip from frame 0).
+//   dq pass:  query tile; key frames from f0 + shift;
+//   dkv pass: key tile; query frames from g0 - shift - lw + 1 (the frames
+//             g - shift - j, j < lw, of its first kv frame g0 and the ones after).
+struct Work {
+  int h;
+  OwnTile tile;
+  Stream st;
+  __device__ Work(const BandedArgs& a, int w, bool dq)
+      : h(w / own_tiles(a, dq)),
+        tile(w - h * own_tiles(a, dq), a.frames, own_len(a, dq), own_pack(a, dq)),
+        st(first(a, tile, dq), min(a.window + tile.frames - 1, a.frames), a.frames,
+           own_len(a, !dq)) {}
+  static __device__ int first(const BandedArgs& a, const OwnTile& t, bool dq) {
+    if (a.window + t.frames - 1 >= a.frames) return 0;
+    return dq ? (t.f0 + a.shift) % a.frames
+              : ((t.f0 - a.shift - a.window + 1) % a.frames + a.frames) % a.frames;
+  }
+};
+
+// Both kernels are persistent: a block walks the work items w = blockIdx.x,
+// w + gridDim.x, ... with its own tiles double-buffered, so that the next
+// item's own tile and first streamed boxes arrive while it finishes the last
+// one's products and stores.
+template <int DK, int S = stages_for(DK)>
+struct BandedDqSmem {
+  static constexpr int kStages = S;
+  uint8_t q[2][sm90::Tile<DK>::kBytes];  // the own tiles of two items in turn
+  uint8_t go[2][sm90::Tile<DK>::kBytes];
+  uint8_t k[S][sm90::Tile<DK>::kBytes];
+  uint8_t v[S][sm90::Tile<DK>::kBytes];
+  int kframe[S][sm90::kRows];  // each streamed key row's frame (kNoFrame: none)
+  uint64_t own_full[2], own_empty[2], full[S], empty[S];
+};
+
+// The dq pass: each item's 64 query rows against the key rows of their windows.
+template <int DK>
+__global__ void __launch_bounds__(sm90::kWarpgroup + sm90::kProducerThreads, 1)
+    banded_attention_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap kv_map,
+                                 const __grid_constant__ CUtensorMap dout_map, const BandedArgs a) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  BandedDqSmem<DK>& sm = aligned_smem<BandedDqSmem<DK>>(smem_raw);
+  constexpr int kTileBytes = Tile<DK>::kBytes, kStages = BandedDqSmem<DK>::kStages;
+  const int items = work_items(a, true);
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.own_full[b], 1);
+      mbar_init(&sm.own_empty[b], kWarpgroup);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], kProducerThreads + 1);  // lane 0 arrives twice
+      mbar_init(&sm.empty[s], kWarpgroup);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWarpgroup) {  // producer warp: every lane stages key frames, one the tiles
+    const int lane = threadIdx.x - kWarpgroup;
+    int g = 0;  // boxes streamed so far: the ring's position
+    for (int w = blockIdx.x, it = 0; w < items; w += gridDim.x, ++it) {
+      const Work wk(a, w, true);
+      const int b = it & 1;
+      if (lane == 0) {
+        mbar_wait(&sm.own_empty[b], ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(&sm.own_full[b], 2 * kTileBytes);
+        load_tile<DK>(sm.q[b], &q_map, &sm.own_full[b], 0, wk.h, 0, (int)wk.tile.row0);
+        load_tile<DK>(sm.go[b], &dout_map, &sm.own_full[b], 0, wk.h, 0, (int)wk.tile.row0);
+      }
+      const long kv_clip = (long)wk.tile.n * a.frames * a.tk;
+      for (int j = 0; j < wk.st.boxes(); ++j, ++g) {
+        const int s = g % kStages;
+        int row, left;
+        wk.st.box(j, row, left);
+        mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
+        if (lane == 0) {  // the copies first, so that they overlap the staging
+          mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+          load_tile<DK>(sm.k[s], &kv_map, &sm.full[s], 1, wk.h, 0, (int)(kv_clip + row));
+          load_tile<DK>(sm.v[s], &kv_map, &sm.full[s], 2, wk.h, 0, (int)(kv_clip + row));
+        }
+        if (wk.tile.frames > 1) {  // packed frames: the consumers test each pair by frame
+#pragma unroll
+          for (int i = lane; i < kRows; i += 32)
+            sm.kframe[s][i] = i < left ? (row + i) / a.tk : kNoFrame;
+        }
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  int rows[2];
+  thread_rows(rows, 0);
+  const int t = threadIdx.x & 3;
+  const int c = a.heads * a.dim;
+  const long c3 = 3L * c;
+  int g = 0;
+  for (int w = blockIdx.x, it = 0; w < items; w += gridDim.x, ++it) {
+    const Work wk(a, w, true);
+    const OwnTile& tile = wk.tile;
+    const int h = wk.h, b = it & 1;
+    // This thread's two query rows: real or not, frame, logsumexp (base 2)
+    // and delta = rowsum(dO * O), written to a.delta for the dkv pass.
+    bool ok[2];
+    int fq[2];
+    long row[2];
+    float lse2[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ok[r] = rows[r] < tile.valid;
+      fq[r] = ok[r] ? tile.frame(rows[r], a.tq) : kNoFrame;
+      row[r] = tile.row0 + rows[r];
+    }
+#pragma unroll
+    for (int col = 8 * t; col < DK; col += 32) {  // 16-byte loads of both rows, then the sums
+      uint4 o[2], d[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const bool in = ok[r] && col < a.dim;
+        const long off = row[r] * c + (long)h * a.dim + col;
+        o[r] = in ? *reinterpret_cast<const uint4*>(a.out + off) : make_uint4(0, 0, 0, 0);
+        d[r] = in ? *reinterpret_cast<const uint4*>(a.dout + off) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const __nv_bfloat162* po = reinterpret_cast<const __nv_bfloat162*>(&o[r]);
+        const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(&d[r]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(po[e]), y = __bfloat1622float2(pd[e]);
+          delta[r] += x.x * y.x + x.y * y.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 1);
+      delta[r] += __shfl_xor_sync(0xffffffffu, delta[r], 2);
+      lse2[r] = 0.f;
+      if (ok[r]) {
+        const long nf = row[r] / a.tq;  // frame of the whole tensor
+        const long idx = (nf * a.heads + h) * a.tq + (row[r] - nf * a.tq);
+        lse2[r] = a.lse[idx] * kLog2e;
+        if (t == 0) a.delta[idx] = delta[r];
+      }
+    }
+
+    float dq[DK / 2];
+    zero<DK>(dq);
+    mbar_wait(&sm.own_full[b], (it >> 1) & 1);
+    for (int j = 0; j < wk.st.boxes(); ++j, ++g) {
+      const int s = g % kStages;
+      int row_j, left;
+      wk.st.box(j, row_j, left);
+      mbar_wait(&sm.full[s], (g / kStages) & 1);
+      if (tile.frames > 1) {  // packed frames: the window test per pair
+        const int* kf = sm.kframe[s];
+        dq_products<DK>(dq, sm.q[b], sm.go[b], sm.k[s], sm.v[s], lse2, delta, a.scale_log2,
+                        a.scale, [&](int key, int r) { return in_window(a, kf[key], fq[r]); });
+      } else if (left >= kRows) {  // one frame, a full box: every key meets every row
+        dq_products<DK>(dq, sm.q[b], sm.go[b], sm.k[s], sm.v[s], lse2, delta, a.scale_log2,
+                        a.scale, [](int, int) { return true; });
+      } else {  // one frame, the range's last box: the keys before its end
+        dq_products<DK>(dq, sm.q[b], sm.go[b], sm.k[s], sm.v[s], lse2, delta, a.scale_log2,
+                        a.scale, [&](int key, int) { return key < left; });
+      }
+      mbar_arrive(&sm.empty[s]);
+    }
+    mbar_arrive(&sm.own_empty[b]);
+    bf16* row0 = a.dq_src + row[0] * c3 + (long)h * a.dim;
+    bf16* row1 = row0 + 8 * c3;
+    store_acc<DK>(dq, row0, row1, ok[0], ok[1], 1.f, 1.f, a.dim);
+    zero<DK>(dq);  // the k and v lanes of dq_src
+    store_acc<DK>(dq, row0 + c, row1 + c, ok[0], ok[1], 1.f, 1.f, a.dim);
+    store_acc<DK>(dq, row0 + 2 * c, row1 + 2 * c, ok[0], ok[1], 1.f, 1.f, a.dim);
+  }
+}
+
+template <int DK, int S = stages_for(DK)>
+struct BandedDkvSmem {
+  static constexpr int kStages = S;
+  uint8_t k[2][sm90::Tile<DK>::kBytes];  // the own tiles of two items in turn
+  uint8_t v[2][sm90::Tile<DK>::kBytes];
+  uint8_t q[S][sm90::Tile<DK>::kBytes];
+  uint8_t go[S][sm90::Tile<DK>::kBytes];
+  float lse2[S][sm90::kRows];  // each streamed query row's logsumexp, base 2 (+inf: none)
+  float delta[S][sm90::kRows];
+  int qframe[S][sm90::kRows];  // and its frame (kNoFrame: none)
+  uint64_t own_full[2], own_empty[2], full[S], empty[S];
+};
+
+// The dkv pass: each item's 64 keys against the query rows whose windows hold them.
+template <int DK>
+__global__ void __launch_bounds__(sm90::kWarpgroup + sm90::kProducerThreads, 1)
+    banded_attention_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
+                                  const __grid_constant__ CUtensorMap kv_map,
+                                  const __grid_constant__ CUtensorMap dout_map,
+                                  const BandedArgs a) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  BandedDkvSmem<DK>& sm = aligned_smem<BandedDkvSmem<DK>>(smem_raw);
+  constexpr int kTileBytes = Tile<DK>::kBytes, kStages = BandedDkvSmem<DK>::kStages;
+  const int items = work_items(a, false);
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&sm.own_full[b], 1);
+      mbar_init(&sm.own_empty[b], kWarpgroup);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], kProducerThreads + 1);  // lane 0 arrives twice
+      mbar_init(&sm.empty[s], kWarpgroup);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWarpgroup) {  // producer warp: every lane stages row stats, one the tiles
+    const int lane = threadIdx.x - kWarpgroup;
+    // Each lane stages rows lane and lane + 32 of every box: their lse,
+    // delta and frame, loaded one box ahead so that the loads are in flight
+    // while the producer waits for the next free stage.
+    float lse[2], dl[2];
+    int fr[2];
+    auto fetch = [&](const Work& wk, int j) {
+      int row, left;
+      wk.st.box(j, row, left);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = lane + 32 * r;
+        const int f = i < left ? (row + i) / a.tq : 0;  // frame within the clip
+        const long nf = (long)wk.tile.n * a.frames + f;
+        const long idx = i < left ? (nf * a.heads + wk.h) * a.tq + (row + i - f * a.tq) : 0;
+        lse[r] = a.lse[idx];  // used only where fr[r] is a frame
+        dl[r] = a.delta[idx];
+        fr[r] = i < left ? f : kNoFrame;
+      }
+    };
+    int g = 0;  // boxes streamed so far: the ring's position
+    for (int w = blockIdx.x, it = 0; w < items; w += gridDim.x, ++it) {
+      const Work wk(a, w, false);
+      const int b = it & 1;
+      if (lane == 0) {
+        mbar_wait(&sm.own_empty[b], ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(&sm.own_full[b], 2 * kTileBytes);
+        load_tile<DK>(sm.k[b], &kv_map, &sm.own_full[b], 1, wk.h, 0, (int)wk.tile.row0);
+        load_tile<DK>(sm.v[b], &kv_map, &sm.own_full[b], 2, wk.h, 0, (int)wk.tile.row0);
+      }
+      const long q_clip = (long)wk.tile.n * a.frames * a.tq;
+      fetch(wk, 0);
+      for (int j = 0; j < wk.st.boxes(); ++j, ++g) {
+        const int s = g % kStages;
+        int row, left;
+        wk.st.box(j, row, left);
+        mbar_wait(&sm.empty[s], ((g / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+          load_tile<DK>(sm.q[s], &q_map, &sm.full[s], 0, wk.h, 0, (int)(q_clip + row));
+          load_tile<DK>(sm.go[s], &dout_map, &sm.full[s], 0, wk.h, 0, (int)(q_clip + row));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const bool real = fr[r] != kNoFrame;
+          sm.lse2[s][lane + 32 * r] = real ? lse[r] * kLog2e : INFINITY;
+          sm.delta[s][lane + 32 * r] = real ? dl[r] : 0.f;
+          sm.qframe[s][lane + 32 * r] = fr[r];
+        }
+        mbar_arrive(&sm.full[s]);
+        if (j + 1 < wk.st.boxes()) fetch(wk, j + 1);
+      }
+    }
+    return;
+  }
+
+  int kr[2];
+  thread_rows(kr, 0);
+  const int c = a.heads * a.dim;
+  const long c3 = 3L * c;
+  int g = 0;
+  for (int w = blockIdx.x, it = 0; w < items; w += gridDim.x, ++it) {
+    const Work wk(a, w, false);
+    const OwnTile& tile = wk.tile;
+    const int h = wk.h, b = it & 1;
+    const bool ok[2] = {kr[0] < tile.valid, kr[1] < tile.valid};
+    const int gk[2] = {ok[0] ? tile.frame(kr[0], a.tk) : kNoFrame,
+                       ok[1] ? tile.frame(kr[1], a.tk) : kNoFrame};
+    float dk[DK / 2], dv[DK / 2];
+    zero<DK>(dk);
+    zero<DK>(dv);
+    mbar_wait(&sm.own_full[b], (it >> 1) & 1);
+    for (int j = 0; j < wk.st.boxes(); ++j, ++g) {
+      const int s = g % kStages;
+      mbar_wait(&sm.full[s], (g / kStages) & 1);
+      if (tile.frames > 1) {  // packed frames: the window test per pair
+        const int* qf = sm.qframe[s];
+        dkv_products<DK>(dk, dv, sm.k[b], sm.v[b], sm.q[s], sm.go[s], sm.lse2[s], sm.delta[s],
+                         a.scale_log2, a.scale,
+                         [&](int x, int r) { return in_window(a, gk[r], qf[x]); });
+      } else {  // one frame: every streamed query meets every key (+inf lse past the range)
+        dkv_products<DK>(dk, dv, sm.k[b], sm.v[b], sm.q[s], sm.go[s], sm.lse2[s], sm.delta[s],
+                         a.scale_log2, a.scale, [](int, int) { return true; });
+      }
+      mbar_arrive(&sm.empty[s]);
+    }
+    mbar_arrive(&sm.own_empty[b]);
+    bf16* row0 = a.dkv_src + (tile.row0 + kr[0]) * c3 + (long)h * a.dim;
+    bf16* row1 = row0 + 8 * c3;
+    store_acc<DK>(dk, row0 + c, row1 + c, ok[0], ok[1], 1.f, 1.f, a.dim);
+    store_acc<DK>(dv, row0 + 2 * c, row1 + 2 * c, ok[0], ok[1], 1.f, 1.f, a.dim);
+    zero<DK>(dk);  // the q lanes of dkv_src
+    store_acc<DK>(dk, row0, row1, ok[0], ok[1], 1.f, 1.f, a.dim);
+  }
+}
+
+// Frames per 64-row tile of a [N, F, T] row space: at T <= 32 as many whole
+// frames as fit (at most F), but fewer when the (N * tiles per clip, heads)
+// grid would leave SMs without a block (one frame a tile at worst); 1 at
+// T > 32.
+static int frames_per_tile(int n, int frames, int len, int heads) {
+  int pack = len <= sm90::kRows / 2 ? sm90::kRows / len : 1;
+  if (pack > frames) pack = frames;
+  while (pack > 1 && (long)n * tiles_per_clip(frames, len, pack) * heads < sm_count()) --pack;
+  return pack;
+}
+
+// Launch one persistent pass: as many blocks as fit on the card at once, at
+// most one per work item.
+template <typename Kernel>
+static int launch_pass(Kernel kernel, size_t smem, int items, const CUtensorMap& q_map,
+                       const CUtensorMap& kv_map, const CUtensorMap& dout_map,
+                       const BandedArgs& a, cudaStream_t stream) {
+  constexpr int kThreads90 = sm90::kWarpgroup + sm90::kProducerThreads;
+  int err = set_dynamic_smem(kernel, smem);
+  if (err) return err;
+  int per_sm = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads90, smem);
+  if (err) return err;
+  const int blocks = std::min(items, std::max(per_sm, 1) * sm_count());
+  kernel<<<blocks, kThreads90, smem, stream>>>(q_map, kv_map, dout_map, a);
+  return (int)cudaGetLastError();
+}
+
+template <int DK>
+static int launch_sm90(const CUtensorMap& q_map, const CUtensorMap& kv_map,
+                       const CUtensorMap& dout_map, const BandedArgs& a, cudaStream_t stream) {
+  int err = launch_pass(banded_attention_bwd_dq_sm90<DK>, sizeof(BandedDqSmem<DK>) + 1024,
+                        work_items(a, true), q_map, kv_map, dout_map, a, stream);
+  if (err) return err;
+  return launch_pass(banded_attention_bwd_dkv_sm90<DK>, sizeof(BandedDkvSmem<DK>) + 1024,
+                     work_items(a, false), q_map, kv_map, dout_map, a, stream);
+}
+
+static int dispatch_sm90(const void* q_src, const void* kv_src, const void* out, const void* dout,
+                         const float* lse, float* delta, void* dq_src, void* dkv_src, int n,
+                         int frames, int tq, int tk, int heads, int dim, int kernel_dim,
+                         int shift, int window, cudaStream_t stream) {
+  const int c = heads * dim;
+  const long q_rows = (long)n * frames * tq, kv_rows = (long)n * frames * tk;
+  CUtensorMap q_map, kv_map, dout_map;
+  int err = encode_qkv_map(&q_map, q_src, q_rows, heads, dim, dim, c);
+  if (!err) err = encode_qkv_map(&kv_map, kv_src, kv_rows, heads, dim, dim, c);
+  if (!err) err = encode_map(&dout_map, dout, dim, heads, dim, 1, c, q_rows, c);
+  if (err) return err;
+  BandedArgs a;
+  a.out = static_cast<const bf16*>(out);
+  a.dout = static_cast<const bf16*>(dout);
+  a.lse = lse;
+  a.delta = delta;
+  a.dq_src = static_cast<bf16*>(dq_src);
+  a.dkv_src = static_cast<bf16*>(dkv_src);
+  a.n = n;
+  a.frames = frames;
+  a.tq = tq;
+  a.tk = tk;
+  a.heads = heads;
+  a.dim = dim;
+  a.shift = shift;
+  a.window = window;
+  a.pack_q = frames_per_tile(n, frames, tq, heads);
+  a.pack_k = frames_per_tile(n, frames, tk, heads);
+  a.scale = 1.f / sqrtf((float)dim);
+  a.scale_log2 = kLog2e * a.scale;
+  switch (kernel_dim) {
+    case 32: return launch_sm90<32>(q_map, kv_map, dout_map, a, stream);
+    case 64: return launch_sm90<64>(q_map, kv_map, dout_map, a, stream);
+    case 96: return launch_sm90<96>(q_map, kv_map, dout_map, a, stream);
+    case 128: return launch_sm90<128>(q_map, kv_map, dout_map, a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The previous design (mma.sync; fp32 inputs, and bf16 for the comparison)
+// ---------------------------------------------------------------------------
 
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -136,7 +670,6 @@ static int dispatch(const void* q_src, const void* kv_src, const void* out, cons
                     const float* lse, float* delta, void* dq_src, void* dkv_src, int n,
                     int frames, int tq, int tk, int heads, int head_dim, int kernel_dim, int shift,
                     int window, cudaStream_t stream) {
-  if (head_dim % 8 || head_dim < 8 || head_dim > kernel_dim) return (int)cudaErrorInvalidValue;
 #define MMDIFF_LAUNCH(D)                                                                     \
   return launch<D, T>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n, frames, tq, \
                       tk, heads, head_dim, shift, window, stream);
@@ -152,11 +685,17 @@ static int dispatch(const void* q_src, const void* kv_src, const void* out, cons
 
 }  // namespace mmdiff
 
+static bool head_dim_fits(int head_dim, int kernel_dim) {
+  return head_dim % 8 == 0 && head_dim >= 8 && head_dim <= kernel_dim;
+}
+
 // `shift` must lie in [0, frames) and 1 <= window <= frames (checked by the
 // Python wrapper); lse is the forward's [N, F, H, Tq] logsumexp and delta a
 // scratch of the same shape; `head_dim` runs on the kernels built for
-// `kernel_dim`.  Every element of dq_src and dkv_src is written.  Returns the
-// first failing launch's CUDA error (0 on success).
+// `kernel_dim`.  bf16 takes the Hopper kernels (q_src, kv_src and dout
+// 16-byte aligned), fp32 the previous design.  Every element of dq_src and
+// dkv_src is written.  Returns the first failing launch's CUDA error (0 on
+// success).
 extern "C" int mmdiff_banded_attention_bwd(const void* q_src, const void* kv_src, const void* out,
                                            const void* dout, const float* lse, float* delta,
                                            void* dq_src, void* dkv_src, int n, int frames,
@@ -164,10 +703,36 @@ extern "C" int mmdiff_banded_attention_bwd(const void* q_src, const void* kv_src
                                            int kernel_dim, int shift, int window, int is_fp32,
                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
+  if (is_fp32)
+    return mmdiff::dispatch<float>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n,
+                                   frames, tq, tk, heads, head_dim, kernel_dim, shift, window, s);
+  return mmdiff::dispatch_sm90(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n, frames,
+                               tq, tk, heads, head_dim, kernel_dim, shift, window, s);
+}
+
+// The previous design (mma.sync, attention_bwd_common.cuh) on the same
+// arguments, for the same-run comparison with the Hopper kernels.
+extern "C" int mmdiff_banded_attention_bwd_mma(const void* q_src, const void* kv_src,
+                                               const void* out, const void* dout, const float* lse,
+                                               float* delta, void* dq_src, void* dkv_src, int n,
+                                               int frames, int tq, int tk, int heads,
+                                               int head_dim, int kernel_dim, int shift, int window,
+                                               int is_fp32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
     return mmdiff::dispatch<float>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n,
                                    frames, tq, tk, heads, head_dim, kernel_dim, shift, window, s);
   return mmdiff::dispatch<mmdiff::bf16>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src,
                                         n, frames, tq, tk, heads, head_dim, kernel_dim, shift,
                                         window, s);
+}
+
+// Frames per 64-row tile that the Hopper kernels pack for a [N, F, T] side
+// with `heads` heads on this device (1 unless T <= 32): what
+// mmdiff_banded_attention_bwd chooses for the queries (T = Tq) and the keys
+// (T = Tk).
+extern "C" int mmdiff_banded_attention_bwd_frames_per_tile(int n, int frames, int len, int heads) {
+  return mmdiff::frames_per_tile(n, frames, len, heads);
 }

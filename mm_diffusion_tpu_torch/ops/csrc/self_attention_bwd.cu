@@ -101,6 +101,14 @@ struct BlockRows {
   }
 };
 
+// Whether query column x of a streamed tile meets key row y of the block's
+// tile in the dkv products: always, but for packed sequences (a.pack > 1),
+// which meet only within their own segment (rows past the last sequence
+// have lse2 = +inf).
+__device__ __forceinline__ bool same_segment(const BwdArgs& a, int x, int y) {
+  return a.pack == 1 || x / a.len == y / a.len;
+}
+
 // This thread's two rows of the block's tile (query rows): whether each is
 // real, its logsumexp in base 2, and delta = rowsum(dO * O), which is also
 // written to a.delta for a dkv pass.
@@ -130,99 +138,6 @@ __device__ __forceinline__ void row_stats(const BwdArgs& a, const BlockRows& br,
   }
 }
 
-// dQ += dS K for one 64-key tile (k, v; tile j of the sequence) against the
-// block's q and go tiles: S = Q K^T, dP = dO V^T, P = exp2(S scale_log2 -
-// lse), dS = P (dP - delta) / sqrt(d), P zero where a key does not meet the
-// row.
-template <int DK>
-__device__ __forceinline__ void dq_products(float (&dq)[DK / 2], const uint8_t* q,
-                                            const uint8_t* go, const uint8_t* k, const uint8_t* v,
-                                            const BwdArgs& a, const BlockRows& br, int j,
-                                            const int (&qr)[2], const float (&lse2)[2],
-                                            const float (&delta)[2]) {
-  using namespace sm90;
-  const int t = threadIdx.x & 3;
-  float sc[32], dp[32];
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk)
-    wgmma_ss_n64(sc, desc_k(q, kk), desc_k(k, kk), kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk)
-    wgmma_ss_n64(dp, desc_k(go, kk), desc_k(v, kk), kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(sc);
-  fence_regs(dp);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int key = 8 * (i >> 2) + 2 * t + (i & 1), r = (i >> 1) & 1;
-    const float p = br.meets(a, j, key, qr[r]) ? exp2f(sc[i] * a.scale_log2 - lse2[r]) : 0.f;
-    sc[i] = p * (dp[i] - delta[r]) * a.scale;  // dS
-  }
-  uint32_t ds[4][4];
-  acc_to_a(ds, sc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DK>(dq, ds[kk], desc_mn(k, kk));
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(dq);
-}
-
-// dV += P^T dO and dK += dS^T Q for one 64-query tile (q, go, with each
-// query column's lse2 -- +inf where there is no row -- and delta) against
-// the block's k and v tiles (key rows kr): S^T = K Q^T, dP^T = V dO^T,
-// P^T = exp2(S^T scale_log2 - lse), dS^T = P^T (dP^T - delta) / sqrt(d).
-// Packed sequences (a.pack > 1) meet only within their own segment.
-template <int DK>
-__device__ __forceinline__ void dkv_products(float (&dk)[DK / 2], float (&dv)[DK / 2],
-                                             const uint8_t* k, const uint8_t* v, const uint8_t* q,
-                                             const uint8_t* go, const float* lse2,
-                                             const float* delta, const BwdArgs& a,
-                                             const int (&kr)[2]) {
-  using namespace sm90;
-  const int t = threadIdx.x & 3;
-  float sc[32], dp[32];
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk)
-    wgmma_ss_n64(sc, desc_k(k, kk), desc_k(q, kk), kk > 0);
-#pragma unroll
-  for (int kk = 0; kk < DK / 16; ++kk)
-    wgmma_ss_n64(dp, desc_k(v, kk), desc_k(go, kk), kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(sc);
-  fence_regs(dp);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {  // P^T
-    const int x = 8 * (i >> 2) + 2 * t + (i & 1);
-    const bool same = a.pack == 1 || x / a.len == kr[(i >> 1) & 1] / a.len;
-    sc[i] = same ? exp2f(sc[i] * a.scale_log2 - lse2[x]) : 0.f;
-  }
-  uint32_t pa[4][4];
-  acc_to_a(pa, sc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DK>(dv, pa[kk], desc_mn(go, kk));
-  wgmma_commit();  // dV runs while dS^T is formed
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {  // dS^T
-    const int x = 8 * (i >> 2) + 2 * t + (i & 1);
-    dp[i] = sc[i] * (dp[i] - delta[x]) * a.scale;
-  }
-  uint32_t ds[4][4];
-  acc_to_a(ds, dp);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs<DK>(dk, ds[kk], desc_mn(q, kk));
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(dk);
-  fence_regs(dv);
-}
-
 // Store a gradient accumulator of this thread's rows (real ones only) at lane
 // offset `lane_off` (0, k_off or v_off) of each row's head in dqkv.
 template <int DK>
@@ -233,19 +148,6 @@ __device__ __forceinline__ void store_grad(const float (&acc)[DK / 2], const Bwd
   bf16* base = a.dqkv + (long)h * a.head_stride + lane_off;
   sm90::store_acc<DK>(acc, base + (row0 + rows[0]) * c3, base + (row0 + rows[1]) * c3, ok[0],
                       ok[1], 1.f, 1.f, a.dim);
-}
-
-template <int DK>
-__device__ __forceinline__ void zero(float (&acc)[DK / 2]) {
-#pragma unroll
-  for (int i = 0; i < DK / 2; ++i) acc[i] = 0.f;
-}
-
-// This thread's rows r and r + 8 of its warpgroup's 64-row tile.
-__device__ __forceinline__ void thread_rows(int (&rows)[2], int r0) {
-  const int r = r0 + ((threadIdx.x >> 5) & 3) * 16 + ((threadIdx.x & 31) >> 2);
-  rows[0] = r;
-  rows[1] = r + 8;
 }
 
 template <int DK>
@@ -307,7 +209,8 @@ __global__ void __launch_bounds__(sm90::kWarpgroup + sm90::kProducerThreads, 1)
   for (int j = 0; j < br.ntiles; ++j) {
     const int s = j % kBwdStages;
     mbar_wait(&sm.full[s], (j / kBwdStages) & 1);
-    dq_products<DK>(dq, sm.q, sm.go, sm.k[s], sm.v[s], a, br, j, qr, lse2, delta);
+    dq_products<DK>(dq, sm.q, sm.go, sm.k[s], sm.v[s], lse2, delta, a.scale_log2, a.scale,
+                [&](int key, int r) { return br.meets(a, j, key, qr[r]); });
     mbar_arrive(&sm.empty[s]);
   }
   store_grad<DK>(dq, a, h, row0, qr, ok, 0);
@@ -386,7 +289,8 @@ __global__ void __launch_bounds__(sm90::kWarpgroup + sm90::kProducerThreads, 1)
   for (int j = 0; j < br.ntiles; ++j) {
     const int s = j % kBwdStages;
     mbar_wait(&sm.full[s], (j / kBwdStages) & 1);
-    dkv_products<DK>(dk, dv, sm.k, sm.v, sm.q[s], sm.go[s], sm.lse2[s], sm.delta[s], a, kr);
+    dkv_products<DK>(dk, dv, sm.k, sm.v, sm.q[s], sm.go[s], sm.lse2[s], sm.delta[s], a.scale_log2,
+                 a.scale, [&](int x, int r) { return same_segment(a, x, kr[r]); });
     mbar_arrive(&sm.empty[s]);
   }
   store_grad<DK>(dk, a, h, row0, kr, ok, a.k_off);
@@ -454,13 +358,15 @@ __global__ void __launch_bounds__(sm90::kWarpgroup + sm90::kProducerThreads, 1)
   {
     float dq[DK / 2];
     zero<DK>(dq);
-    dq_products<DK>(dq, sm.q, sm.go, sm.k, sm.v, a, br, 0, rows, lse2, delta);
+    dq_products<DK>(dq, sm.q, sm.go, sm.k, sm.v, lse2, delta, a.scale_log2, a.scale,
+                [&](int key, int r) { return br.meets(a, 0, key, rows[r]); });
     store_grad<DK>(dq, a, h, row0, rows, ok, 0);
   }
   float dk[DK / 2], dv[DK / 2];
   zero<DK>(dk);
   zero<DK>(dv);
-  dkv_products<DK>(dk, dv, sm.k, sm.v, sm.q, sm.go, sm.lse2, sm.delta, a, rows);
+  dkv_products<DK>(dk, dv, sm.k, sm.v, sm.q, sm.go, sm.lse2, sm.delta, a.scale_log2, a.scale,
+               [&](int x, int r) { return same_segment(a, x, rows[r]); });
   store_grad<DK>(dk, a, h, row0, rows, ok, a.k_off);
   store_grad<DK>(dv, a, h, row0, rows, ok, a.v_off);
 }

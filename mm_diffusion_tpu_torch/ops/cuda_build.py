@@ -52,6 +52,8 @@ SIGNATURES = {
     "mmdiff_self_attention_bwd": [_P] * 6 + [_I] * 9 + [_P],
     "mmdiff_self_attention_bwd_mma": [_P] * 6 + [_I] * 9 + [_P],
     "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 10 + [_P],
+    "mmdiff_banded_attention_bwd_mma": [_P] * 8 + [_I] * 10 + [_P],
+    "mmdiff_banded_attention_bwd_frames_per_tile": [_I] * 4,
     "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 7 + [_P],
     "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 6 + [_L] * 6 + [_I, _P],
     "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 6 + [_L] * 6 + [_I, _P],

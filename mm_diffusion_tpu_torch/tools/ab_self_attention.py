@@ -1,5 +1,5 @@
-"""Time the self-attention kernels of several checkouts of the port on one
-card, in turns.
+"""Time the attention kernels of several checkouts of the port on one card,
+in turns.
 
     python -m mm_diffusion_tpu_torch.tools.ab_self_attention DIR [DIR ...]
         [--rounds 2] [--backward] [--calls 10] [--replays 10]
@@ -12,9 +12,11 @@ times in all (A B B A ...), so that drift on the card shows beside the
 difference.  Every time is device ms per call from CUDA-graph replays
 (``utils/timing.py::device_ms``) of the bf16 self-attention forward (K1) at
 the flagship sampler's shapes (``chip_smoke.SELF_SHAPES``) and, with
-``--backward``, of its backward (K4/K5) at the training step's shapes
-(``chip_smoke.TRAIN_SELF_SHAPES``); each output is checked against the
-plain version first.  Needs a CUDA device.
+``--backward``, of its backward (K4/K5) and of the banded backward (K6/K7)
+at the training step's shapes (``chip_smoke.TRAIN_SELF_SHAPES``,
+``chip_smoke.TRAIN_BANDED_SHAPES``, the last shift of the span, with each
+pass's device time from torch.profiler beside it); each output is checked
+against the plain version first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,13 +62,63 @@ def child(root: str, backward: bool, calls: int, replays: int) -> None:
             print(f"[{root}] {kind} {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {ms:.4f} ms")
         if shapes:
             print(f"[{root}] {kind} summed {total:.4f} ms")
+    if backward:
+        banded_backward(root, g, time)
+
+
+def banded_backward(root, g, time) -> None:
+    from chip_smoke import TRAIN_BANDED_SHAPES
+
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    totals = {}
+    for label, n, f, tq, tk, c, h, lw in TRAIN_BANDED_SHAPES:
+        make = lambda *shape: torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)  # noqa: E731
+        q_src, kv_src, dout = make(n, f, tq, 3 * c), make(n, f, tk, 3 * c), make(n, f, tq, c)
+        s = f - lw
+        out, lse = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
+        got = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
+        ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
+        for a, b in zip(got, ref):
+            err, ok = ba.BACKWARD_TOL.check(a, b)
+            if not ok:
+                raise SystemExit(f"[{root}] banded bwd {label}: error {err} over the limit")
+        call = lambda: ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)  # noqa: E731
+        ms = time(call)
+        kind = "K6" if lw == 1 else "K7"
+        totals[kind] = totals.get(kind, 0.0) + ms
+        passes = ", ".join(f"{k} {us:.1f} us" for k, us in pass_us(call).items())
+        print(f"[{root}] banded bwd {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} lw={lw:2d} {ms:.4f} ms "
+              f"(torch.profiler, per pass: {passes})")
+    for kind, total in totals.items():
+        print(f"[{root}] banded bwd {kind} summed {total:.4f} ms")
+
+
+def pass_us(call, calls: int = 5) -> dict:
+    """Device microseconds per call of each banded backward pass (dq, dkv),
+    from torch.profiler's kernel events over ``calls`` eager calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "banded_attention_bwd" in e.name:
+            key = "dq" if "_dq_" in e.name else "dkv"
+            us[key] = us.get(key, 0.0) + e.time_range.elapsed_us() / calls
+    return us
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("dirs", nargs="+", help="checkouts to compare")
     ap.add_argument("--rounds", type=int, default=2, help="passes over the checkouts, alternating order")
-    ap.add_argument("--backward", action="store_true", help="also time the backward")
+    ap.add_argument("--backward", action="store_true", help="also time the backwards")
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--replays", type=int, default=10)
     ap.add_argument("--child", help=argparse.SUPPRESS)

@@ -3,7 +3,13 @@ backwards, on the card, at the flagship training step's main-path shapes
 (chip_smoke.py's lists), every banded shift included; the self-attention
 backward (K4/K5) also at ragged T with N >= 2, at T = 16 with an N that does
 not fill the last packed tile, and against its previous design; K4-K7 at
-head dims that run on a larger built kernel (32, 48, 72).
+head dims that run on a larger built kernel (32, 48, 72).  The banded
+backward (K6/K7, Hopper design) also against its previous design at the
+training shapes with N >= 2 (rows past a clip's last frame are the next
+clip's), at frames of 25, 100 and 400 rows that cross 64-row tile
+boundaries (lw = 1, F - 1 with the largest shifts, F), at head dims 32, 48,
+96 and 128, with the frames packed per tile chosen by grid size, and two
+runs bitwise equal at every training shape.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 ``cuda`` and skips without a CUDA device.  On a GPU machine:
@@ -127,6 +133,89 @@ def test_banded_backward_kernel_every_shift(cuda, label, n, f, tq, tk, c, heads,
         assert not dq[..., c:].any() and not dkv[..., :c].any()
 
 
+def _banded_check(q_src, kv_src, dout, shift, lw, heads, c, previous=True):
+    """The Hopper banded backward (and its previous design) against the
+    plain backward, the zero lanes, and the two designs against each other."""
+    out, lse = ba.banded_attention_cuda(q_src, kv_src, shift, lw, heads, c)
+    new = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, shift, lw, heads, c)
+    ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, shift, lw, heads, c)
+    for got, want in zip(new, ref):
+        _close(got, want)
+    assert not new[0][..., c:].any() and not new[1][..., :c].any()
+    if previous:
+        prev = ba._banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, dout, shift, lw, heads, c)
+        for got, want, other in zip(prev, ref, new):
+            _close(got, want)
+            _close(other, got)
+
+
+def _banded_inputs(g, n, f, tq, tk, c):
+    make = lambda *shape: torch.randn(shape, generator=g, device=g.device, dtype=torch.bfloat16)  # noqa: E731
+    return make(n, f, tq, 3 * c), make(n, f, tk, 3 * c), make(n, f, tq, c)
+
+
+@pytest.mark.parametrize(
+    "label,n,f,tq,tk,c,heads,lw", TRAIN_BANDED_SHAPES, ids=[s[0] for s in TRAIN_BANDED_SHAPES]
+)
+def test_banded_backward_new_and_previous_designs_agree(cuda, label, n, f, tq, tk, c, heads, lw):
+    """N = 2 clips (a tile's rows past its clip's last frame are the next
+    clip's), shifts 0, the middle and the last of the span (the wrap)."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q_src, kv_src, dout = _banded_inputs(g, 2, f, tq, tk, c)
+    for shift in sorted({0, (f - lw) // 2, f - lw}):
+        _banded_check(q_src, kv_src, dout, shift, lw, heads, c)
+
+
+FRAME_ROWS = [(25, 64), (64, 25), (100, 256), (256, 100), (400, 25), (25, 400), (25, 25)]
+
+
+@pytest.mark.parametrize("tq,tk", FRAME_ROWS, ids=[f"{a}x{b}" for a, b in FRAME_ROWS])
+def test_banded_backward_frames_across_tiles(cuda, tq, tk):
+    """Frames of 25, 100 and 400 rows, whose ranges cross 64-row boxes and
+    frames; lw = 1, F - 1 (with the largest shifts, the wrap) and F."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    f, heads, c = 8, 2, 128
+    q_src, kv_src, dout = _banded_inputs(g, 3, f, tq, tk, c)
+    for lw, shifts in ((1, (0, 5, f - 1)), (3, (2, f - 3, f - 1)), (f - 1, (1, f - 2, f - 1)),
+                       (f, (0, 3, f - 1))):
+        for shift in shifts:
+            _banded_check(q_src, kv_src, dout, shift, lw, heads, c)
+
+
+@pytest.mark.parametrize("d", [32, 48, 96, 128])
+def test_banded_backward_head_dims(cuda, d):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    heads, f = 2, 6
+    c = heads * d
+    for tq, tk, lw, shift in ((25, 64, 4, 5), (64, 25, 6, 0), (100, 40, 1, 3)):
+        q_src, kv_src, dout = _banded_inputs(g, 2, f, tq, tk, c)
+        _banded_check(q_src, kv_src, dout, shift, lw, heads, c)
+
+
+def test_banded_backward_packing_by_grid_size(cuda):
+    """Frames of T <= 32 rows share a 64-row tile, fewer where the grid
+    would leave SMs without a block; the gradient is right either way."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+
+    def expected(n, f, t, heads):
+        pack = min(64 // t, f) if t <= 32 else 1
+        while pack > 1 and n * -(-f // pack) * heads < sms:
+            pack -= 1
+        return pack
+
+    cases = [(4, 16, 25, 8), (1, 16, 25, 8), (1, 16, 25, 1), (4, 16, 16, 8), (2, 16, 8, 4),
+             (4, 16, 64, 8), (4, 16, 400, 4)]
+    for n, f, t, heads in cases:
+        assert ba.banded_bwd_frames_per_tile(n, f, t, heads) == expected(n, f, t, heads)
+    assert ba.banded_bwd_frames_per_tile(4, 16, 25, 8) == 2  # the ds8 / middle training shapes
+    assert ba.banded_bwd_frames_per_tile(1, 16, 25, 2) == 1  # a grid smaller than the card
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for n, heads, tq, tk in ((1, 2, 25, 64), (1, 2, 64, 25), (2, 2, 16, 8), (6, 4, 25, 25)):
+        q_src, kv_src, dout = _banded_inputs(g, n, 16, tq, tk, heads * 64)
+        for lw, shift in ((8, 8), (16, 3), (1, 15)):
+            _banded_check(q_src, kv_src, dout, shift, lw, heads, heads * 64, previous=False)
+
+
 def test_fp32_backward_and_autograd(cuda):
     """fp32 tensors through the autograd functions: bf16 operands, fp32
     accumulation, fp32 gradients; the launch counts see both backwards."""
@@ -159,10 +248,10 @@ def test_backward_kernels_are_deterministic(cuda):
         out, lse = ba.self_attention_cuda(qkv, 4)
         first = ba.self_attention_bwd_cuda(qkv, out, lse, dout, 4)
         assert torch.equal(first, ba.self_attention_bwd_cuda(qkv, out, lse, dout, 4))
-    q_src = torch.randn((1, 16, 64, 3 * 512), generator=g, device=cuda, dtype=torch.bfloat16)
-    kv_src = torch.randn((1, 16, 25, 3 * 512), generator=g, device=cuda, dtype=torch.bfloat16)
-    dout = torch.randn((1, 16, 64, 512), generator=g, device=cuda, dtype=torch.bfloat16)
-    out, lse = ba.banded_attention_cuda(q_src, kv_src, 3, 8, 8, 512)
-    first = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, 3, 8, 8, 512)
-    second = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, 3, 8, 8, 512)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for label, n, f, tq, tk, c, heads, lw in TRAIN_BANDED_SHAPES:
+        q_src, kv_src, dout = _banded_inputs(g, n, f, tq, tk, c)
+        shift = f - lw  # the wrap
+        out, lse = ba.banded_attention_cuda(q_src, kv_src, shift, lw, heads, c)
+        first = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, shift, lw, heads, c)
+        second = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, shift, lw, heads, c)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), label
