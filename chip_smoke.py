@@ -13,12 +13,18 @@ Phases, each printed as it runs; any failure exits non-zero:
      wrap included); max |error| against the stated tolerance, the kernel's,
      the plain version's and, where one PyTorch call computes the same
      function, that call's device time, and the bound: the least time the
-     card could take for the same work.  The self-attention forward (K1, the
-     Hopper design) is also timed and checked in its previous design
-     (mma.sync) at each shape, and checked at ragged T with N >= 2, at T = 16
-     with a partial pack and at head dims 32 and 48.  Every time here and in
-     3b and 7 is device time: a fixed number of calls captured in one CUDA
-     graph and replayed between CUDA events
+     card could take for the same work.  The self-attention forward (K1) and
+     the banded forward (K2/K3), both the Hopper design, are also timed and
+     checked in their previous design (mma.sync) at each shape; K1 is
+     checked at ragged T with N >= 2, at T = 16 with a partial pack and at
+     head dims 32 and 48; beside each banded shape, as a yardstick and not
+     one call for the same function, SDPA's forward on the window gathered
+     into [N*F, H, lw*Tk, d] (the gather untimed).  Both forwards also run
+     at head dims 12, 36, 136 and 200, which take the wrappers' explicit
+     routes (a zero-padded copy, the flash kernels K8 above 128), each
+     checked with the launch counters showing the kernel that ran.  Every
+     time here and in 3b and 7 is device time: a fixed number of calls
+     captured in one CUDA graph and replayed between CUDA events
      (mm_diffusion_tpu_torch/utils/timing.py).
   3b. the backward kernels the same way, at every main-path shape of the
      flagship training step (batch 4; banded shifts 0, the middle and the
@@ -26,7 +32,10 @@ Phases, each printed as it runs; any failure exits non-zero:
      out and lse that they take, held to phase 3's tolerance at those
      shapes; the self-attention backward (K4/K5) and the banded backward
      (K6/K7) beside their previous designs (both checked, both timed, two
-     runs bitwise equal), K4/K5 also at phase 3's extra cases.  The library
+     runs bitwise equal), K4/K5 also at phase 3's extra cases, the banded
+     forward (K2/K3) timed per training shape beside its previous design,
+     and the banded forward and backward at phase 3's head-dim cases.  The
+     library
      call timed for the self-attention backward is PyTorch's fused
      attention's backward alone, one autograd.grad replayed in the graph
      (its forward+backward is printed beside it); beside each banded shape,
@@ -51,7 +60,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      checkpoint for one more step.
   7. the kernels of the remaining entry points: 7.1 the flash MHA forward
      and backward (K8, ops/fused_attention.py) at its hot shapes in both
-     layouts (and at head dims 32 and 256), the K1 variants of the A/B tool
+     layouts (and at head dims 32, 256, and 12 and 36 on zero-padded
+     copies), the K1 variants of the A/B tool
      (S1/S2: rows, nomax, noexp),
      the two-part skip GEMM (S3), the direct 3x3 conv and its GEMM core
      (S4), each against its plain version as in phase 3 with its device
@@ -68,8 +78,8 @@ The last three lines of standard output are the kernels' JSON record
 phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
 graph replay re-runs captured launches without counting them -- and the
 per-call numbers of phases 3, 3b and 7.1 summed over each kernel's main-path
-or hot shapes; K1 and K4-K7 also carry ``previous_ms``, their previous
-design's time in the same run), the card's ``nvidia-smi`` name and power
+or hot shapes; K1-K7 also carry ``previous_ms``, their previous design's
+time in the same run), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -141,13 +151,26 @@ TRAIN_BANDED_SHAPES = [  # (label, N, F, Tq, Tk, C, heads, lw)
 # Extra self-attention cases of phases 3 and 3b (checked and timed, not in
 # the sums): ragged T with N >= 2, whose rows past T are the next sequence's;
 # T = 16 with an N that leaves the last packed tile partial; head dims 32
-# and 48, which run on the kernels built for 32 and 64.
+# and 48, which run on the kernels built for 32 and 64; head dims 12, 36
+# (zero-padded to 16 and 40), 136 and 200 (the flash kernels, K8).
 SELF_EXTRA_SHAPES = [  # (label, N, T, C, heads, layout)
     ("ragged N=3 T=400", 3, 400, 512, 4, "thirds"),
     ("ragged N=5 T=100", 5, 100, 256, 4, "per_head"),
     ("packed N=1023 T=16", 1023, 16, 256, 4, "thirds"),
     ("head dim 32", 16, 256, 128, 4, "thirds"),
     ("head dim 48", 16, 256, 192, 4, "per_head"),
+    ("head dim 12", 16, 100, 48, 4, "thirds"),
+    ("head dim 36", 16, 256, 144, 4, "per_head"),
+    ("head dim 136", 4, 256, 544, 4, "thirds"),
+    ("head dim 200", 4, 100, 400, 2, "per_head"),
+]
+# Extra banded cases of phases 3 and 3b (batch 1 and 2; checked and timed,
+# not in the sums): head dims 12, 36, 136 and 200, as above.
+BANDED_EXTRA_SHAPES = [  # (label, F, Tq, Tk, C, heads, lw)
+    ("head dim 12", 16, 64, 25, 48, 4, 8),
+    ("head dim 36", 16, 100, 256, 144, 4, 1),
+    ("head dim 136", 16, 64, 25, 272, 2, 4),
+    ("head dim 200", 16, 25, 64, 400, 2, 16),
 ]
 KERNEL_SOURCE = {
     "self_attention": "mm_diffusion_tpu_torch/ops/csrc/self_attention.cu",
@@ -177,10 +200,13 @@ FLASH_SHAPES = [
     ("video->audio", 128, 4, 1024, 400, 64, "bthd"),
     ("audio->video", 128, 4, 100, 1024, 64, "bthd"),
 ]
-# K8 at head dims 32 and 256 (checked and timed, not in the sums).
+# K8 at head dims 32 and 256, and 12 and 36 on zero-padded copies (checked
+# and timed, not in the sums).
 FLASH_EXTRA_SHAPES = [
     ("self d=32", 128, 4, 1024, 1024, 32, "bhtd"),
     ("video->audio d=256", 32, 4, 1024, 400, 256, "bthd"),
+    ("self d=12", 16, 4, 256, 256, 12, "bhtd"),
+    ("audio->video d=36", 16, 4, 100, 256, 36, "bthd"),
 ]
 CONV_CHECK_IMAGES = 2  # S4: the fp32 plain version is compared on 2 of the 16 images
 REPLACES.update({
@@ -276,15 +302,9 @@ def banded_work(n, f, tq, tk, c, h, lw, backward=False):
 
 def packed_views(layout, num_heads):
     """``qkv [N, T, 3C] -> (q, k, v)`` as strided ``[N, H, T, d]`` views."""
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
 
-    def views(x):
-        n, t, c3 = x.shape
-        d = c3 // 3 // num_heads
-        if layout == "thirds":
-            return x.view(n, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
-        return x.view(n, t, num_heads, 3, d).permute(3, 0, 2, 1, 4)
-
-    return views
+    return lambda x: ba.packed_head_views(x, num_heads, layout)
 
 
 def library_attention_ms(views, leaves, dout=None):
@@ -320,11 +340,9 @@ def gathered_window(q_src, kv_src, dout, shift, lw, h, c):
     from mm_diffusion_tpu_torch.ops import block_attention as ba
 
     n, f, tq, _ = q_src.shape
-    tk, d = kv_src.shape[2], c // h
-    kv = kv_src[:, ba.window_frame_indices(f, lw, shift, q_src.device)]  # [N, F, lw, Tk, 3C]
-    heads = lambda x, t: x.reshape(n * f, t, h, d).transpose(1, 2).contiguous()  # noqa: E731
-    k, v = (heads(kv[..., i * c:(i + 1) * c], lw * tk) for i in (1, 2))
-    return [heads(q_src[..., :c], tq), k, v], heads(dout, tq)
+    *qkv, _ = ba.gathered_window_views(q_src, kv_src, shift, lw, h)
+    g = dout.reshape(n * f, tq, h, c // h).transpose(1, 2)
+    return [x.contiguous() for x in qkv], g.contiguous()
 
 
 def toolchain() -> str:
@@ -383,6 +401,35 @@ def build() -> None:
         print(f"  {name:48s} {regs:4d} regs  spill {st}/{ld}{flag}")
 
 
+def head_dim_route(d):
+    """The route head dim ``d`` takes through the attention wrappers:
+    "kernel", "pad" (a zero-padded copy on the same kernel) or "flash" (the
+    K8 kernels, d above 128)."""
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    dp = ba.padded_head_dim(d)
+    return "flash" if dp > ba.HEAD_DIMS[-1] else ("pad" if dp != d else "kernel")
+
+
+def routed_call(name, d, call):
+    """Run ``call`` once with every launch counter at 0 and check that the
+    kernel of head dim ``d``'s route ran: the wrapper's own kernel (padded
+    or not), or K8's.  Returns ``(call's result, a note of what ran)``."""
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.ops import fused_attention as fa
+
+    ba.reset_launch_counts()
+    fa.reset_launch_counts()
+    result = call()
+    route, routes = head_dim_route(d), dict(ba.HEAD_DIM_ROUTES)
+    flash = fa.LAUNCHES["flash_mha_bwd" if name.endswith("_bwd") else "flash_mha_fwd"]
+    own = ba.LAUNCHES[name]
+    ran = (flash == 1 and own == 0) if route == "flash" else (own == 1 and flash == 0)
+    padded = routes.get(f"{name}:pad", 0) == (d % 8 != 0)
+    check(ran and padded, f"{name} d={d}: route {route}, launches {name} {own} / K8 {flash}, {routes}")
+    return result, f"route {route}: launches {name} {own}, K8 {flash}, {routes}"
+
+
 def kernel_parity():
     """Phase 3; returns {kernel name: per-call numbers summed over shapes}."""
     import torch
@@ -397,52 +444,82 @@ def kernel_parity():
 
     for label, n, t, c, h, layout in SELF_SHAPES + SELF_EXTRA_SHAPES:
         main = (label, n, t, c, h, layout) in SELF_SHAPES
+        d = c // h
         qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
-        out, lse = ba.self_attention_cuda(qkv, h, layout)
+        (out, lse), ran = routed_call("self_attention", d, lambda: ba.self_attention_cuda(qkv, h, layout))
         err, lse_err, ok = self_forward_check(qkv, h, layout, out, lse)
-        prev_out, prev_lse = ba._self_attention_previous_cuda(qkv, h, layout)
-        prev_err, prev_lse_err, prev_ok = self_forward_check(qkv, h, layout, prev_out, prev_lse)
+        check(ok, f"self_attention {label}: err {err}, lse {lse_err}")
         ms = time_ms(lambda: ba.self_attention_cuda(qkv, h, layout))
-        prev_ms = time_ms(lambda: ba._self_attention_previous_cuda(qkv, h, layout))
         plain_ms = time_ms(lambda: ba.self_attention_reference(qkv, h, layout))
         lib_ms = library_attention_ms(packed_views(layout, h), [qkv])
         bound = bound_ms(*self_attention_work(n, t, c, h))
+        prev = ""
+        if head_dim_route(d) == "kernel":
+            prev_out, prev_lse = ba._self_attention_previous_cuda(qkv, h, layout)
+            prev_err, prev_lse_err, prev_ok = self_forward_check(qkv, h, layout, prev_out, prev_lse)
+            check(prev_ok, f"self_attention previous design {label}: err {prev_err}, lse {prev_lse_err}")
+            prev_ms = time_ms(lambda: ba._self_attention_previous_cuda(qkv, h, layout))
+            prev = f" previous design={prev_ms:.4f} ms (err={prev_err:.3e}, x{ms / prev_ms:.2f})"
+            if t >= K5_MIN_T:
+                check(ms < prev_ms, f"self_attention {label}: {ms} ms, not faster than the previous design")
         print(
             f"self_attention {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {layout:8s} "
-            f"err={err:.3e} lse_err={lse_err:.3e} kernel={ms:.4f} ms previous design={prev_ms:.4f} ms "
-            f"(err={prev_err:.3e}, x{ms / prev_ms:.2f}) plain={plain_ms:.4f} ms "
+            f"err={err:.3e} lse_err={lse_err:.3e} kernel={ms:.4f} ms{prev} plain={plain_ms:.4f} ms "
             f"library (SDPA fwd)={lib_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})"
-            + ("" if main else " [extra case, not summed]")
+            + ("" if main else f" [extra case, not summed; {ran}]")
         )
-        check(ok, f"self_attention {label}: err {err}, lse {lse_err}")
-        check(prev_ok, f"self_attention previous design {label}: err {prev_err}, lse {prev_lse_err}")
-        if t >= K5_MIN_T:
-            check(ms < prev_ms, f"self_attention {label}: {ms} ms, not faster than the previous design")
         if main:
             record("self_attention", max(err, lse_err), ms, plain_ms, bound, lib_ms, prev_ms)
 
-    for label, f, tq, tk, c, h, lw in BANDED_SHAPES:
+    k2_ms = k2_prev_ms = 0.0
+    for label, f, tq, tk, c, h, lw in BANDED_SHAPES + BANDED_EXTRA_SHAPES:
+        main = (label, f, tq, tk, c, h, lw) in BANDED_SHAPES
+        d = c // h
         q_src = torch.randn((1, f, tq, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
         kv_src = torch.randn((1, f, tk, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
         span = f - lw
         shifts = sorted({0, span // 2, span})[:BANDED_SHIFTS]
         name = "banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]"
-        worst = 0.0
+        worst = prev_worst = 0.0
         for s in shifts:
-            out, lse = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
+            (out, lse), ran = routed_call(
+                "banded_attention", d, lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
+            )
             err, lse_err, ok = banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse)
             check(ok, f"banded {label} shift {s}: err {err}, lse {lse_err}")
             worst = max(worst, err, lse_err)
+            if main:
+                prev_out, prev_lse = ba._banded_attention_previous_cuda(q_src, kv_src, s, lw, h, c)
+                err, lse_err, ok = banded_forward_check(q_src, kv_src, s, lw, h, c, prev_out, prev_lse)
+                check(ok, f"banded previous design {label} shift {s}: err {err}, lse {lse_err}")
+                prev_worst = max(prev_worst, err, lse_err)
         s = shifts[-1]
         ms = time_ms(lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
         plain_ms = time_ms(lambda: ba.banded_cross_attention_reference(q_src, kv_src, s, lw, h, c))
+        bound = bound_ms(*banded_work(1, f, tq, tk, c, h, lw))
+        window, _ = gathered_window(q_src, kv_src, q_src[..., :c], s, lw, h, c)
+        sdpa_ms = library_attention_ms(lambda *xs: xs, window)
+        del window
+        prev = ""
+        if main:
+            prev_ms = time_ms(lambda: ba._banded_attention_previous_cuda(q_src, kv_src, s, lw, h, c))
+            prev = f" previous design={prev_ms:.4f} ms (err={prev_worst:.3e}, x{ms / prev_ms:.2f})"
         print(
             f"banded_attention {label:20s} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} lw={lw:2d} "
-            f"shifts={shifts} err={worst:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
+            f"shifts={shifts} err={worst:.3e} kernel={ms:.4f} ms{prev} plain={plain_ms:.4f} ms "
+            f"bound={bound[0]:.4f} ms ({bound[1]}); yardstick, not the same function: "
+            f"library (SDPA fwd, gathered window)={sdpa_ms:.4f} ms"
+            + ("" if main else f" [extra case, not summed; {ran}]")
         )
-        bound = bound_ms(*banded_work(1, f, tq, tk, c, h, lw))
-        print(f"  bound={bound[0]:.4f} ms ({bound[1]}); no single library call computes it")
-        record(name, worst, ms, plain_ms, bound, None)
+        if not main:
+            continue
+        if lw == 1:
+            check(ms < prev_ms, f"banded_attention {label}: {ms} ms, not faster than the previous design")
+        else:
+            k2_ms, k2_prev_ms = k2_ms + ms, k2_prev_ms + prev_ms
+        record(name, worst, ms, plain_ms, bound, None, prev_ms)
+    print(f"banded_attention[lw>1] summed over its shapes: {k2_ms:.4f} ms, previous design {k2_prev_ms:.4f} ms")
+    check(k2_ms < k2_prev_ms, "banded_attention[lw>1]: not faster than the previous design summed")
     return summary
 
 
@@ -530,17 +607,25 @@ def backward_parity(forward_summary):
         check(fwd_ok, f"self_attention {label} (training shape): err {fwd_err}, lse {lse_err}")
         if main:
             worst_fwd("self_attention", fwd_err, lse_err)
-        dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)
+        dqkv, ran = routed_call("self_attention_bwd", c // h,
+                                lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
         check(torch.equal(dqkv, ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)),
               f"self_attention_bwd {label}: two runs differ")
-        prev = ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout)
         ref = ba.self_attention_backward_reference(qkv, dout, h, layout)
         err, ok = ba.BACKWARD_TOL.check(dqkv, ref)
-        prev_err, prev_ok = ba.BACKWARD_TOL.check(prev, ref)
-        scale = ref.float().abs().max().item()
-        del ref, prev
+        check(ok, f"self_attention_bwd {label}: err {err}")
         ms = time_ms(lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
-        prev_ms = time_ms(lambda: ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout))
+        prev = ""
+        if head_dim_route(c // h) == "kernel":
+            prev_err, prev_ok = ba.BACKWARD_TOL.check(
+                ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout), ref)
+            check(prev_ok, f"self_attention_bwd previous design {label}: err {prev_err}")
+            prev_ms = time_ms(lambda: ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout))
+            prev = f" previous design={prev_ms:.4f} ms (err={prev_err:.3e}, x{ms / prev_ms:.2f})"
+            if t >= K5_MIN_T:
+                check(ms < prev_ms, f"self_attention_bwd {label}: {ms} ms, not faster than the previous design")
+        scale = ref.float().abs().max().item()
+        del ref
         plain_ms = time_ms(lambda: ba.self_attention_backward_reference(qkv, dout, h, layout))
         g_heads = dout.view(n, t, h, c // h).transpose(1, 2)
         lib_ms, lib_fwd_bwd_ms = library_attention_ms(packed_views(layout, h), [qkv], g_heads)
@@ -548,19 +633,15 @@ def backward_parity(forward_summary):
         print(
             f"self_attention_bwd {label:18s} N={n:5d} T={t:5d} C={c} H={h} {layout:8s} "
             f"forward err={fwd_err:.3e} lse_err={lse_err:.3e}; err={err:.3e} "
-            f"(max|plain| {scale:.3e}) kernel={ms:.4f} ms previous design={prev_ms:.4f} ms "
-            f"(err={prev_err:.3e}, x{ms / prev_ms:.2f}) plain={plain_ms:.4f} ms "
+            f"(max|plain| {scale:.3e}) kernel={ms:.4f} ms{prev} plain={plain_ms:.4f} ms "
             f"library bwd={lib_ms:.4f} ms (fwd+bwd {lib_fwd_bwd_ms:.4f} ms) "
-            f"bound={bound[0]:.4f} ms ({bound[1]})" + ("" if main else " [extra case, not summed]")
+            f"bound={bound[0]:.4f} ms ({bound[1]})" + ("" if main else f" [extra case, not summed; {ran}]")
         )
-        check(ok, f"self_attention_bwd {label}: err {err}")
-        check(prev_ok, f"self_attention_bwd previous design {label}: err {prev_err}")
-        if t >= K5_MIN_T:
-            check(ms < prev_ms, f"self_attention_bwd {label}: {ms} ms, not faster than the previous design")
         name = "self_attention_bwd[T>512]" if t >= K5_MIN_T else "self_attention_bwd[T<=512]"
         if main:
             record(name, err, ms, plain_ms, bound, lib_ms, prev_ms)
 
+    fwd_sums = {}
     for label, n, f, tq, tk, c, h, lw in TRAIN_BANDED_SHAPES:
         q_src = torch.randn((n, f, tq, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
         kv_src = torch.randn((n, f, tk, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
@@ -589,6 +670,18 @@ def backward_parity(forward_summary):
                 got, ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))),
                 f"banded_attention_bwd {label} shift {s}: two runs differ")
             del got, prev, ref
+        prev_out, prev_lse = ba._banded_attention_previous_cuda(q_src, kv_src, s, lw, h, c)
+        prev_fwd_err, prev_lse_err, prev_fwd_ok = banded_forward_check(
+            q_src, kv_src, s, lw, h, c, prev_out, prev_lse)
+        check(prev_fwd_ok, f"banded previous design {label} (training shape): err {prev_fwd_err}")
+        fwd_ms = time_ms(lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
+        fwd_prev_ms = time_ms(lambda: ba._banded_attention_previous_cuda(q_src, kv_src, s, lw, h, c))
+        kind = "banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]"
+        sums = fwd_sums.setdefault(kind, [0.0, 0.0])
+        sums[0], sums[1] = sums[0] + fwd_ms, sums[1] + fwd_prev_ms
+        print(f"banded_attention {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} lw={lw:2d} (training "
+              f"shape, shift {s}): kernel={fwd_ms:.4f} ms previous design={fwd_prev_ms:.4f} ms "
+              f"(err={max(prev_fwd_err, prev_lse_err):.3e}, x{fwd_ms / fwd_prev_ms:.2f})")
         ms = time_ms(lambda: ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))
         prev_ms = time_ms(
             lambda: ba._banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
@@ -611,7 +704,39 @@ def backward_parity(forward_summary):
             check(ms < prev_ms, f"banded_attention_bwd {label}: {ms} ms, not faster than the previous design")
         name = "banded_attention_bwd[lw=1]" if lw == 1 else "banded_attention_bwd[lw>1]"
         record(name, worst, ms, plain_ms, bound, None, prev_ms)
+    for kind, (ms, prev_ms) in fwd_sums.items():
+        print(f"{kind} at the training shapes, summed: {ms:.4f} ms, previous design {prev_ms:.4f} ms")
+    banded_head_dims(g)
     return summary
+
+
+def banded_head_dims(g) -> None:
+    """Phase 3b's banded head-dim cases (batch 2): the forward and backward
+    through their routes against the plain versions, the last shift of the
+    span."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    for label, f, tq, tk, c, h, lw in BANDED_EXTRA_SHAPES:
+        n, d, s = 2, c // h, f - lw
+        make = lambda *shape: torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)  # noqa: E731
+        q_src, kv_src, dout = make(n, f, tq, 3 * c), make(n, f, tk, 3 * c), make(n, f, tq, c)
+        (out, lse), ran_fwd = routed_call(
+            "banded_attention", d, lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
+        fwd_err, lse_err, fwd_ok = banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse)
+        check(fwd_ok, f"banded {label} (batch 2): err {fwd_err}, lse {lse_err}")
+        got, ran = routed_call("banded_attention_bwd", d, lambda: ba.banded_attention_bwd_cuda(
+            q_src, kv_src, out, lse, dout, s, lw, h, c))
+        ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
+        errs = [ba.BACKWARD_TOL.check(a, b) for a, b in zip(got, ref)]
+        check(all(ok for _, ok in errs), f"banded_attention_bwd {label}: err {errs}")
+        check(all(torch.equal(a, b) for a, b in zip(got, ba.banded_attention_bwd_cuda(
+            q_src, kv_src, out, lse, dout, s, lw, h, c))), f"banded_attention_bwd {label}: two runs differ")
+        ms = time_ms(lambda: ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))
+        print(f"banded_attention_bwd {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} lw={lw:2d} "
+              f"shift={s} forward err={max(fwd_err, lse_err):.3e}; err={max(e for e, _ in errs):.3e} "
+              f"kernel={ms:.4f} ms [extra case, not summed; forward {ran_fwd}; backward {ran}]")
 
 
 def rel_l2(a, b) -> float:

@@ -21,20 +21,29 @@ launches the kernel (``csrc/``) or raises.  There are no size gates and no
 fallback from a failed build or launch to the plain version.  Each kernel
 wrapper counts its launches in :data:`LAUNCHES`.
 
-Head dims: the kernels take every head dim ``d`` with ``d % 8 == 0`` and
-``8 <= d <= 128``; :func:`kernel_head_dim` maps ``d`` to the kernel built for
-the next size at or above it (32, 64, 96, 128), whose lanes past ``d`` are
-zero-filled and never stored.  Any other ``d`` raises ``ValueError`` on a
-CUDA tensor (the plain version on the CPU takes any ``d``).
+Head dims: the kernels are built for 32, 64, 96 and 128 and take every head
+dim ``d`` with ``d % 8 == 0`` and ``8 <= d <= 128`` on the next built size at
+or above it (:func:`kernel_head_dim`), the lanes past ``d`` zero-filled and
+never stored.  The wrappers take every ``d <= 256`` on the card, each by an
+explicit route to a hand kernel, counted in :data:`HEAD_DIM_ROUTES`: a ``d``
+that is not a multiple of 8 runs on a copy of the operands zero-padded to
+:func:`padded_head_dim` (the logit scale stays ``1/sqrt(d)``, passed to the
+kernel), and a (padded) ``d`` above 128 runs on the flash MHA kernels of
+``ops/fused_attention.py`` (K8, built up to 256) over strided ``[N, H, T,
+d]`` views of the packed operands -- for the banded function over the
+window gathered per query frame, its dk/dv summed back into the kv frames.
+``d > 256`` raises ``ValueError`` on a CUDA tensor (the plain version on the
+CPU takes any ``d``).
 
-bf16 self-attention (K1 forward, K4/K5 backward) and the bf16 banded
-backward (K6/K7) run the Hopper kernels (TMA, mbarrier rings, ``wgmma``;
-``csrc/attention_sm90.cuh``); fp32 runs the previous mma.sync design, whose
-bf16 build stays reachable through ``_self_attention_previous_cuda``,
+Every bf16 attention kernel runs the Hopper design (TMA, mbarrier rings,
+``wgmma``; ``csrc/attention_sm90.cuh``, and for the banded forward and
+backward the window tiling of ``csrc/banded_sm90.cuh``); fp32 runs the
+previous mma.sync design, whose bf16 build stays reachable through
+``_self_attention_previous_cuda``, ``_banded_attention_previous_cuda``,
 ``_self_attention_bwd_previous_cuda`` and ``_banded_attention_bwd_previous_cuda``
-for the same-run comparison in ``chip_smoke.py`` and the card tests (counted
-in :data:`PREVIOUS_LAUNCHES`, never by the model).  The banded forward
-(K2/K3) is mma.sync.
+for the same-run comparison in ``chip_smoke.py``, the card tests and the A/B
+tool (counted in :data:`PREVIOUS_LAUNCHES`, never by the model; kernel head
+dims only).
 
 :func:`self_attention_variant` serves the A/B tool
 ``tools/bench_attn_variants.py`` (the TPU spikes' K1 variants, see
@@ -49,12 +58,14 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_build
 from .common import Tolerance, kernel_path
 
 LAYOUTS = ("thirds", "per_head")
 HEAD_DIMS = (32, 64, 96, 128)  # the head dims the kernels are built for
+MAX_HEAD_DIM = 256  # the largest head dim any kernel of the port is built for (K8)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 # Launches of each kernel since the last reset_launch_counts(); the banded
@@ -72,6 +83,10 @@ SELF_BWD_LENGTHS: collections.Counter = collections.Counter()
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 # Launches of the previous designs (same-run comparison only).
 PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
+# Calls that took a head-dim route, by "<wrapper>:<route>": "pad" (the
+# kernel ran on a zero-padded copy) and "flash" (the K8 kernels ran; their
+# launches count in fused_attention.LAUNCHES).
+HEAD_DIM_ROUTES: collections.Counter = collections.Counter()
 
 # The K1 forward's A/B variants (TPU spikes tools/bench_attn_variants.py and
 # tools/bench_attn_variants2.py), thirds layout.  On this card hoist, recip
@@ -103,7 +118,7 @@ def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     for counter in (BANDED_WINDOWS, BANDED_BWD_WINDOWS, SELF_BWD_LENGTHS, VARIANT_LAUNCHES,
-                    PREVIOUS_LAUNCHES):
+                    PREVIOUS_LAUNCHES, HEAD_DIM_ROUTES):
         counter.clear()
 
 
@@ -117,6 +132,56 @@ def kernel_head_dim(d: int, built: Tuple[int, ...] = HEAD_DIMS) -> int:
             f"the CUDA kernels take head dims d with d % 8 == 0 and 8 <= d <= {built[-1]}, got {d}"
         )
     return next(b for b in built if b >= d)
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim that head dim ``d`` runs at on the card: ``d`` rounded up
+    to a multiple of 8 (the 16-byte rows of the kernels' copies)."""
+    return -(-d // 8) * 8
+
+
+def pad_head_dim(x: torch.Tensor, num_heads: int, dp: int, parts: int, layout: str = "thirds"):
+    """A packed ``[..., parts * H * d]`` tensor as ``[..., parts * H * dp]``
+    with every head's lanes past ``d`` zero: ``parts`` 3 for a packed qkv
+    projection in ``layout``, 1 for an ``[..., C]`` output or gradient.
+    Zero q / k lanes add nothing to a logit and zero v lanes give output
+    lanes that :func:`unpad_head_dim` drops, so attention over the padded
+    copy at the logit scale ``1/sqrt(d)`` is attention over ``x``."""
+    *lead, width = x.shape
+    d = width // parts // num_heads
+    if dp == d:
+        return x
+    shape = (num_heads, parts, d) if layout == "per_head" else (parts, num_heads, d)
+    return F.pad(x.reshape(*lead, *shape), (0, dp - d)).reshape(*lead, parts * num_heads * dp)
+
+
+def unpad_head_dim(x: torch.Tensor, num_heads: int, d: int, parts: int, layout: str = "thirds"):
+    """The inverse of :func:`pad_head_dim`: the first ``d`` lanes of every
+    head, as a contiguous ``[..., parts * H * d]`` tensor."""
+    *lead, width = x.shape
+    dp = width // parts // num_heads
+    if dp == d:
+        return x
+    shape = (num_heads, parts, dp) if layout == "per_head" else (parts, num_heads, dp)
+    return x.reshape(*lead, *shape)[..., :d].reshape(*lead, parts * num_heads * d)
+
+
+def packed_head_views(x: torch.Tensor, num_heads: int, layout: str = "thirds"):
+    """A packed ``[N, T, 3C]`` projection as its q, k, v: three strided
+    ``[N, H, T, d]`` views (no copy)."""
+    n, t, c3 = x.shape
+    d = c3 // 3 // num_heads
+    if layout == "per_head":
+        y = x.view(n, t, num_heads, 3, d).permute(3, 0, 2, 1, 4)
+    else:
+        y = x.view(n, t, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    return y[0], y[1], y[2]
+
+
+def _heads_view(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """An ``[N, T, C]`` tensor as a strided ``[N, H, T, d]`` view."""
+    n, t, c = x.shape
+    return x.view(n, t, num_heads, c // num_heads).transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -138,14 +203,18 @@ def split_packed_qkv(qkv: torch.Tensor, num_heads: int, layout: str = "thirds"):
     raise ValueError(f"unknown qkv layout {layout!r}; expected one of {LAYOUTS}")
 
 
+def _scale(d: int, scale) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
 def self_attention_reference(
-    qkv: torch.Tensor, num_heads: int, layout: str = "thirds"
+    qkv: torch.Tensor, num_heads: int, layout: str = "thirds", scale: float | None = None
 ) -> torch.Tensor:
-    """Plain multi-head attention over packed ``[N, T, 3C]`` qkv, in fp32."""
+    """Plain multi-head attention over packed ``[N, T, 3C]`` qkv, in fp32;
+    the logit scale is ``1/sqrt(d)`` unless ``scale`` is given."""
     n, t, c3 = qkv.shape
     q, k, v = split_packed_qkv(qkv.float(), num_heads, layout)
-    d = q.shape[-1]
-    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) * (1.0 / math.sqrt(d))
+    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) * _scale(q.shape[-1], scale)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("nhqk,nkhd->nqhd", w, v)
     return out.reshape(n, t, c3 // 3).to(qkv.dtype)
@@ -188,9 +257,11 @@ def banded_cross_attention_reference(
     local_window: int,
     num_heads: int,
     channels: int,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Plain RS-MMA over packed sources, in fp32: ``q_src`` [N, F, Tq, 3C],
-    ``kv_src`` [N, F, Tk, 3C] -> [N, F, Tq, C]."""
+    ``kv_src`` [N, F, Tk, 3C] -> [N, F, Tq, C]; the logit scale is
+    ``1/sqrt(d)`` unless ``scale`` is given."""
     n, f, tq, _ = q_src.shape
     tk = kv_src.shape[2]
     c = channels
@@ -203,7 +274,7 @@ def banded_cross_attention_reference(
     qh = q.reshape(n, f, tq, num_heads, d)
     kh = k.reshape(n, f, local_window * tk, num_heads, d)
     vh = v.reshape(n, f, local_window * tk, num_heads, d)
-    logits = torch.einsum("nfqhd,nfkhd->nfhqk", qh, kh) * (1.0 / math.sqrt(d))
+    logits = torch.einsum("nfqhd,nfkhd->nfhqk", qh, kh) * _scale(d, scale)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("nfhqk,nfkhd->nfqhd", w, vh)
     return out.reshape(n, f, tq, c).to(q_src.dtype)
@@ -224,7 +295,8 @@ def _softmax_backward(q, k, v, g, scale):
 
 
 def self_attention_backward_reference(
-    qkv: torch.Tensor, g: torch.Tensor, num_heads: int, layout: str = "thirds"
+    qkv: torch.Tensor, g: torch.Tensor, num_heads: int, layout: str = "thirds",
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Plain backward of :func:`self_attention_reference`: ``(qkv [N, T, 3C],
     g [N, T, C]) -> dqkv [N, T, 3C]`` in ``layout``, computed in fp32."""
@@ -232,7 +304,7 @@ def self_attention_backward_reference(
     q, k, v = split_packed_qkv(qkv.float(), num_heads, layout)
     d = q.shape[-1]
     gh = g.float().reshape(n, t, num_heads, d)
-    dq, dk, dv = _softmax_backward(q, k, v, gh, 1.0 / math.sqrt(d))
+    dq, dk, dv = _softmax_backward(q, k, v, gh, _scale(d, scale))
     if layout == "thirds":
         dqkv = torch.cat([x.reshape(n, t, c3 // 3) for x in (dq, dk, dv)], dim=-1)
     else:
@@ -248,6 +320,7 @@ def banded_attention_backward_reference(
     local_window: int,
     num_heads: int,
     channels: int,
+    scale: float | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain backward of :func:`banded_cross_attention_reference`, in fp32:
     ``(q_src, kv_src, g [N, F, Tq, C]) -> (dq_src, dkv_src)`` packed as the
@@ -265,7 +338,7 @@ def banded_attention_backward_reference(
     heads = lambda x, rows: x.reshape(n, f, rows, num_heads, d)  # noqa: E731
     dq, dk, dv = _softmax_backward(
         heads(q_src[..., :c].float(), tq), heads(k, lw * tk), heads(v, lw * tk),
-        heads(g.float(), tq), 1.0 / math.sqrt(d),
+        heads(g.float(), tq), _scale(d, scale),
     )
     dkv_w = torch.cat([x.reshape(n, f, lw, tk, c) for x in (dk, dv)], dim=-1)
     dkv = torch.zeros_like(kv)
@@ -293,10 +366,13 @@ def _check_kernel_input(x: torch.Tensor, name: str, ndim: int) -> None:
 
 
 def _check_heads(c: int, num_heads: int) -> int:
-    if num_heads <= 0 or c % num_heads:
+    if num_heads <= 0 or c % num_heads or c == 0:
         raise ValueError(f"{c} channels do not split into {num_heads} heads")
     d = c // num_heads
-    kernel_head_dim(d)
+    if d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"no kernel of the port is built for head dims above {MAX_HEAD_DIM}, got d = {d}"
+        )
     return d
 
 
@@ -352,18 +428,24 @@ def _check_banded(q_src, kv_src, local_window: int, num_heads: int, channels: in
     return n, f, tq, tk, _check_heads(channels, num_heads)
 
 
-def _self_attention_launch(entry: str, qkv: torch.Tensor, num_heads: int, layout: str):
-    n, t, c, d = _check_qkv(qkv, num_heads)
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _self_attention_launch(entry: str, qkv: torch.Tensor, num_heads: int, layout: str, d: int):
+    """Launch a self-attention forward entry on ``qkv`` whose head dim the
+    kernels are built for, at the logit scale of head dim ``d``."""
+    n, t, c, dk = _check_qkv(qkv, num_heads)
     _check_aligned(qkv)
-    head_stride, k_off, v_off = _layout_offsets(layout, c, d)
+    head_stride, k_off, v_off = _layout_offsets(layout, c, dk)
     lib = cuda_build.load().lib
     out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((n, num_heads, t), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
-            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), n, t, num_heads, d,
-            kernel_head_dim(d), head_stride, k_off, v_off, int(qkv.dtype == torch.float32), stream,
+            qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), n, t, num_heads, dk,
+            kernel_head_dim(dk), 1.0 / math.sqrt(d), head_stride, k_off, v_off,
+            int(qkv.dtype == torch.float32), _stream(),
         )
     if err:
         raise RuntimeError(f"self-attention kernel launch failed: CUDA error {err}")
@@ -374,10 +456,24 @@ def self_attention_cuda(
     qkv: torch.Tensor, num_heads: int, layout: str = "thirds"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the self-attention kernel (bf16: the Hopper design; fp32: the
-    previous one).  Returns ``(out [N, T, C], lse [N, H, T] fp32)``."""
-    out, lse = _self_attention_launch("mmdiff_self_attention_fwd", qkv, num_heads, layout)
-    LAUNCHES["self_attention"] += 1
-    return out, lse
+    previous one); a head dim it is not built for takes its route (module
+    docstring).  Returns ``(out [N, T, C], lse [N, H, T] fp32)``."""
+    from . import fused_attention as fa
+
+    n, t, c, d = _check_qkv(qkv, num_heads)
+    dp = padded_head_dim(d)
+    x = pad_head_dim(qkv, num_heads, dp, 3, layout)
+    if dp != d:
+        HEAD_DIM_ROUTES["self_attention:pad"] += 1
+    if dp > HEAD_DIMS[-1]:
+        out = torch.empty((n, t, num_heads * dp), dtype=qkv.dtype, device=qkv.device)
+        lse = fa.flash_launch_fwd(*packed_head_views(x, num_heads, layout),
+                                  _heads_view(out, num_heads), d)
+        HEAD_DIM_ROUTES["self_attention:flash"] += 1
+    else:
+        out, lse = _self_attention_launch("mmdiff_self_attention_fwd", x, num_heads, layout, d)
+        LAUNCHES["self_attention"] += 1
+    return unpad_head_dim(out, num_heads, d, 1), lse
 
 
 def _self_attention_previous_cuda(
@@ -385,9 +481,59 @@ def _self_attention_previous_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The previous design (mma.sync) of :func:`self_attention_cuda` on the
     same arguments, for the same-run comparison only."""
-    out, lse = _self_attention_launch("mmdiff_self_attention_fwd_mma", qkv, num_heads, layout)
+    d = _check_qkv(qkv, num_heads)[3]
+    out, lse = _self_attention_launch("mmdiff_self_attention_fwd_mma", qkv, num_heads, layout, d)
     PREVIOUS_LAUNCHES["self_attention"] += 1
     return out, lse
+
+
+def _banded_attention_launch(entry, q_src, kv_src, shift, local_window, num_heads, channels, d):
+    """Launch a banded forward entry on sources whose head dim the kernels
+    are built for, at the logit scale of head dim ``d``."""
+    n, f, tq, tk, dk = _check_banded(q_src, kv_src, local_window, num_heads, channels)
+    _check_aligned(q_src, kv_src)
+    c = channels
+    lib = cuda_build.load().lib
+    out = torch.empty((n, f, tq, c), dtype=q_src.dtype, device=q_src.device)
+    lse = torch.empty((n, f, num_heads, tq), dtype=torch.float32, device=q_src.device)
+    with torch.cuda.device(q_src.device):
+        err = getattr(lib, entry)(
+            q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), lse.data_ptr(), n, f, tq,
+            tk, num_heads, dk, kernel_head_dim(dk), 1.0 / math.sqrt(d), int(shift) % f,
+            local_window, int(q_src.dtype == torch.float32), _stream(),
+        )
+    if err:
+        raise RuntimeError(f"banded attention kernel launch failed: CUDA error {err}")
+    return out, lse
+
+
+def gathered_window_views(q_src, kv_src, shift, local_window, num_heads):
+    """The banded function as N * F attention calls for the K8 kernels:
+    ``(q, k, v)`` as ``[N*F, H, T, d]`` views -- q of ``q_src`` in place, k
+    and v of the lw-frame window of each query frame gathered from
+    ``kv_src`` (one copy, ``[N*F, lw*Tk, 2C]``) -- and the window frame
+    indices ``[F, lw]``."""
+    n, f, tq, c3 = q_src.shape
+    tk, c = kv_src.shape[2], c3 // 3
+    idx = window_frame_indices(f, local_window, int(shift) % f, q_src.device)
+    kv = kv_src[..., c:][:, idx].reshape(n * f, local_window * tk, 2 * c)
+    k, v = _kv_views(kv, num_heads)
+    return _q_view(q_src, num_heads), k, v, idx
+
+
+def _q_view(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The q lanes of a packed ``[N, F, T, 3C]`` source as a strided
+    ``[N*F, H, T, d]`` view."""
+    n, f, t, c3 = x.shape
+    return x.view(n * f, t, 3, num_heads, c3 // 3 // num_heads)[:, :, 0].transpose(1, 2)
+
+
+def _kv_views(x: torch.Tensor, num_heads: int):
+    """A gathered ``[N*F, L, 2C]`` window as its k and v, strided ``[N*F, H,
+    L, d]`` views."""
+    nf, length, c2 = x.shape
+    y = x.view(nf, length, 2, num_heads, c2 // 2 // num_heads).permute(2, 0, 3, 1, 4)
+    return y[0], y[1]
 
 
 def banded_attention_cuda(
@@ -398,30 +544,48 @@ def banded_attention_cuda(
     num_heads: int,
     channels: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the banded RS-MMA kernel.  Returns ``(out [N, F, Tq, C],
-    lse [N, F, H, Tq] fp32)``."""
+    """Launch the banded RS-MMA kernel (bf16: the Hopper design; fp32: the
+    previous one); a head dim it is not built for takes its route (module
+    docstring).  Returns ``(out [N, F, Tq, C], lse [N, F, H, Tq] fp32)``."""
+    from . import fused_attention as fa
+
     n, f, tq, tk, d = _check_banded(q_src, kv_src, local_window, num_heads, channels)
-    c = channels
-    lib = cuda_build.load().lib
-    out = torch.empty((n, f, tq, c), dtype=q_src.dtype, device=q_src.device)
-    lse = torch.empty((n, f, num_heads, tq), dtype=torch.float32, device=q_src.device)
-    with torch.cuda.device(q_src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_banded_attention_fwd(
-            q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), lse.data_ptr(), n, f, tq,
-            tk, num_heads, d, kernel_head_dim(d), int(shift) % f, local_window,
-            int(q_src.dtype == torch.float32), stream,
+    dp = padded_head_dim(d)
+    q_p, kv_p = (pad_head_dim(x, num_heads, dp, 3) for x in (q_src, kv_src))
+    if dp != d:
+        HEAD_DIM_ROUTES["banded_attention:pad"] += 1
+    if dp > HEAD_DIMS[-1]:
+        q, k, v, _ = gathered_window_views(q_p, kv_p, shift, local_window, num_heads)
+        out = torch.empty((n, f, tq, num_heads * dp), dtype=q_src.dtype, device=q_src.device)
+        lse = fa.flash_launch_fwd(q, k, v, _heads_view(out.view(n * f, tq, -1), num_heads), d)
+        lse = lse.view(n, f, num_heads, tq)
+        HEAD_DIM_ROUTES["banded_attention:flash"] += 1
+    else:
+        out, lse = _banded_attention_launch(
+            "mmdiff_banded_attention_fwd", q_p, kv_p, shift, local_window, num_heads,
+            num_heads * dp, d,
         )
-    if err:
-        raise RuntimeError(f"banded attention kernel launch failed: CUDA error {err}")
-    LAUNCHES["banded_attention"] += 1
-    BANDED_WINDOWS[local_window] += 1
-    return out, lse
+        LAUNCHES["banded_attention"] += 1
+        BANDED_WINDOWS[local_window] += 1
+    return unpad_head_dim(out, num_heads, d, 1), lse
 
 
-def _self_attention_bwd_launch(entry, qkv, out, lse, g, num_heads, layout) -> torch.Tensor:
-    n, t, c, d = _check_qkv(qkv, num_heads)
-    head_stride, k_off, v_off = _layout_offsets(layout, c, d)
+def _banded_attention_previous_cuda(q_src, kv_src, shift: int, local_window: int, num_heads: int,
+                                    channels: int):
+    """The previous design (mma.sync) of :func:`banded_attention_cuda` on
+    the same arguments, for the same-run comparison only."""
+    d = _check_banded(q_src, kv_src, local_window, num_heads, channels)[4]
+    out_lse = _banded_attention_launch(
+        "mmdiff_banded_attention_fwd_mma", q_src, kv_src, shift, local_window, num_heads,
+        channels, d,
+    )
+    PREVIOUS_LAUNCHES["banded_attention"] += 1
+    return out_lse
+
+
+def _self_attention_bwd_launch(entry, qkv, out, lse, g, num_heads, layout, d) -> torch.Tensor:
+    n, t, c, dk = _check_qkv(qkv, num_heads)
+    head_stride, k_off, v_off = _layout_offsets(layout, c, dk)
     _check_like(out, qkv, "out", (n, t, c))
     _check_like(g, qkv, "g", (n, t, c))
     _check_aligned(qkv, g)
@@ -431,11 +595,10 @@ def _self_attention_bwd_launch(entry, qkv, out, lse, g, num_heads, layout) -> to
     delta = torch.empty_like(lse)
     dqkv = torch.empty_like(qkv)
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
             qkv.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dqkv.data_ptr(), n, t, num_heads, d, kernel_head_dim(d), head_stride, k_off, v_off,
-            int(qkv.dtype == torch.float32), stream,
+            dqkv.data_ptr(), n, t, num_heads, dk, kernel_head_dim(dk), 1.0 / math.sqrt(d),
+            head_stride, k_off, v_off, int(qkv.dtype == torch.float32), _stream(),
         )
     if err:
         raise RuntimeError(f"self-attention backward kernel launch failed: CUDA error {err}")
@@ -452,50 +615,106 @@ def self_attention_bwd_cuda(
 ) -> torch.Tensor:
     """Launch the self-attention backward kernels (bf16: the Hopper design;
     fp32: the previous one) on the forward's ``qkv``, ``out`` and ``lse`` and
-    the output gradient ``g`` [N, T, C].  Returns ``dqkv`` [N, T, 3C] in
+    the output gradient ``g`` [N, T, C]; a head dim they are not built for
+    takes its route (module docstring).  Returns ``dqkv`` [N, T, 3C] in
     ``layout``."""
-    dqkv = _self_attention_bwd_launch(
-        "mmdiff_self_attention_bwd", qkv, out, lse, g, num_heads, layout
-    )
-    LAUNCHES["self_attention_bwd"] += 1
-    SELF_BWD_LENGTHS[qkv.shape[1]] += 1
-    return dqkv
+    from . import fused_attention as fa
+
+    n, t, c, d = _check_qkv(qkv, num_heads)
+    _check_like(out, qkv, "out", (n, t, c))
+    _check_like(g, qkv, "g", (n, t, c))
+    dp = padded_head_dim(d)
+    x = pad_head_dim(qkv, num_heads, dp, 3, layout)
+    o, gp = (pad_head_dim(y, num_heads, dp, 1) for y in (out, g))
+    if dp != d:
+        HEAD_DIM_ROUTES["self_attention_bwd:pad"] += 1
+    if dp > HEAD_DIMS[-1]:
+        dqkv = torch.empty_like(x)
+        fa.flash_launch_bwd(*packed_head_views(x, num_heads, layout), _heads_view(o, num_heads),
+                            _heads_view(gp, num_heads), lse,
+                            *packed_head_views(dqkv, num_heads, layout), d)
+        HEAD_DIM_ROUTES["self_attention_bwd:flash"] += 1
+    else:
+        dqkv = _self_attention_bwd_launch(
+            "mmdiff_self_attention_bwd", x, o, lse, gp, num_heads, layout, d
+        )
+        LAUNCHES["self_attention_bwd"] += 1
+        SELF_BWD_LENGTHS[t] += 1
+    return unpad_head_dim(dqkv, num_heads, d, 3, layout)
 
 
 def _self_attention_bwd_previous_cuda(qkv, out, lse, g, num_heads: int, layout: str = "thirds"):
     """The previous design (mma.sync) of :func:`self_attention_bwd_cuda` on
     the same arguments, for the same-run comparison only."""
+    d = _check_qkv(qkv, num_heads)[3]
     dqkv = _self_attention_bwd_launch(
-        "mmdiff_self_attention_bwd_mma", qkv, out, lse, g, num_heads, layout
+        "mmdiff_self_attention_bwd_mma", qkv, out, lse, g, num_heads, layout, d
     )
     PREVIOUS_LAUNCHES["self_attention_bwd"] += 1
     return dqkv
 
 
-def _banded_attention_bwd_launch(entry, q_src, kv_src, out, lse, g, shift, local_window,
-                                 num_heads, channels):
+def _check_banded_bwd(q_src, kv_src, out, lse, g, local_window, num_heads, channels):
     n, f, tq, tk, d = _check_banded(q_src, kv_src, local_window, num_heads, channels)
-    c = channels
-    _check_like(out, q_src, "out", (n, f, tq, c))
-    _check_like(g, q_src, "g", (n, f, tq, c))
-    _check_aligned(q_src, kv_src, out, g)
+    _check_like(out, q_src, "out", (n, f, tq, channels))
+    _check_like(g, q_src, "g", (n, f, tq, channels))
     if lse.dtype != torch.float32 or tuple(lse.shape) != (n, f, num_heads, tq) or not lse.is_contiguous():
         raise ValueError(f"lse: expected contiguous fp32 {(n, f, num_heads, tq)}, got {tuple(lse.shape)}")
+    return n, f, tq, tk, d
+
+
+def _banded_attention_bwd_launch(entry, q_src, kv_src, out, lse, g, shift, local_window,
+                                 num_heads, channels, d):
+    n, f, tq, tk, dk = _check_banded_bwd(q_src, kv_src, out, lse, g, local_window, num_heads,
+                                         channels)
+    _check_aligned(q_src, kv_src, out, g)
     lib = cuda_build.load().lib
     delta = torch.empty_like(lse)
     dq_src = torch.empty_like(q_src)
     dkv_src = torch.empty_like(kv_src)
     with torch.cuda.device(q_src.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
             q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq_src.data_ptr(), dkv_src.data_ptr(), n, f, tq, tk, num_heads, d,
-            kernel_head_dim(d), int(shift) % f, local_window, int(q_src.dtype == torch.float32),
-            stream,
+            delta.data_ptr(), dq_src.data_ptr(), dkv_src.data_ptr(), n, f, tq, tk, num_heads, dk,
+            kernel_head_dim(dk), 1.0 / math.sqrt(d), int(shift) % f, local_window,
+            int(q_src.dtype == torch.float32), _stream(),
         )
     if err:
         raise RuntimeError(f"banded attention backward kernel launch failed: CUDA error {err}")
     return dq_src, dkv_src
+
+
+def _banded_flash_bwd(q_p, kv_p, o, lse, gp, shift, local_window, num_heads, d):
+    """The banded backward on the K8 kernels over the gathered window: dq
+    into the q lanes of a zeroed ``dq_src``, the window's dk | dv summed
+    (fp32) into the kv frames it was gathered from."""
+    from . import fused_attention as fa
+
+    n, f, tq, c3 = q_p.shape
+    tk, c, lw = kv_p.shape[2], c3 // 3, local_window
+    q, k, v, idx = gathered_window_views(q_p, kv_p, shift, lw, num_heads)
+    dq_src = torch.zeros_like(q_p)
+    dkv_w = torch.empty((n * f, lw * tk, 2 * c), dtype=kv_p.dtype, device=kv_p.device)
+    dk, dv = _kv_views(dkv_w, num_heads)
+    as_heads = lambda y: _heads_view(y.view(n * f, tq, c), num_heads)  # noqa: E731
+    fa.flash_launch_bwd(q, k, v, as_heads(o), as_heads(gp), lse.view(n * f, num_heads, tq),
+                        _q_view(dq_src, num_heads), dk, dv, d)
+    return dq_src, sum_window_grads(dkv_w.view(n, f, lw * tk, 2 * c), idx)
+
+
+def sum_window_grads(dkv_w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The k | v gradients ``[N, F, lw * Tk, 2C]`` of each query frame's
+    gathered window summed (in fp32) into the kv frames they were gathered
+    from (``idx [F, lw]``, :func:`window_frame_indices`), packed as
+    ``dkv_src [N, F, Tk, 3C]`` with zero q lanes, in ``dkv_w``'s dtype."""
+    n, f, rows, c2 = dkv_w.shape
+    lw = idx.shape[1]
+    tk = rows // lw
+    dkv = torch.zeros((n, f, tk, c2), dtype=torch.float32, device=dkv_w.device)
+    parts = dkv_w.view(n, f, lw, tk, c2).float()
+    for j in range(lw):  # each window position maps the query frames one-to-one onto kv frames
+        dkv.index_add_(1, idx[:, j], parts[:, :, j])
+    return torch.cat([dkv.new_zeros((n, f, tk, c2 // 2)), dkv], dim=-1).to(dkv_w.dtype)
 
 
 def banded_attention_bwd_cuda(
@@ -511,24 +730,36 @@ def banded_attention_bwd_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the banded backward kernels (bf16: the Hopper design; fp32:
     the previous one) on the forward's sources, ``out`` and ``lse`` and the
-    output gradient ``g`` [N, F, Tq, C].  Returns the packed ``(dq_src,
+    output gradient ``g`` [N, F, Tq, C]; a head dim they are not built for
+    takes its route (module docstring).  Returns the packed ``(dq_src,
     dkv_src)`` (zeros outside the q and k|v lanes)."""
-    grads = _banded_attention_bwd_launch(
-        "mmdiff_banded_attention_bwd", q_src, kv_src, out, lse, g, shift, local_window,
-        num_heads, channels,
-    )
-    LAUNCHES["banded_attention_bwd"] += 1
-    BANDED_BWD_WINDOWS[local_window] += 1
-    return grads
+    d = _check_banded_bwd(q_src, kv_src, out, lse, g, local_window, num_heads, channels)[4]
+    dp = padded_head_dim(d)
+    q_p, kv_p = (pad_head_dim(x, num_heads, dp, 3) for x in (q_src, kv_src))
+    o, gp = (pad_head_dim(y, num_heads, dp, 1) for y in (out, g))
+    if dp != d:
+        HEAD_DIM_ROUTES["banded_attention_bwd:pad"] += 1
+    if dp > HEAD_DIMS[-1]:
+        dq_src, dkv_src = _banded_flash_bwd(q_p, kv_p, o, lse, gp, shift, local_window, num_heads, d)
+        HEAD_DIM_ROUTES["banded_attention_bwd:flash"] += 1
+    else:
+        dq_src, dkv_src = _banded_attention_bwd_launch(
+            "mmdiff_banded_attention_bwd", q_p, kv_p, o, lse, gp, shift, local_window,
+            num_heads, num_heads * dp, d,
+        )
+        LAUNCHES["banded_attention_bwd"] += 1
+        BANDED_BWD_WINDOWS[local_window] += 1
+    return tuple(unpad_head_dim(x, num_heads, d, 3) for x in (dq_src, dkv_src))
 
 
 def _banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, g, shift: int,
                                         local_window: int, num_heads: int, channels: int):
     """The previous design (mma.sync) of :func:`banded_attention_bwd_cuda`
     on the same arguments, for the same-run comparison only."""
+    d = _check_banded(q_src, kv_src, local_window, num_heads, channels)[4]
     grads = _banded_attention_bwd_launch(
         "mmdiff_banded_attention_bwd_mma", q_src, kv_src, out, lse, g, shift, local_window,
-        num_heads, channels,
+        num_heads, channels, d,
     )
     PREVIOUS_LAUNCHES["banded_attention_bwd"] += 1
     return grads
@@ -557,10 +788,9 @@ def self_attention_variant_cuda(qkv: torch.Tensor, num_heads: int, variant: str)
     lib = cuda_build.load().lib
     out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.mmdiff_self_attention_variant_fwd(
             qkv.data_ptr(), out.data_ptr(), n, t, num_heads, d, kernel_head_dim(d),
-            VARIANT_CODES[variant], int(qkv.dtype == torch.float32), stream,
+            VARIANT_CODES[variant], int(qkv.dtype == torch.float32), _stream(),
         )
     if err:
         raise RuntimeError(f"self-attention {variant} kernel launch failed: CUDA error {err}")

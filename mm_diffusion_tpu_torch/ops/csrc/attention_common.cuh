@@ -1,10 +1,12 @@
-// Shared pieces of the mma.sync attention forward kernels: the banded
-// RS-MMA kernel (banded_attention.cu, replacing `_banded_oneshot_kernel` and
-// `_banded_fwd_kernel`, mm_diffusion_tpu/ops/block_attention.py:609, :534),
-// the flash MHA forward (flash_mha.cu), the K1 variants and K1's previous
-// design for fp32 inputs (self_attention.cu; the bf16 K1 runs
-// attention_sm90.cuh): a flash-attention inner loop on Hopper's warp-level
-// bf16 tensor-core product (mma.sync m16n8k16, fp32 accumulate).  Bound on
+// Shared pieces of the mma.sync attention forward kernels: the flash MHA
+// forward (flash_mha.cu), the K1 variants (self_attention.cu), and the
+// previous designs that fp32 inputs run of K1 (self_attention.cu) and of
+// the banded RS-MMA forward (banded_attention.cu, replacing
+// `_banded_oneshot_kernel` and `_banded_fwd_kernel`,
+// mm_diffusion_tpu/ops/block_attention.py:609, :534; the bf16 K1 and banded
+// forward run attention_sm90.cuh): a flash-attention inner loop on
+// Hopper's warp-level bf16 tensor-core product (mma.sync m16n8k16, fp32
+// accumulate).  Bound on
 // this card by the bytes moved and the blocks in flight at the model's short
 // sequences, and by this loop's unpipelined staging at T = 1024.
 //

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) machinery of the attention kernels: the self-attention
 // forward (self_attention.cu) and backward (self_attention_bwd.cu) and the
-// banded RS-MMA backward (banded_attention_bwd.cu).  TMA tile loads through
+// banded RS-MMA forward (banded_attention.cu) and backward
+// (banded_attention_bwd.cu).  TMA tile loads through
 // tensor maps of the packed projections, mbarrier rings between a producer
 // warp and the consumer warpgroups, and warpgroup products (wgmma.mma_async,
 // bf16 in, fp32 accumulate); the backward's two tile products (dq_products,
@@ -8,13 +9,14 @@
 // its own mask.
 //
 // The kernels it serves replace the TPU kernels `_self_fwd_kernel`,
-// `_self_bwd_kernel`, `_self_bwd_chunked_kernel`, `_banded_bwd_lw1_kernel`
-// and `_banded_bwd_oneshot_kernel` of mm_diffusion_tpu/ops/block_attention.py
-// (:165, :195, :264, :792, :877).  On this card they are bound by the tensor
-// cores at T = 1024 and by the bytes of the packed projections and the
-// blocks in flight below it; this header is what lets them reach the first
-// bound: copies that need no registers and stay in flight during the
-// products, and products at warpgroup width.
+// `_self_bwd_kernel`, `_self_bwd_chunked_kernel`, `_banded_fwd_kernel`,
+// `_banded_oneshot_kernel`, `_banded_bwd_lw1_kernel` and
+// `_banded_bwd_oneshot_kernel` of mm_diffusion_tpu/ops/block_attention.py
+// (:165, :195, :264, :534, :609, :792, :877).  On this card they are bound
+// by the tensor cores at T = 1024 and by the bytes of the packed
+// projections and the blocks in flight below it; this header is what lets
+// them reach the first bound: copies that need no registers and stay in
+// flight during the products, and products at warpgroup width.
 //
 // What it replaces: the mma.sync design of attention_common.cuh, which
 // staged K and V through registers with no load in flight during the

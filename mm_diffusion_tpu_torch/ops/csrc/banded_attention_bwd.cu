@@ -33,20 +33,10 @@
 //             memory, the producer streams Q and dO tiles of q_src with each
 //             query row's lse and delta, loaded one tile ahead:
 //             dV += P^T dO, dK += dS^T Q.
-// The window as row ranges, not lw frames: the kv frames f + shift + j, j <
-// lw, are adjacent rows of kv_src but where the window wraps past frame
-// F - 1, and the softmax does not depend on key order, so a query tile's key
-// stream is one contiguous range of the clip's rows, or two at the wrap, read
-// in 64-row TMA boxes that may cross frame boundaries (lw = F: the whole
-// clip).  The query frames that feed one kv frame, g - shift - j, are
-// contiguous the same way.  Short frames share a tile: at T <= 32 a block's
-// 64-row tile packs up to floor(64 / T) frames of one clip (fewer where the
-// grid would leave SMs idle, as pack_for does), and streams the union of
-// their windows (lw + frames - 1 frames); each pair of rows of such a tile
-// is tested by index, (key frame - query frame - shift) mod F < lw.  A
-// one-frame tile meets every row of its range, so only the rows past the
-// range's end (the next frame's, the next clip's, or past the tensor, which
-// TMA zero-fills) are masked: keys by index in the dq pass, queries by a
+// The window as at most two contiguous row ranges of the clip, streamed in
+// 64-row TMA boxes that cross frames, and frames of T <= 32 packed per tile
+// (banded_sm90.cuh, shared with the forward).  A one-frame tile is masked
+// only past its range's end: keys by index in the dq pass, queries by a
 // +inf lse in the dkv pass.  The zero lanes of both packed gradients are
 // written by the same blocks: no zero-fill pass, no extra launch.  lw = 1 is
 // the same kernel with a one-frame window.
@@ -62,10 +52,8 @@
 // the caller's stream.  Previous design: (N * F, H, ceil(T / 64)), 128
 // threads.
 
-#include <algorithm>
-
 #include "attention_bwd_common.cuh"
-#include "attention_sm90.cuh"
+#include "banded_sm90.cuh"
 
 namespace mmdiff {
 
@@ -73,124 +61,15 @@ namespace mmdiff {
 // The Hopper kernels (bf16)
 // ---------------------------------------------------------------------------
 
-// Depth of the K/V (dq pass) and Q/dO (dkv pass) rings: as deep as two
-// blocks per SM allow in shared memory beside two own tiles.
-constexpr int stages_for(int dk) { return dk <= 64 ? 4 : 2; }
-constexpr int kNoFrame = -(1 << 28);  // frame of a streamed row outside the range: meets nothing
-
-struct BandedArgs {
+// The pointers and scales of one call beside its window (banded_sm90.cuh).
+struct BandedArgs : BandedWindow {
   const bf16* out;
   const bf16* dout;
   const float* lse;
   float* delta;
   bf16* dq_src;
   bf16* dkv_src;
-  int n, frames, tq, tk, heads, dim, shift, window;
-  int pack_q, pack_k;  // frames per 64-row tile of queries (dq pass) / keys (dkv pass)
   float scale_log2, scale;
-};
-
-// Whether query frame fq meets key frame gk (frames of one clip): (gk - fq -
-// shift) mod F < lw.  kNoFrame on either side meets nothing.
-__device__ __forceinline__ bool in_window(const BandedArgs& a, int gk, int fq) {
-  int d = gk - fq - a.shift;
-  d += d < 0 ? a.frames : 0;
-  d += d < 0 ? a.frames : 0;
-  return (unsigned)d < (unsigned)a.window;
-}
-
-// 64-row tiles per clip of a [F, T] row space with `pack` frames per tile.
-__host__ __device__ __forceinline__ int tiles_per_clip(int frames, int len, int pack) {
-  return pack > 1 ? (frames + pack - 1) / pack : frames * ((len + sm90::kRows - 1) / sm90::kRows);
-}
-
-// Tile `index` (clip-major) of an [N, F, T] row space: clip n, first frame
-// f0 and the frames it holds (more than one only when packed), first row r0
-// within f0, its first row of the whole tensor and its real rows.  Row x of
-// the tile is row (r0 + x) % T of frame f0 + (r0 + x) / T.
-struct OwnTile {
-  int n, f0, frames, r0, valid;
-  long row0;
-  __device__ OwnTile(int index, int nframes, int len, int pack) {
-    const int per_clip = tiles_per_clip(nframes, len, pack);
-    n = index / per_clip;
-    const int t = index - n * per_clip;
-    if (pack > 1) {
-      f0 = t * pack;
-      frames = min(pack, nframes - f0);
-      r0 = 0;
-      valid = frames * len;
-    } else {
-      const int tiles = (len + sm90::kRows - 1) / sm90::kRows;
-      f0 = t / tiles;
-      frames = 1;
-      r0 = (t - f0 * tiles) * sm90::kRows;
-      valid = min(sm90::kRows, len - r0);
-    }
-    row0 = ((long)n * nframes + f0) * len + r0;
-  }
-  // Frame within the clip of tile row x.
-  __device__ int frame(int x, int len) const { return f0 + (r0 + x) / len; }
-};
-
-// The other side's rows that a tile meets: `span` frames from frame `first`,
-// mod F, as at most two contiguous ranges of the clip's rows, [a0, a0 + alen)
-// and [0, blen), streamed in boxes of 64 rows (na + nb of them).
-struct Stream {
-  int a0, alen, blen, na, nb;
-  __device__ Stream(int first, int span, int nframes, int len) {
-    const int fa = min(span, nframes - first);
-    a0 = first * len;
-    alen = fa * len;
-    blen = (span - fa) * len;
-    na = (alen + sm90::kRows - 1) / sm90::kRows;
-    nb = (blen + sm90::kRows - 1) / sm90::kRows;
-  }
-  __device__ int boxes() const { return na + nb; }
-  // Box j: the clip row of its first row, and the rows of its range from there.
-  __device__ void box(int j, int& row, int& left) const {
-    const int b = j < na ? j : j - na;
-    row = (j < na ? a0 : 0) + b * sm90::kRows;
-    left = (j < na ? alen : blen) - b * sm90::kRows;
-  }
-};
-
-// A pass's own side: its rows per frame, frames per tile, and tiles per head.
-__host__ __device__ __forceinline__ int own_len(const BandedArgs& a, bool dq) {
-  return dq ? a.tq : a.tk;
-}
-__host__ __device__ __forceinline__ int own_pack(const BandedArgs& a, bool dq) {
-  return dq ? a.pack_q : a.pack_k;
-}
-__host__ __device__ __forceinline__ int own_tiles(const BandedArgs& a, bool dq) {
-  return a.n * tiles_per_clip(a.frames, own_len(a, dq), own_pack(a, dq));
-}
-
-// Work items of a pass: own tiles x heads, tile-major within a head.
-__host__ __device__ __forceinline__ int work_items(const BandedArgs& a, bool dq) {
-  return own_tiles(a, dq) * a.heads;
-}
-
-// Work item w of a pass: head h, its own 64-row tile, and the rows of the
-// other side that the tile's frames meet -- the union of their windows,
-// lw + frames - 1 frames, at most F (then the whole clip from frame 0).
-//   dq pass:  query tile; key frames from f0 + shift;
-//   dkv pass: key tile; query frames from g0 - shift - lw + 1 (the frames
-//             g - shift - j, j < lw, of its first kv frame g0 and the ones after).
-struct Work {
-  int h;
-  OwnTile tile;
-  Stream st;
-  __device__ Work(const BandedArgs& a, int w, bool dq)
-      : h(w / own_tiles(a, dq)),
-        tile(w - h * own_tiles(a, dq), a.frames, own_len(a, dq), own_pack(a, dq)),
-        st(first(a, tile, dq), min(a.window + tile.frames - 1, a.frames), a.frames,
-           own_len(a, !dq)) {}
-  static __device__ int first(const BandedArgs& a, const OwnTile& t, bool dq) {
-    if (a.window + t.frames - 1 >= a.frames) return 0;
-    return dq ? (t.f0 + a.shift) % a.frames
-              : ((t.f0 - a.shift - a.window + 1) % a.frames + a.frames) % a.frames;
-  }
 };
 
 // Both kernels are persistent: a block walks the work items w = blockIdx.x,
@@ -490,48 +369,20 @@ __global__ void __launch_bounds__(sm90::kWarpgroup + sm90::kProducerThreads, 1)
   }
 }
 
-// Frames per 64-row tile of a [N, F, T] row space: at T <= 32 as many whole
-// frames as fit (at most F), but fewer when the (N * tiles per clip, heads)
-// grid would leave SMs without a block (one frame a tile at worst); 1 at
-// T > 32.
-static int frames_per_tile(int n, int frames, int len, int heads) {
-  int pack = len <= sm90::kRows / 2 ? sm90::kRows / len : 1;
-  if (pack > frames) pack = frames;
-  while (pack > 1 && (long)n * tiles_per_clip(frames, len, pack) * heads < sm_count()) --pack;
-  return pack;
-}
-
-// Launch one persistent pass: as many blocks as fit on the card at once, at
-// most one per work item.
-template <typename Kernel>
-static int launch_pass(Kernel kernel, size_t smem, int items, const CUtensorMap& q_map,
-                       const CUtensorMap& kv_map, const CUtensorMap& dout_map,
-                       const BandedArgs& a, cudaStream_t stream) {
-  constexpr int kThreads90 = sm90::kWarpgroup + sm90::kProducerThreads;
-  int err = set_dynamic_smem(kernel, smem);
-  if (err) return err;
-  int per_sm = 0;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads90, smem);
-  if (err) return err;
-  const int blocks = std::min(items, std::max(per_sm, 1) * sm_count());
-  kernel<<<blocks, kThreads90, smem, stream>>>(q_map, kv_map, dout_map, a);
-  return (int)cudaGetLastError();
-}
-
 template <int DK>
 static int launch_sm90(const CUtensorMap& q_map, const CUtensorMap& kv_map,
                        const CUtensorMap& dout_map, const BandedArgs& a, cudaStream_t stream) {
-  int err = launch_pass(banded_attention_bwd_dq_sm90<DK>, sizeof(BandedDqSmem<DK>) + 1024,
-                        work_items(a, true), q_map, kv_map, dout_map, a, stream);
+  int err = launch_persistent(banded_attention_bwd_dq_sm90<DK>, sizeof(BandedDqSmem<DK>) + 1024,
+                              work_items(a, true), stream, q_map, kv_map, dout_map, a);
   if (err) return err;
-  return launch_pass(banded_attention_bwd_dkv_sm90<DK>, sizeof(BandedDkvSmem<DK>) + 1024,
-                     work_items(a, false), q_map, kv_map, dout_map, a, stream);
+  return launch_persistent(banded_attention_bwd_dkv_sm90<DK>, sizeof(BandedDkvSmem<DK>) + 1024,
+                           work_items(a, false), stream, q_map, kv_map, dout_map, a);
 }
 
 static int dispatch_sm90(const void* q_src, const void* kv_src, const void* out, const void* dout,
                          const float* lse, float* delta, void* dq_src, void* dkv_src, int n,
                          int frames, int tq, int tk, int heads, int dim, int kernel_dim,
-                         int shift, int window, cudaStream_t stream) {
+                         float scale, int shift, int window, cudaStream_t stream) {
   const int c = heads * dim;
   const long q_rows = (long)n * frames * tq, kv_rows = (long)n * frames * tk;
   CUtensorMap q_map, kv_map, dout_map;
@@ -540,24 +391,15 @@ static int dispatch_sm90(const void* q_src, const void* kv_src, const void* out,
   if (!err) err = encode_map(&dout_map, dout, dim, heads, dim, 1, c, q_rows, c);
   if (err) return err;
   BandedArgs a;
+  static_cast<BandedWindow&>(a) = banded_window(n, frames, tq, tk, heads, dim, shift, window);
   a.out = static_cast<const bf16*>(out);
   a.dout = static_cast<const bf16*>(dout);
   a.lse = lse;
   a.delta = delta;
   a.dq_src = static_cast<bf16*>(dq_src);
   a.dkv_src = static_cast<bf16*>(dkv_src);
-  a.n = n;
-  a.frames = frames;
-  a.tq = tq;
-  a.tk = tk;
-  a.heads = heads;
-  a.dim = dim;
-  a.shift = shift;
-  a.window = window;
-  a.pack_q = frames_per_tile(n, frames, tq, heads);
-  a.pack_k = frames_per_tile(n, frames, tk, heads);
-  a.scale = 1.f / sqrtf((float)dim);
-  a.scale_log2 = kLog2e * a.scale;
+  a.scale = scale;
+  a.scale_log2 = kLog2e * scale;
   switch (kernel_dim) {
     case 32: return launch_sm90<32>(q_map, kv_map, dout_map, a, stream);
     case 64: return launch_sm90<64>(q_map, kv_map, dout_map, a, stream);
@@ -641,8 +483,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int D, typename T>
 static int launch(const void* q_src, const void* kv_src, const void* out, const void* dout,
                   const float* lse, float* delta, void* dq_src, void* dkv_src, int n, int frames,
-                  int tq, int tk, int heads, int dim, int shift, int window, cudaStream_t stream) {
-  const float scale = 1.f / sqrtf((float)dim);
+                  int tq, int tk, int heads, int dim, float scale, int shift, int window,
+                  cudaStream_t stream) {
   const float scale_log2 = kLog2e * scale;
   const T* q = static_cast<const T*>(q_src);
   const T* kv = static_cast<const T*>(kv_src);
@@ -668,11 +510,11 @@ static int launch(const void* q_src, const void* kv_src, const void* out, const 
 template <typename T>
 static int dispatch(const void* q_src, const void* kv_src, const void* out, const void* dout,
                     const float* lse, float* delta, void* dq_src, void* dkv_src, int n,
-                    int frames, int tq, int tk, int heads, int head_dim, int kernel_dim, int shift,
-                    int window, cudaStream_t stream) {
+                    int frames, int tq, int tk, int heads, int head_dim, int kernel_dim,
+                    float scale, int shift, int window, cudaStream_t stream) {
 #define MMDIFF_LAUNCH(D)                                                                     \
   return launch<D, T>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n, frames, tq, \
-                      tk, heads, head_dim, shift, window, stream);
+                      tk, heads, head_dim, scale, shift, window, stream);
   switch (kernel_dim) {
     case 32: MMDIFF_LAUNCH(32)
     case 64: MMDIFF_LAUNCH(64)
@@ -692,7 +534,8 @@ static bool head_dim_fits(int head_dim, int kernel_dim) {
 // `shift` must lie in [0, frames) and 1 <= window <= frames (checked by the
 // Python wrapper); lse is the forward's [N, F, H, Tq] logsumexp and delta a
 // scratch of the same shape; `head_dim` runs on the kernels built for
-// `kernel_dim`.  bf16 takes the Hopper kernels (q_src, kv_src and dout
+// `kernel_dim`, with the logit scale `scale` (1/sqrt(d) of the caller's real
+// head dim d, which may be below a zero-padded `head_dim`).  bf16 takes the Hopper kernels (q_src, kv_src and dout
 // 16-byte aligned), fp32 the previous design.  Every element of dq_src and
 // dkv_src is written.  Returns the first failing launch's CUDA error (0 on
 // success).
@@ -700,15 +543,16 @@ extern "C" int mmdiff_banded_attention_bwd(const void* q_src, const void* kv_src
                                            const void* dout, const float* lse, float* delta,
                                            void* dq_src, void* dkv_src, int n, int frames,
                                            int tq, int tk, int heads, int head_dim,
-                                           int kernel_dim, int shift, int window, int is_fp32,
-                                           void* stream) {
+                                           int kernel_dim, float scale, int shift, int window,
+                                           int is_fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
     return mmdiff::dispatch<float>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n,
-                                   frames, tq, tk, heads, head_dim, kernel_dim, shift, window, s);
+                                   frames, tq, tk, heads, head_dim, kernel_dim, scale, shift, window,
+                                   s);
   return mmdiff::dispatch_sm90(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n, frames,
-                               tq, tk, heads, head_dim, kernel_dim, shift, window, s);
+                               tq, tk, heads, head_dim, kernel_dim, scale, shift, window, s);
 }
 
 // The previous design (mma.sync, attention_bwd_common.cuh) on the same
@@ -717,16 +561,17 @@ extern "C" int mmdiff_banded_attention_bwd_mma(const void* q_src, const void* kv
                                                const void* out, const void* dout, const float* lse,
                                                float* delta, void* dq_src, void* dkv_src, int n,
                                                int frames, int tq, int tk, int heads,
-                                               int head_dim, int kernel_dim, int shift, int window,
-                                               int is_fp32, void* stream) {
+                                               int head_dim, int kernel_dim, float scale, int shift,
+                                               int window, int is_fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
     return mmdiff::dispatch<float>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n,
-                                   frames, tq, tk, heads, head_dim, kernel_dim, shift, window, s);
+                                   frames, tq, tk, heads, head_dim, kernel_dim, scale, shift, window,
+                                   s);
   return mmdiff::dispatch<mmdiff::bf16>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src,
-                                        n, frames, tq, tk, heads, head_dim, kernel_dim, shift,
-                                        window, s);
+                                        n, frames, tq, tk, heads, head_dim, kernel_dim, scale,
+                                        shift, window, s);
 }
 
 // Frames per 64-row tile that the Hopper kernels pack for a [N, F, T] side

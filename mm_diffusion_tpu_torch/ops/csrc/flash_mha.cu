@@ -48,17 +48,17 @@ __global__ void __launch_bounds__(kThreads)
     flash_mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
                          int heads, int len_q, int len_k, int dim, Strides sq, Strides sk,
-                         float scale_log2) {
+                         Strides so, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem[];
   SharedTiles<D>& sm = *reinterpret_cast<SharedTiles<D>*>(smem);
   const int b = blockIdx.z, h = blockIdx.y;
-  const long qo = b * sq.b + h * sq.h, ko = b * sk.b + h * sk.h;
+  const long qo = b * sq.b + h * sq.h, ko = b * sk.b + h * sk.h, oo = b * so.b + h * so.h;
   const int row0 = blockIdx.x * kBlockQ + (threadIdx.x >> 5) * 16;
 
   FlashState<D> st;
   load_queries<D, T>(st, q + qo, sq.t, row0, len_q, dim);
   attend_sequence<D, T>(st, sm, k + ko, v + ko, sk.t, len_k, dim, scale_log2);
-  store_rows<D, T>(st, out + qo, sq.t, lse + ((long)b * heads + h) * len_q, row0, len_q, dim);
+  store_rows<D, T>(st, out + oo, so.t, lse + ((long)b * heads + h) * len_q, row0, len_q, dim);
 }
 
 template <int D, typename T>
@@ -67,17 +67,17 @@ __global__ void __launch_bounds__(kThreads)
                             const T* __restrict__ v, const T* __restrict__ out,
                             const T* __restrict__ dout, const float* __restrict__ lse,
                             float* __restrict__ delta, T* __restrict__ dq, int heads, int len_q,
-                            int len_k, int dim, Strides sq, Strides sk, float scale_log2,
-                            float scale) {
+                            int len_k, int dim, Strides sq, Strides sk, Strides so,
+                            float scale_log2, float scale) {
   __shared__ __align__(16) unsigned short sk_tile[kBwdTile * (D + kPadK)];
   __shared__ __align__(16) unsigned short sv_tile[kBwdTile * (D + kPadK)];
   const int b = blockIdx.z, h = blockIdx.y;
-  const long qo = b * sq.b + h * sq.h, ko = b * sk.b + h * sk.h;
+  const long qo = b * sq.b + h * sq.h, ko = b * sk.b + h * sk.h, oo = b * so.b + h * so.h;
   const long ro = ((long)b * heads + h) * len_q;
   const int row0 = blockIdx.x * kBlockQ + (threadIdx.x >> 5) * 16;
 
   DqState<D> st;
-  dq_begin<D, T>(st, q + qo, sq.t, out + qo, dout + qo, sq.t, lse + ro, delta + ro, row0, len_q,
+  dq_begin<D, T>(st, q + qo, sq.t, out + oo, dout + oo, so.t, lse + ro, delta + ro, row0, len_q,
                  dim);
   dq_sequence<D, T>(st, sk_tile, sv_tile, k + ko, v + ko, sk.t, len_k, dim, scale_log2, scale);
   store_frags<D, T>(st.dq, dq + qo, sq.t, row0, len_q, dim);
@@ -89,12 +89,12 @@ __global__ void __launch_bounds__(kThreads)
                              const T* __restrict__ v, const T* __restrict__ dout,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              T* __restrict__ dk, T* __restrict__ dv, int heads, int len_q,
-                             int len_k, int dim, Strides sq, Strides sk, float scale_log2,
-                             float scale) {
+                             int len_k, int dim, Strides sq, Strides sk, Strides so,
+                             float scale_log2, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const DkvSmem<D> sm(smem);
   const int b = blockIdx.z, h = blockIdx.y;
-  const long qo = b * sq.b + h * sq.h, ko = b * sk.b + h * sk.h;
+  const long qo = b * sq.b + h * sq.h, ko = b * sk.b + h * sk.h, oo = b * so.b + h * so.h;
   const long ro = ((long)b * heads + h) * len_q;
   const int key0 = blockIdx.x * kBwdKeys;
   const int keys = min(kBwdKeys, len_k - key0);
@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(kThreads)
   DkvState<D> st;
   zero_acc<D>(st.dk);
   zero_acc<D>(st.dv);
-  dkv_sequence<D, T>(st, sm, q + qo, sq.t, dout + qo, sq.t, lse + ro, delta + ro, len_q, dim,
+  dkv_sequence<D, T>(st, sm, q + qo, sq.t, dout + oo, so.t, lse + ro, delta + ro, len_q, dim,
                      scale_log2, scale);
   const int row0 = key0 + (threadIdx.x >> 5) * 16;
   store_frags<D, T>(st.dk, dk + ko, sk.t, row0, len_k, dim);
@@ -113,25 +113,24 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D, typename T>
 static int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
-                      int batch, int heads, int len_q, int len_k, int dim, Strides sq,
-                      Strides sk, cudaStream_t stream) {
+                      int batch, int heads, int len_q, int len_k, int dim, float scale,
+                      Strides sq, Strides sk, Strides so, cudaStream_t stream) {
   const dim3 grid((len_q + kBlockQ - 1) / kBlockQ, heads, batch);
-  const float scale_log2 = kLog2e / sqrtf((float)dim);
+  const float scale_log2 = kLog2e * scale;
   const size_t smem = sizeof(SharedTiles<D>);
   const int err = set_dynamic_smem(flash_mha_fwd_kernel<D, T>, smem);
   if (err) return err;
   flash_mha_fwd_kernel<D, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, heads, len_q, len_k, dim, sq, sk, scale_log2);
+      static_cast<T*>(out), lse, heads, len_q, len_k, dim, sq, sk, so, scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <int D, typename T>
 static int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                      void* dv, int batch, int heads, int len_q, int len_k, int dim, Strides sq,
-                      Strides sk, cudaStream_t stream) {
-  const float scale = 1.f / sqrtf((float)dim);
+                      void* dv, int batch, int heads, int len_q, int len_k, int dim, float scale,
+                      Strides sq, Strides sk, Strides so, cudaStream_t stream) {
   const float scale_log2 = kLog2e * scale;
   const T* q_ = static_cast<const T*>(q);
   const T* k_ = static_cast<const T*>(k);
@@ -141,7 +140,7 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* o
   const dim3 grid_q((len_q + kBlockQ - 1) / kBlockQ, heads, batch);
   flash_mha_bwd_dq_kernel<D, T><<<grid_q, kThreads, 0, stream>>>(
       q_, k_, v_, static_cast<const T*>(out), go, lse, delta, static_cast<T*>(dq), heads, len_q,
-      len_k, dim, sq, sk, scale_log2, scale);
+      len_k, dim, sq, sk, so, scale_log2, scale);
   int err = (int)cudaGetLastError();
   if (err) return err;
 
@@ -151,7 +150,7 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* o
   const dim3 grid_kv((len_k + kBwdKeys - 1) / kBwdKeys, heads, batch);
   flash_mha_bwd_dkv_kernel<D, T><<<grid_kv, kThreads, smem, stream>>>(
       q_, k_, v_, go, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), heads, len_q, len_k,
-      dim, sq, sk, scale_log2, scale);
+      dim, sq, sk, so, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -161,12 +160,12 @@ static int launch_bwd(const void* q, const void* k, const void* v, const void* o
 template <typename T>
 static int dispatch_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                         int batch, int heads, int len_q, int len_k, int head_dim, int kernel_dim,
-                        Strides sq, Strides sk, cudaStream_t s) {
+                        float scale, Strides sq, Strides sk, Strides so, cudaStream_t s) {
   if (head_dim % 8 || head_dim < 8 || head_dim > kernel_dim) return (int)cudaErrorInvalidValue;
 #define MMDIFF_CASE(D)                                                                      \
   case D:                                                                                   \
-    return launch_fwd<D, T>(q, k, v, out, lse, batch, heads, len_q, len_k, head_dim, sq, sk, \
-                            s);
+    return launch_fwd<D, T>(q, k, v, out, lse, batch, heads, len_q, len_k, head_dim, scale,  \
+                            sq, sk, so, s);
   switch (kernel_dim) {
     MMDIFF_FLASH_HEAD_DIMS(MMDIFF_CASE)
     default: return (int)cudaErrorInvalidValue;
@@ -178,12 +177,13 @@ template <typename T>
 static int dispatch_bwd(const void* q, const void* k, const void* v, const void* out,
                         const void* dout, const float* lse, float* delta, void* dq, void* dk,
                         void* dv, int batch, int heads, int len_q, int len_k, int head_dim,
-                        int kernel_dim, Strides sq, Strides sk, cudaStream_t s) {
+                        int kernel_dim, float scale, Strides sq, Strides sk, Strides so,
+                        cudaStream_t s) {
   if (head_dim % 8 || head_dim < 8 || head_dim > kernel_dim) return (int)cudaErrorInvalidValue;
 #define MMDIFF_CASE(D)                                                                      \
   case D:                                                                                   \
     return launch_bwd<D, T>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, heads, len_q, \
-                            len_k, head_dim, sq, sk, s);
+                            len_k, head_dim, scale, sq, sk, so, s);
   switch (kernel_dim) {
     MMDIFF_FLASH_HEAD_DIMS(MMDIFF_CASE)
     default: return (int)cudaErrorInvalidValue;
@@ -193,36 +193,42 @@ static int dispatch_bwd(const void* q, const void* k, const void* v, const void*
 
 }  // namespace mmdiff
 
-// q, out (and in the backward dout, dq) share the element strides q_s*
-// (batch, head, row); k, v (and dk, dv) share k_s*; the head dim is
-// contiguous and runs on the kernels built for `kernel_dim`.  lse and the
-// backward's scratch delta are [B, H, Tq] fp32.  Returns the first failing
-// launch's CUDA error (0 on success).
+// q (and in the backward dq) has the element strides q_s* (batch, head,
+// row), k, v (and dk, dv) k_s*, out (and dout) o_s*; the head dim is
+// contiguous and runs on the kernels built for `kernel_dim`, with the logit
+// scale `scale` (1/sqrt(d) of the caller's real head dim d, which may be
+// below a zero-padded `head_dim`).  lse and the backward's scratch delta are
+// [B, H, Tq] fp32.  Returns the first failing launch's CUDA error (0 on
+// success).
 extern "C" int mmdiff_flash_mha_fwd(const void* q, const void* k, const void* v, void* out,
                                     float* lse, int batch, int heads, int len_q, int len_k,
-                                    int head_dim, int kernel_dim, long long q_sb, long long q_sh,
-                                    long long q_st, long long k_sb, long long k_sh,
-                                    long long k_st, int is_fp32, void* stream) {
-  const mmdiff::Strides sq{q_sb, q_sh, q_st}, sk{k_sb, k_sh, k_st};
+                                    int head_dim, int kernel_dim, float scale, long long q_sb,
+                                    long long q_sh, long long q_st, long long k_sb,
+                                    long long k_sh, long long k_st, long long o_sb,
+                                    long long o_sh, long long o_st, int is_fp32, void* stream) {
+  const mmdiff::Strides sq{q_sb, q_sh, q_st}, sk{k_sb, k_sh, k_st}, so{o_sb, o_sh, o_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_fp32)
     return mmdiff::dispatch_fwd<float>(q, k, v, out, lse, batch, heads, len_q, len_k, head_dim,
-                                       kernel_dim, sq, sk, s);
+                                       kernel_dim, scale, sq, sk, so, s);
   return mmdiff::dispatch_fwd<mmdiff::bf16>(q, k, v, out, lse, batch, heads, len_q, len_k,
-                                            head_dim, kernel_dim, sq, sk, s);
+                                            head_dim, kernel_dim, scale, sq, sk, so, s);
 }
 
 extern "C" int mmdiff_flash_mha_bwd(const void* q, const void* k, const void* v, const void* out,
                                     const void* dout, const float* lse, float* delta, void* dq,
                                     void* dk, void* dv, int batch, int heads, int len_q,
-                                    int len_k, int head_dim, int kernel_dim, long long q_sb,
-                                    long long q_sh, long long q_st, long long k_sb,
-                                    long long k_sh, long long k_st, int is_fp32, void* stream) {
-  const mmdiff::Strides sq{q_sb, q_sh, q_st}, sk{k_sb, k_sh, k_st};
+                                    int len_k, int head_dim, int kernel_dim, float scale,
+                                    long long q_sb, long long q_sh, long long q_st,
+                                    long long k_sb, long long k_sh, long long k_st,
+                                    long long o_sb, long long o_sh, long long o_st, int is_fp32,
+                                    void* stream) {
+  const mmdiff::Strides sq{q_sb, q_sh, q_st}, sk{k_sb, k_sh, k_st}, so{o_sb, o_sh, o_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_fp32)
     return mmdiff::dispatch_bwd<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch, heads,
-                                       len_q, len_k, head_dim, kernel_dim, sq, sk, s);
+                                       len_q, len_k, head_dim, kernel_dim, scale, sq, sk, so, s);
   return mmdiff::dispatch_bwd<mmdiff::bf16>(q, k, v, out, dout, lse, delta, dq, dk, dv, batch,
-                                            heads, len_q, len_k, head_dim, kernel_dim, sq, sk, s);
+                                            heads, len_q, len_k, head_dim, kernel_dim, scale, sq,
+                                            sk, so, s);
 }

@@ -233,7 +233,7 @@ static int launch_sm90_rows(const CUtensorMap& map, const FwdArgs& a, cudaStream
 }
 
 static int dispatch_sm90(const void* qkv, void* out, float* lse, int n, int len, int heads,
-                         int dim, int kernel_dim, int head_stride, int k_off,
+                         int dim, int kernel_dim, float scale, int head_stride, int k_off,
                          cudaStream_t stream) {
   CUtensorMap map;
   int err = encode_qkv_map(&map, qkv, (long)n * len, heads, dim, head_stride, k_off);
@@ -248,7 +248,7 @@ static int dispatch_sm90(const void* qkv, void* out, float* lse, int n, int len,
   a.per_head = head_stride != dim;
   a.pack = pack_for(n, len, heads);
   a.tiles = 1;
-  a.scale_log2 = kLog2e / sqrtf((float)dim);
+  a.scale_log2 = kLog2e * scale;
   switch (kernel_dim) {
     case 32: return launch_sm90_rows<32>(map, a, stream);
     case 64: return launch_sm90_rows<64>(map, a, stream);
@@ -283,9 +283,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D, typename T>
 static int launch(const void* qkv, void* out, float* lse, int n, int len, int heads, int dim,
-                  int head_stride, int k_off, int v_off, cudaStream_t stream) {
+                  float scale, int head_stride, int k_off, int v_off, cudaStream_t stream) {
   const dim3 grid(n, heads, (len + kBlockQ - 1) / kBlockQ);
-  const float scale_log2 = kLog2e / sqrtf((float)dim);
+  const float scale_log2 = kLog2e * scale;
   self_attention_fwd_kernel<D, T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(out), lse, len, heads, dim, head_stride, k_off,
       v_off, scale_log2);
@@ -294,9 +294,12 @@ static int launch(const void* qkv, void* out, float* lse, int n, int len, int he
 
 template <typename T>
 static int dispatch(const void* qkv, void* out, float* lse, int n, int len, int heads, int dim,
-                    int kernel_dim, int head_stride, int k_off, int v_off, cudaStream_t stream) {
-#define MMDIFF_CASE(D) \
-  case D: return launch<D, T>(qkv, out, lse, n, len, heads, dim, head_stride, k_off, v_off, stream);
+                    int kernel_dim, float scale, int head_stride, int k_off, int v_off,
+                    cudaStream_t stream) {
+#define MMDIFF_CASE(D)                                                                         \
+  case D:                                                                                      \
+    return launch<D, T>(qkv, out, lse, n, len, heads, dim, scale, head_stride, k_off, v_off, \
+                        stream);
   switch (kernel_dim) {
     MMDIFF_CASE(32)
     MMDIFF_CASE(64)
@@ -528,34 +531,36 @@ static bool head_dim_fits(int head_dim, int kernel_dim) {
 //   thirds:   head_stride = D,   k_off = C, v_off = 2C
 //   per_head: head_stride = 3D,  k_off = D, v_off = 2D
 // `head_dim` runs on the kernel built for `kernel_dim`
-// (ops/block_attention.py::kernel_head_dim).  bf16 takes the Hopper kernel
+// (ops/block_attention.py::kernel_head_dim), with the logit scale `scale`
+// (1/sqrt(d) of the caller's real head dim d, which may be below a
+// zero-padded `head_dim`).  bf16 takes the Hopper kernel
 // (qkv 16-byte aligned), fp32 the previous design.  Returns the launch's
 // CUDA error (0 on success).
 extern "C" int mmdiff_self_attention_fwd(const void* qkv, void* out, float* lse, int n, int len,
-                                         int heads, int head_dim, int kernel_dim,
+                                         int heads, int head_dim, int kernel_dim, float scale,
                                          int head_stride, int k_off, int v_off, int is_fp32,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
-    return mmdiff::dispatch<float>(qkv, out, lse, n, len, heads, head_dim, kernel_dim,
+    return mmdiff::dispatch<float>(qkv, out, lse, n, len, heads, head_dim, kernel_dim, scale,
                                    head_stride, k_off, v_off, s);
-  return mmdiff::dispatch_sm90(qkv, out, lse, n, len, heads, head_dim, kernel_dim, head_stride,
-                               k_off, s);
+  return mmdiff::dispatch_sm90(qkv, out, lse, n, len, heads, head_dim, kernel_dim, scale,
+                               head_stride, k_off, s);
 }
 
 // The previous design (mma.sync, attention_common.cuh) on the same
 // arguments, for the same-run comparison with the Hopper kernel.
 extern "C" int mmdiff_self_attention_fwd_mma(const void* qkv, void* out, float* lse, int n,
                                              int len, int heads, int head_dim, int kernel_dim,
-                                             int head_stride, int k_off, int v_off, int is_fp32,
-                                             void* stream) {
+                                             float scale, int head_stride, int k_off, int v_off,
+                                             int is_fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
-    return mmdiff::dispatch<float>(qkv, out, lse, n, len, heads, head_dim, kernel_dim,
+    return mmdiff::dispatch<float>(qkv, out, lse, n, len, heads, head_dim, kernel_dim, scale,
                                    head_stride, k_off, v_off, s);
-  return mmdiff::dispatch<mmdiff::bf16>(qkv, out, lse, n, len, heads, head_dim, kernel_dim,
+  return mmdiff::dispatch<mmdiff::bf16>(qkv, out, lse, n, len, heads, head_dim, kernel_dim, scale,
                                         head_stride, k_off, v_off, s);
 }
 

@@ -399,7 +399,7 @@ static int launch_sm90(const CUtensorMap& qkv_map, const CUtensorMap& dout_map, 
 
 static int dispatch_sm90(const void* qkv, const void* out, const void* dout, const float* lse,
                          float* delta, void* dqkv, int n, int len, int heads, int dim,
-                         int kernel_dim, int head_stride, int k_off, int v_off,
+                         int kernel_dim, float scale, int head_stride, int k_off, int v_off,
                          cudaStream_t stream) {
   const long rows = (long)n * len;
   const int c = heads * dim;
@@ -423,8 +423,8 @@ static int dispatch_sm90(const void* qkv, const void* out, const void* dout, con
   a.v_off = v_off;
   a.pack = pack_for(n, len, heads);
   a.tiles = (len + sm90::kRows - 1) / sm90::kRows;
-  a.scale = 1.f / sqrtf((float)dim);
-  a.scale_log2 = kLog2e * a.scale;
+  a.scale = scale;
+  a.scale_log2 = kLog2e * scale;
   switch (kernel_dim) {
     case 32: return launch_sm90<32>(qkv_map, dout_map, a, stream);
     case 64: return launch_sm90<64>(qkv_map, dout_map, a, stream);
@@ -495,9 +495,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D, typename T>
 static int launch(const void* qkv, const void* out, const void* dout, const float* lse,
-                  float* delta, void* dqkv, int n, int len, int heads, int dim, int head_stride,
-                  int k_off, int v_off, cudaStream_t stream) {
-  const float scale = 1.f / sqrtf((float)dim);
+                  float* delta, void* dqkv, int n, int len, int heads, int dim, float scale,
+                  int head_stride, int k_off, int v_off, cudaStream_t stream) {
   const float scale_log2 = kLog2e * scale;
   const T* x = static_cast<const T*>(qkv);
   const T* o = static_cast<const T*>(out);
@@ -522,11 +521,11 @@ static int launch(const void* qkv, const void* out, const void* dout, const floa
 template <typename T>
 static int dispatch(const void* qkv, const void* out, const void* dout, const float* lse,
                     float* delta, void* dqkv, int n, int len, int heads, int dim, int kernel_dim,
-                    int head_stride, int k_off, int v_off, cudaStream_t stream) {
-#define MMDIFF_CASE(D)                                                                        \
-  case D:                                                                                     \
-    return launch<D, T>(qkv, out, dout, lse, delta, dqkv, n, len, heads, dim, head_stride,    \
-                        k_off, v_off, stream);
+                    float scale, int head_stride, int k_off, int v_off, cudaStream_t stream) {
+#define MMDIFF_CASE(D)                                                                         \
+  case D:                                                                                      \
+    return launch<D, T>(qkv, out, dout, lse, delta, dqkv, n, len, heads, dim, scale,         \
+                        head_stride, k_off, v_off, stream);
   switch (kernel_dim) {
     MMDIFF_CASE(32)
     MMDIFF_CASE(64)
@@ -545,22 +544,23 @@ static bool head_dim_fits(int head_dim, int kernel_dim) {
 
 // qkv and dqkv share the layout of mmdiff_self_attention_fwd (head stride and
 // k/v offsets); out and dout are [N, T, C], lse and the scratch delta
-// [N, H, T] fp32; `head_dim` runs on the kernels built for `kernel_dim`.
+// [N, H, T] fp32; `head_dim` runs on the kernels built for `kernel_dim`, with
+// the logit scale `scale` (1/sqrt(d) of the caller's real head dim d).
 // bf16 takes the Hopper kernels (qkv and dout 16-byte aligned), fp32 the
 // previous design.  Every element of dqkv is written.  Returns the first
 // failing launch's CUDA error (0 on success).
 extern "C" int mmdiff_self_attention_bwd(const void* qkv, const void* out, const void* dout,
                                          const float* lse, float* delta, void* dqkv, int n,
                                          int len, int heads, int head_dim, int kernel_dim,
-                                         int head_stride, int k_off, int v_off, int is_fp32,
-                                         void* stream) {
+                                         float scale, int head_stride, int k_off, int v_off,
+                                         int is_fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
     return mmdiff::dispatch<float>(qkv, out, dout, lse, delta, dqkv, n, len, heads, head_dim,
-                                   kernel_dim, head_stride, k_off, v_off, s);
+                                   kernel_dim, scale, head_stride, k_off, v_off, s);
   return mmdiff::dispatch_sm90(qkv, out, dout, lse, delta, dqkv, n, len, heads, head_dim,
-                               kernel_dim, head_stride, k_off, v_off, s);
+                               kernel_dim, scale, head_stride, k_off, v_off, s);
 }
 
 // The previous design (mma.sync, attention_bwd_common.cuh) on the same
@@ -568,13 +568,13 @@ extern "C" int mmdiff_self_attention_bwd(const void* qkv, const void* out, const
 extern "C" int mmdiff_self_attention_bwd_mma(const void* qkv, const void* out, const void* dout,
                                              const float* lse, float* delta, void* dqkv, int n,
                                              int len, int heads, int head_dim, int kernel_dim,
-                                             int head_stride, int k_off, int v_off, int is_fp32,
-                                             void* stream) {
+                                             float scale, int head_stride, int k_off, int v_off,
+                                             int is_fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
   if (is_fp32)
     return mmdiff::dispatch<float>(qkv, out, dout, lse, delta, dqkv, n, len, heads, head_dim,
-                                   kernel_dim, head_stride, k_off, v_off, s);
+                                   kernel_dim, scale, head_stride, k_off, v_off, s);
   return mmdiff::dispatch<mmdiff::bf16>(qkv, out, dout, lse, delta, dqkv, n, len, heads,
-                                        head_dim, kernel_dim, head_stride, k_off, v_off, s);
+                                        head_dim, kernel_dim, scale, head_stride, k_off, v_off, s);
 }

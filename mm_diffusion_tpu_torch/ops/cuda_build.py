@@ -26,6 +26,7 @@ SOURCES = (
     "attention_common.cuh",
     "attention_bwd_common.cuh",
     "attention_sm90.cuh",
+    "banded_sm90.cuh",
     "self_attention.cu",
     "banded_attention.cu",
     "self_attention_bwd.cu",
@@ -44,19 +45,22 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C signatures of the entry points (see the .cu files).
+_F = ctypes.c_float
+# C signatures of the entry points (see the .cu files).  The attention
+# entries take the logit scale after the head dims.
 SIGNATURES = {
-    "mmdiff_self_attention_fwd": [_P, _P, _P] + [_I] * 9 + [_P],
-    "mmdiff_self_attention_fwd_mma": [_P, _P, _P] + [_I] * 9 + [_P],
-    "mmdiff_banded_attention_fwd": [_P, _P, _P, _P] + [_I] * 10 + [_P],
-    "mmdiff_self_attention_bwd": [_P] * 6 + [_I] * 9 + [_P],
-    "mmdiff_self_attention_bwd_mma": [_P] * 6 + [_I] * 9 + [_P],
-    "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 10 + [_P],
-    "mmdiff_banded_attention_bwd_mma": [_P] * 8 + [_I] * 10 + [_P],
+    "mmdiff_self_attention_fwd": [_P, _P, _P] + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "mmdiff_self_attention_fwd_mma": [_P, _P, _P] + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "mmdiff_banded_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    "mmdiff_banded_attention_fwd_mma": [_P, _P, _P, _P] + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    "mmdiff_self_attention_bwd": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "mmdiff_self_attention_bwd_mma": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    "mmdiff_banded_attention_bwd_mma": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "mmdiff_banded_attention_bwd_frames_per_tile": [_I] * 4,
     "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 7 + [_P],
-    "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 6 + [_L] * 6 + [_I, _P],
-    "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 6 + [_L] * 6 + [_I, _P],
+    "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
+    "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_gemm_bf16": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 3 + [_P],
     "mmdiff_conv3x3_chw": [_P] * 3 + [_I] * 5 + [_P],
 }

@@ -10,16 +10,20 @@ v's dtype, ``Tq != Tk`` allowed, differentiable in q, k and v.  They are one
 (``csrc/flash_mha.cu``): the forward writes the output and an fp32
 logsumexp, the backward a dq pass and a dk/dv pass.  Both layouts reach the
 same kernels through their (batch, head, row) strides, so neither is
-transposed in device memory; nothing is padded (the kernel masks ragged Tq
-and Tk).
+transposed in device memory; the kernel masks ragged Tq and Tk.
 
 Dispatch: a tensor on the CPU takes the plain version (:func:`mha_reference`
 and :func:`mha_backward_reference`); a CUDA tensor launches the kernels or
 raises.  The kernels take every head dim ``D`` with ``D % 8 == 0`` and
 ``8 <= D <= 256`` (JAX's flash gate), on the kernel built for the next of
-:data:`HEAD_DIMS` at or above ``D`` (:func:`kernel_head_dim`); any other ``D``
-raises ``ValueError``.  There is no size gate and no fallback.  Each kernel
-wrapper counts its launches in :data:`LAUNCHES`.
+:data:`HEAD_DIMS` at or above ``D`` (:func:`kernel_head_dim`); a ``D`` that is
+not a multiple of 8 runs on copies zero-padded to the next multiple (the
+logit scale stays ``1/sqrt(D)``, counted in
+``block_attention.HEAD_DIM_ROUTES``), and ``D > 256`` raises ``ValueError``.
+There is no size gate and no fallback.  :func:`flash_launch_fwd` and
+:func:`flash_launch_bwd` launch the kernels on any strided views the kernels
+read, which ``block_attention`` uses for the head dims above 128 of K1-K7.
+Each launch counts in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import block_attention, cuda_build
 # The kernels are held to the limits of K1 (forward, logsumexp) and K4
@@ -58,23 +63,25 @@ def kernel_head_dim(d: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float | None = None) -> torch.Tensor:
     """Plain multi-head attention over ``[B, T, H, D]`` in fp32, out in v's
     dtype: the port's counterpart of ``models/attention.py::qkv_attention``
-    (one logit scale of ``1/sqrt(D)``)."""
-    d = q.shape[-1]
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    (one logit scale of ``1/sqrt(D)``, unless ``scale`` is given)."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(v.dtype)
 
 
-def mha_backward_reference(q, k, v, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def mha_backward_reference(
+    q, k, v, g, scale: float | None = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward of :func:`mha_reference` over ``[B, T, H, D]``, in
     fp32: ``(q, k, v, g [B, Tq, H, D]) -> (dq, dk, dv)`` in the inputs'
     dtypes."""
-    dq, dk, dv = _softmax_backward(
-        q.float(), k.float(), v.float(), g.float(), 1.0 / math.sqrt(q.shape[-1])
-    )
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    dq, dk, dv = _softmax_backward(q.float(), k.float(), v.float(), g.float(), scale)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -99,7 +106,7 @@ def same_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _check_operands(q, k, v):
-    """Validate ``[B, H, T, D]`` q, k, v for the kernels; returns (B, H, Tq, Tk, D)."""
+    """Validate ``[B, H, T, D]`` q, k, v for the wrappers; returns (B, H, Tq, Tk, D)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got {x.device}")
@@ -120,37 +127,112 @@ def _check_operands(q, k, v):
         raise ValueError("k and v must share their layout (strides)")
     if len({q.dtype, k.dtype, v.dtype}) > 1 or len({q.device, k.device, v.device}) > 1:
         raise ValueError("q, k and v must share dtype and device")
-    kernel_head_dim(d)
-    if min(b, h, tq, tk) == 0 or max(b, h) > MAX_GRID_DIM:
+    if d > HEAD_DIMS[-1]:
+        raise ValueError(f"no kernel of the port is built for head dims above {HEAD_DIMS[-1]}, got {d}")
+    if min(b, h, tq, tk, d) == 0 or max(b, h) > MAX_GRID_DIM:
         raise ValueError(f"B and H must be in [1, {MAX_GRID_DIM}] and T > 0, got {tuple(q.shape)}, Tk {tk}")
     return b, h, tq, tk, d
 
 
-def flash_mha_fwd_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on ``[B, H, T, D]`` views (see
-    :func:`kernel_layout`).  Returns ``(out [B, H, Tq, D]`` in q's layout,
-    ``lse [B, H, Tq]`` fp32)."""
-    b, h, tq, tk, d = _check_operands(q, k, v)
+def _check_rows(*xs: torch.Tensor) -> None:
+    """The kernels read every ``[.., D]`` row as 16-byte vectors: unit
+    stride along D, 16-byte aligned rows."""
+    for x in xs:
+        size = x.element_size()
+        if x.stride(-1) != 1 or x.data_ptr() % 16 or any(st * size % 16 for st in x.stride()[:3]):
+            raise ValueError(
+                f"the flash kernels need 16-byte aligned rows with D contiguous, got strides {x.stride()}"
+            )
+
+
+def _same_strides(name: str, x: torch.Tensor, ref: torch.Tensor) -> None:
+    if x.shape != ref.shape or not same_layout(x, ref) or x.dtype != ref.dtype:
+        raise ValueError(f"{name}: expected shape {tuple(ref.shape)} and strides {ref.stride()}, "
+                         f"got {tuple(x.shape)} {x.stride()}")
+
+
+def flash_launch_fwd(q, k, v, out, d: int) -> torch.Tensor:
+    """Launch the forward kernel on ``[B, H, T, Dk]`` views (any (batch,
+    head, row) strides; ``Dk`` a multiple of 8 up to 256, ``k`` and ``v``
+    sharing strides) into ``out`` (q's shape), at the logit scale of head dim
+    ``d <= Dk``.  Returns ``lse [B, H, Tq]`` fp32."""
+    b, h, tq, dk = q.shape
+    tk = k.shape[2]
+    _check_rows(q, k, v, out)
+    _same_strides("v", v, k)
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out: expected {tuple(q.shape)} {q.dtype}, got {tuple(out.shape)} {out.dtype}")
     lib = cuda_build.load().lib
-    out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mmdiff_flash_mha_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            b, h, tq, tk, d, kernel_head_dim(d), *q.stride()[:3], *k.stride()[:3],
-            int(q.dtype == torch.float32), stream,
+            b, h, tq, tk, dk, kernel_head_dim(dk), 1.0 / math.sqrt(d), *q.stride()[:3],
+            *k.stride()[:3], *out.stride()[:3], int(q.dtype == torch.float32), stream,
         )
     if err:
         raise RuntimeError(f"flash MHA forward kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_mha_fwd"] += 1
-    return out, lse
+    return lse
+
+
+def flash_launch_bwd(q, k, v, out, g, lse, dq, dk, dv, d: int) -> None:
+    """Launch the backward kernels on the forward's views, ``out``, ``lse``
+    and the output gradient ``g`` (out's strides), writing ``dq`` (q's
+    strides), ``dk`` and ``dv`` (k's strides), at the logit scale of head
+    dim ``d``."""
+    b, h, tq, dk_ = q.shape
+    tk = k.shape[2]
+    _check_rows(q, k, v, out, g, dq, dk, dv)
+    for name, x, ref in (("v", v, k), ("g", g, out), ("dq", dq, q), ("dk", dk, k), ("dv", dv, k)):
+        _same_strides(name, x, ref)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, tq) or not lse.is_contiguous():
+        raise ValueError(f"lse: expected contiguous fp32 {(b, h, tq)}, got {tuple(lse.shape)}")
+    lib = cuda_build.load().lib
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_flash_mha_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, tq, tk, dk_, kernel_head_dim(dk_), 1.0 / math.sqrt(d), *q.stride()[:3],
+            *k.stride()[:3], *out.stride()[:3], int(q.dtype == torch.float32), stream,
+        )
+    if err:
+        raise RuntimeError(f"flash MHA backward kernel launch failed: CUDA error {err}")
+    LAUNCHES["flash_mha_bwd"] += 1
+
+
+def _pad(x: torch.Tensor, dp: int) -> torch.Tensor:
+    return x if x.shape[-1] == dp else F.pad(x, (0, dp - x.shape[-1]))
+
+
+def _unpad_into(like: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``x``'s first D lanes in a tensor with ``like``'s shape and layout."""
+    return x if x.shape == like.shape else torch.empty_like(like).copy_(x[..., : like.shape[-1]])
+
+
+def flash_mha_fwd_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel on ``[B, H, T, D]`` views (see
+    :func:`kernel_layout`); a D that is not a multiple of 8 runs on
+    zero-padded copies.  Returns ``(out [B, H, Tq, D]`` in q's layout,
+    ``lse [B, H, Tq]`` fp32)."""
+    d = _check_operands(q, k, v)[4]
+    dp = block_attention.padded_head_dim(d)
+    if dp != d:
+        block_attention.HEAD_DIM_ROUTES["flash_mha_fwd:pad"] += 1
+    qp, kp, vp = (_pad(x, dp) for x in (q, k, v))
+    out = torch.empty_like(qp)
+    lse = flash_launch_fwd(qp, kp, vp, out, d)
+    return _unpad_into(q, out), lse
 
 
 def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels on the forward's q, k, v, ``out`` and
-    ``lse`` and the output gradient ``g`` (``out``'s layout).  Returns
-    ``(dq, dk, dv)`` in the layouts of q, k, v."""
+    ``lse`` and the output gradient ``g`` (``out``'s layout); a D that is not
+    a multiple of 8 runs on zero-padded copies.  Returns ``(dq, dk, dv)`` in
+    the layouts of q, k, v."""
     b, h, tq, tk, d = _check_operands(q, k, v)
     for name, x in (("out", out), ("g", g)):
         if not same_layout(x, q) or x.dtype != q.dtype or x.device != q.device:
@@ -158,23 +240,15 @@ def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor
                 f"{name}: expected q's shape {tuple(q.shape)}, strides {q.stride()} and dtype, "
                 f"got {tuple(x.shape)} {x.stride()} {x.dtype}"
             )
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, tq) or not lse.is_contiguous():
-        raise ValueError(f"lse: expected contiguous fp32 {(b, h, tq)}, got {tuple(lse.shape)}")
-    lib = cuda_build.load().lib
-    delta = torch.empty_like(lse)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_flash_mha_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, tq, tk, d, kernel_head_dim(d), *q.stride()[:3], *k.stride()[:3],
-            int(q.dtype == torch.float32), stream,
-        )
-    if err:
-        raise RuntimeError(f"flash MHA backward kernel launch failed: CUDA error {err}")
-    LAUNCHES["flash_mha_bwd"] += 1
-    return dq, dk, dv
+    dp = block_attention.padded_head_dim(d)
+    if dp != d:
+        block_attention.HEAD_DIM_ROUTES["flash_mha_bwd:pad"] += 1
+    qp, kp, vp, op, gp = (_pad(x, dp) for x in (q, k, v, out, g))
+    dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(vp)
+    if not same_layout(gp, op):
+        gp = torch.empty_like(op).copy_(gp)
+    flash_launch_bwd(qp, kp, vp, op, gp, lse, dq, dk, dv, d)
+    return _unpad_into(q, dq), _unpad_into(k, dk), _unpad_into(v, dv)
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,14 @@ process.  The checkouts run in order, then in reverse order, ``--rounds``
 times in all (A B B A ...), so that drift on the card shows beside the
 difference.  Every time is device ms per call from CUDA-graph replays
 (``utils/timing.py::device_ms``) of the bf16 self-attention forward (K1) at
-the flagship sampler's shapes (``chip_smoke.SELF_SHAPES``) and, with
-``--backward``, of its backward (K4/K5) and of the banded backward (K6/K7)
-at the training step's shapes (``chip_smoke.TRAIN_SELF_SHAPES``,
-``chip_smoke.TRAIN_BANDED_SHAPES``, the last shift of the span, with each
-pass's device time from torch.profiler beside it); each output is checked
-against the plain version first.  Needs a CUDA device.
+the flagship sampler's shapes (``chip_smoke.SELF_SHAPES``), of the banded
+forward (K2/K3) at the sampler's shapes (batch 1, ``chip_smoke.BANDED_SHAPES``)
+and the training step's (batch 4, ``chip_smoke.TRAIN_BANDED_SHAPES``), the
+last shift of the span, and, with ``--backward``, of the self-attention
+backward (K4/K5) and of the banded backward (K6/K7) at the training step's
+shapes (``chip_smoke.TRAIN_SELF_SHAPES``, ``chip_smoke.TRAIN_BANDED_SHAPES``,
+with each pass's device time from torch.profiler beside it); each output is
+checked against the plain version first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -62,8 +64,35 @@ def child(root: str, backward: bool, calls: int, replays: int) -> None:
             print(f"[{root}] {kind} {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {ms:.4f} ms")
         if shapes:
             print(f"[{root}] {kind} summed {total:.4f} ms")
+    banded_forward(root, g, time)
     if backward:
         banded_backward(root, g, time)
+
+
+def banded_forward(root, g, time) -> None:
+    from chip_smoke import BANDED_SHAPES, TRAIN_BANDED_SHAPES
+
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    shapes = [(f"{label} N=1", 1, *rest) for label, *rest in BANDED_SHAPES]
+    shapes += [(f"{label} N={n}", n, *rest) for label, n, *rest in TRAIN_BANDED_SHAPES]
+    totals = {}
+    for label, n, f, tq, tk, c, h, lw in shapes:
+        make = lambda *shape: torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)  # noqa: E731
+        q_src, kv_src = make(n, f, tq, 3 * c), make(n, f, tk, 3 * c)
+        s = f - lw
+        out, _ = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
+        err, ok = ba.FORWARD_TOL.check(out, ba.banded_cross_attention_reference(q_src, kv_src, s, lw, h, c))
+        if not ok:
+            raise SystemExit(f"[{root}] banded fwd {label}: error {err} over the limit")
+        ms = time(lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
+        key = f"{'K3' if lw == 1 else 'K2'} N={n}"
+        totals[key] = totals.get(key, 0.0) + ms
+        print(f"[{root}] banded fwd {label:24s} F={f} Tq={tq:5d} Tk={tk:5d} lw={lw:2d} {ms:.4f} ms")
+    for key, total in totals.items():
+        print(f"[{root}] banded fwd {key} summed {total:.4f} ms")
 
 
 def banded_backward(root, g, time) -> None:

@@ -111,10 +111,12 @@ def test_flash_mha_head_dims_between_built_sizes(cuda, d):
 
 
 def test_flash_mha_unsupported_inputs_raise(cuda):
-    for d in (12, 264):
-        x = torch.randn((1, 2, 16, d), device=cuda)
-        with pytest.raises(ValueError, match=r"d % 8 == 0 and 8 <= d <= 256"):
-            fa.flash_mha_bhtd(x, x, x)
+    """D > 256 (no kernel of the port is built for it; D = 12 computes on a
+    zero-padded copy, tests/test_torch_port_kernels.py), a dtype the
+    kernels do not take, a strided view."""
+    x = torch.randn((1, 2, 16, 264), device=cuda)
+    with pytest.raises(ValueError, match=r"above 256"):
+        fa.flash_mha_bhtd(x, x, x)
     with pytest.raises(TypeError):
         fa.flash_mha_fwd_cuda(*(torch.randn((1, 2, 16, 64), device=cuda).half(),) * 3)
     y = torch.randn((1, 2, 32, 64), device=cuda)
