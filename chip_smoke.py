@@ -66,19 +66,27 @@ Phases, each printed as it runs; any failure exits non-zero:
      the two-part skip GEMM (S3), the direct 3x3 conv and its GEMM core
      (S4), each against its plain version as in phase 3 with its device
      time, plain time, library time and bound, and planted faults that
-     the lse and noexp limits must reject; 7.2 the entry points
+     the lse and noexp limits must reject (for the K8 forward, the zero
+     keys that pad Tk to 128 and to 64 let into the softmax); the K8
+     forward and the conv, both the Hopper design, also checked and timed
+     in their previous design (mma.sync), which they must beat at each K8
+     hot shape and at the conv's bench shape (the conv's time includes
+     its input copy, conv3x3_chw[halo], also checked and timed alone);
+     7.2 the entry points
      themselves -- flash_mha and flash_mha_bhtd forward and backward
      through autograd at 7.1's hot shapes against the plain versions,
      then each A/B tool under
      mm_diffusion_tpu_torch/tools/ once with few iterations -- with the
-     kernels' launch counts over that run.
+     kernels' launch counts over that run, which must show the Hopper
+     forward alone.
 
 The last three lines of standard output are the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
 phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
 graph replay re-runs captured launches without counting them -- and the
 per-call numbers of phases 3, 3b and 7.1 summed over each kernel's main-path
-or hot shapes; K1-K7 also carry ``previous_ms``, their previous design's
+or hot shapes; K1-K7, the K8 forward and the conv also carry
+``previous_ms``, their previous design's
 time in the same run), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -219,6 +227,7 @@ REPLACES.update({
     "self_attention_variant[noexp]": "tools/bench_attn_variants2.py:40",  # S2
     "skip_gemm": "tools/bench_skip_conv.py:39",  # S3
     "conv3x3_chw": "tools/conv_chw_spike.py:69",  # S4
+    "conv3x3_chw[halo]": "tools/conv_chw_spike.py:69",  # S4's input copy (its haloed concat)
     "gemm_blocks": "tools/conv_chw_spike.py:217",  # S4 core
 })
 KERNEL_SOURCE.update({
@@ -1034,26 +1043,43 @@ def flash_parity(record):
 
         q, k, v, dout = make(tq), make(tk), make(tk), make(tq)
         bthd = lambda *xs: [x.transpose(1, 2) for x in xs]  # noqa: E731
+        design = fa.forward_design(d, q.dtype)[0]
+        fa.reset_launch_counts()
         out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+        check(fa.FORWARD_DESIGNS == {design: 1}, f"flash_mha_fwd {label}: {dict(fa.FORWARD_DESIGNS)}, not {design}")
         ref = fa.mha_reference(*bthd(q, k, v)).transpose(1, 2)
         logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d**0.5
         lse_ref = torch.logsumexp(logits, -1)
         (err, ok), (lse_err, lse_ok) = fa.FORWARD_TOL.check(out, ref), fa.LSE_TOL.check(lse, lse_ref)
-        del ref, logits
         check(ok and lse_ok, f"flash_mha_fwd {label}: err {err}, lse {lse_err}")
-        pad = -tk % 128
-        if pad:
+        # The previous design beside the Hopper one, where the Hopper one runs.
+        previous = design == "sm90" and d % 8 == 0
+        if previous:
+            prev_out, prev_lse = fa._flash_mha_fwd_previous_cuda(q, k, v)
+            (perr, pok), (plse_err, plse_ok) = fa.FORWARD_TOL.check(prev_out, ref), fa.LSE_TOL.check(prev_lse, lse_ref)
+            check(pok and plse_ok, f"flash_mha_fwd {label} previous design: err {perr}, lse {plse_err}")
+            del prev_out, prev_lse
+        del ref, logits
+        # Planted faults: the logsumexp a kernel would give if it let the
+        # zero keys that pad Tk to a 128-key (the TPU path) or a 64-key (this
+        # kernel's tile) multiple into the softmax.
+        for pad in sorted({-tk % 128, -tk % 64} - {0}, reverse=True):
             fault_err, fault_ok = fa.LSE_TOL.check(lse, torch.logaddexp(lse_ref, lse_ref.new_tensor(math.log(pad))))
             print(f"flash_mha_fwd {label}: lse err {lse_err:.3e} ({fa.LSE_TOL}); planted fault, "
                   f"{pad} zero keys in the softmax: lse err {fault_err:.3e}, rejected {not fault_ok}")
             check(not fault_ok, f"flash_mha_fwd {label}: the lse limit lets {pad} stray keys pass")
         fwd = dict(
             ms=time_ms(lambda: fa.flash_mha_fwd_cuda(q, k, v)),
+            prev=time_ms(lambda: fa._flash_mha_fwd_previous_cuda(q, k, v)) if previous else None,
             plain=time_ms(lambda: fa.mha_reference(*bthd(q, k, v))),
             lib=library_attention_ms(lambda *xs: xs, [q, k, v]),
             bound=bound_ms(*flash_work(b, h, tq, tk, d)),
         )
-        rec("flash_mha_fwd", max(err, lse_err), fwd["ms"], fwd["plain"], fwd["bound"], fwd["lib"])
+        if main:
+            check(fwd["prev"] is not None and fwd["ms"] < fwd["prev"],
+                  f"flash_mha_fwd {label}: the Hopper design ({fwd['ms']:.4f} ms) is not faster "
+                  f"than the previous one ({fwd['prev']} ms)")
+        rec("flash_mha_fwd", max(err, lse_err), fwd["ms"], fwd["plain"], fwd["bound"], fwd["lib"], fwd["prev"])
 
         grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
         refs = fa.mha_backward_reference(*bthd(q, k, v, dout))
@@ -1072,7 +1098,9 @@ def flash_parity(record):
         rec("flash_mha_bwd", bwd_err, bwd["ms"], bwd["plain"], bwd["bound"], bwd["lib"])
         for name, r, e in (("fwd", fwd, max(err, lse_err)), ("bwd", bwd, bwd_err)):
             print(f"flash_mha_{name} {label:13s} {layout} B={b} H={h} Tq={tq:5d} Tk={tk:5d} D={d} "
-                  f"err={e:.3e} kernel={r['ms']:.4f} ms plain={r['plain']:.4f} ms "
+                  f"err={e:.3e} kernel={r['ms']:.4f} ms "
+                  + (f"({design}) previous={r['prev']:.4f} ms " if r.get("prev") is not None else "")
+                  + f"plain={r['plain']:.4f} ms "
                   f"library={r['lib']:.4f} ms bound={r['bound'][0]:.4f} ms ({r['bound'][1]})"
                   + (f" (library fwd+bwd {lib_fwd_bwd:.4f} ms)" if name == "bwd" else "")
                   + ("" if main else " [extra case, not summed]"))
@@ -1159,16 +1187,33 @@ def gemm_conv_parity(record):
     x = torch.randn((b, ci, h, w), generator=g, device=dev, dtype=bf)
     wt = (torch.randn((co, ci, 3, 3), generator=g, device=dev) * 0.05).to(bf)
     n = CONV_CHECK_IMAGES
-    err, ok = gc.GEMM_TOL.check(gc.conv3x3_chw_cuda(x[:n], wt), gc.conv3x3_chw_reference(x[:n], wt))
+    # The conv's input copy, channels-last with a zero ring: exact.
+    xh = gc.channels_last_halo_cuda(x)
+    check(torch.equal(xh, gc.channels_last_halo(x)), "conv3x3_chw[halo]: the copy differs from its plain version")
+    halo = dict(ms=time_ms(lambda: gc.channels_last_halo_cuda(x)), plain=time_ms(lambda: gc.channels_last_halo(x)),
+                bound=bound_ms(0, (x.numel() + xh.numel()) * 2))
+    print(f"conv3x3_chw[halo] B={b} Ci={ci} {h}x{w} -> {tuple(xh.shape)}: exact, kernel={halo['ms']:.4f} ms "
+          f"plain (F.pad of the permuted view)={halo['plain']:.4f} ms bound={halo['bound'][0]:.4f} ms "
+          f"({halo['bound'][1]})")
+    record("conv3x3_chw[halo]", 0.0, halo["ms"], halo["plain"], halo["bound"], None)
+    del xh
+    plain = gc.conv3x3_chw_reference(x[:n], wt)
+    err, ok = gc.GEMM_TOL.check(gc.conv3x3_chw_cuda(x[:n], wt), plain)
     check(ok, f"conv3x3_chw: err {err}")
+    prev_err, prev_ok = gc.GEMM_TOL.check(gc._conv3x3_chw_previous_cuda(x[:n], wt), plain)
+    check(prev_ok, f"conv3x3_chw previous design: err {prev_err}")
+    del plain
     ms = time_ms(lambda: gc.conv3x3_chw_cuda(x, wt))
+    prev_ms = time_ms(lambda: gc._conv3x3_chw_previous_cuda(x, wt))
     plain_ms = time_ms(lambda: gc.conv3x3_chw_reference(x, wt))
     lib_ms = time_ms(lambda: F.conv2d(x, wt, padding=1))
     bound = bound_ms(*gemm_work(co, b * h * w, 9 * ci, x.numel() * 2, wt.numel() * 2))
-    print(f"conv3x3_chw B={b} Ci={ci} Co={co} {h}x{w}: err={err:.3e} (on {n} images) "
-          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library (F.conv2d, cuDNN)={lib_ms:.4f} ms "
-          f"bound={bound[0]:.4f} ms ({bound[1]})")
-    record("conv3x3_chw", err, ms, plain_ms, bound, lib_ms)
+    print(f"conv3x3_chw B={b} Ci={ci} Co={co} {h}x{w}: err={err:.3e} (previous {prev_err:.3e}; on {n} "
+          f"images) kernel={ms:.4f} ms (the input copy included) previous={prev_ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"library (F.conv2d, cuDNN)={lib_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})")
+    check(ms < prev_ms, f"conv3x3_chw: the Hopper design ({ms:.4f} ms) is not faster than the "
+                        f"previous one ({prev_ms:.4f} ms)")
+    record("conv3x3_chw", err, ms, plain_ms, bound, lib_ms, prev_ms)
     del x
 
     co, k = conv_chw_spike.GEMM_CO, conv_chw_spike.GEMM_K
@@ -1247,11 +1292,17 @@ def entry_points():
     for mode in ("check", "bench", "gemm"):
         conv_chw_spike.main([mode] + few)
     torch.cuda.synchronize()
+    designs = {"flash_mha_fwd": dict(fa.FORWARD_DESIGNS), "conv3x3_chw routes": dict(gc.CONV_ROUTES),
+               "previous (the conv tool's bench times it)": {**fa.PREVIOUS_LAUNCHES, **gc.PREVIOUS_LAUNCHES}}
+    print(f"designs over the entry points' run: {designs}")
+    check(fa.FORWARD_DESIGNS == {"sm90": fa.LAUNCHES["flash_mha_fwd"]} and not fa.PREVIOUS_LAUNCHES,
+          f"the flash MHA API did not run the Hopper forward alone: {designs}")
     counts = {
         "flash_mha_fwd": fa.LAUNCHES["flash_mha_fwd"],
         "flash_mha_bwd": fa.LAUNCHES["flash_mha_bwd"],
         **{f"self_attention_variant[{v}]": ba.VARIANT_LAUNCHES[v] for v in ("rows", "nomax", "noexp")},
         **gc.LAUNCHES,
+        "conv3x3_chw[halo]": gc.HELPER_LAUNCHES["channels_last_halo"],
     }
     print(f"launches over the entry points' run: {counts} (K1 via the stock-kernel variants: "
           f"{ba.LAUNCHES['self_attention']})")

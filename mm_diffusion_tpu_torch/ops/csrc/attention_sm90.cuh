@@ -1,7 +1,9 @@
 // Hopper (sm_90a) machinery of the attention kernels: the self-attention
-// forward (self_attention.cu) and backward (self_attention_bwd.cu) and the
+// forward (self_attention.cu) and backward (self_attention_bwd.cu), the
 // banded RS-MMA forward (banded_attention.cu) and backward
-// (banded_attention_bwd.cu).  TMA tile loads through
+// (banded_attention_bwd.cu) and the flash MHA forward (flash_mha.cu); its
+// copies, barriers and products also serve the direct 3x3 conv
+// (conv3x3_chw.cu).  TMA tile loads through
 // tensor maps of the packed projections, mbarrier rings between a producer
 // warp and the consumer warpgroups, and warpgroup products (wgmma.mma_async,
 // bf16 in, fp32 accumulate); the backward's two tile products (dq_products,
@@ -212,6 +214,31 @@ static __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t des
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B in shared memory
+// (K-major: B as 128 rows of its K lanes, as K in S = Q K^T).
+static __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, "
+      "1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -479,23 +506,36 @@ static EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map {dim, n1, n2, rows} over `base` (element strides s1, s2 and
-// row_elems for n1, n2 and rows), boxes of 32 x 1 x 1 x 64, 64-byte
-// swizzle, zero fill past every extent.  Returns 0 or a CUDA error.
-static int encode_map(CUtensorMap* map, const void* base, int dim, int n1, long s1, int n2,
-                      long s2, long rows, long row_elems) {
+// A 4-D bf16 map over `base`: extents gdim (innermost first), element
+// strides of dims 1-3, boxes of `box` elements, 64-byte swizzle (box[0] <=
+// 32), zero fill past every extent.  A box must start 16-byte aligned in
+// the innermost dimension (an odd start faults on the card).  Returns 0 or
+// a CUDA error.
+static int encode_map_4d(CUtensorMap* map, const void* base, const long (&gdim)[4],
+                         const long (&strides)[3], const int (&box)[4]) {
   const EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
-  const cuuint64_t gdim[4] = {(cuuint64_t)dim, (cuuint64_t)n1, (cuuint64_t)n2, (cuuint64_t)rows};
-  const cuuint64_t gstride[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2,
-                                 (cuuint64_t)row_elems * 2};
-  const cuuint32_t box[4] = {sm90::kChunk, 1, 1, sm90::kRows};
+  cuuint64_t dims[4], bytes[3];
+  cuuint32_t boxes[4];
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = (cuuint64_t)gdim[i];
+    boxes[i] = (cuuint32_t)box[i];
+    if (i < 3) bytes[i] = (cuuint64_t)strides[i] * 2;
+  }
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), gdim,
-                        gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        bytes, boxes, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map {dim, n1, n2, rows} over `base` (element strides s1, s2 and
+// row_elems for n1, n2 and rows), boxes of 32 x 1 x 1 x 64.
+static int encode_map(CUtensorMap* map, const void* base, int dim, int n1, long s1, int n2,
+                      long s2, long rows, long row_elems) {
+  return encode_map_4d(map, base, {dim, n1, n2, rows}, {s1, s2, row_elems},
+                       {sm90::kChunk, 1, 1, sm90::kRows});
 }
 
 // Streaming multiprocessors of the current device.

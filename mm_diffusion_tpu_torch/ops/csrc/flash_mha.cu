@@ -1,7 +1,7 @@
 // Flash multi-head attention over strided [B, H, T, D] operands, forward and
 // backward: out = softmax(Q K^T / sqrt(D)) V per (batch, head), Tq != Tk
-// allowed, plus the per-row logsumexp [B, H, Tq] (fp32) that the backward
-// reuses.
+// allowed, plus the per-row logsumexp [B, H, Tq] (fp32, natural log) that
+// the backward reuses.
 //
 // Replaces the TPU flash kernel of JAX's library that
 // mm_diffusion_tpu/ops/fused_attention.py reaches through `flash_mha_bhtd`
@@ -12,17 +12,35 @@
 // What bounds it on this card: at the API's hot shapes (B*F = 128 rows, 4
 // heads, head dim 64, T = 1024) the forward is 137 GFLOP against 0.13 GB of
 // operands, so the tensor cores bound it (0.139 ms at 989 TFLOP/s); at
-// Tq = 100 or Tk = 400 it approaches the bytes bound.  The design keeps the
-// [Tq, Tk] logits out of device memory (online softmax over 64-key tiles,
-// attention_common.cuh), reads q, k and v in place through their (batch,
-// head, row) strides -- so [B, T, H, D] (`flash_mha`) and [B, H, T, D]
+// Tq = 100 or Tk = 400 it approaches the bytes bound.  Every design keeps
+// the [Tq, Tk] logits out of device memory (online softmax over 64-key
+// tiles), reads q, k and v in place through their (batch, head, row)
+// strides -- so [B, T, H, D] (`flash_mha`) and [B, H, T, D]
 // (`flash_mha_bhtd`) go through the same kernels with no transpose copy --
 // and masks the ragged ends of Tq and Tk in the kernel instead of padding
-// them to 128 in device memory as the TPU path does.  The backward is the
-// two-pass form of attention_bwd_common.cuh: a dq pass that also writes
-// delta = rowsum(dO * O), then a dk/dv pass; every gradient is summed in
-// registers by the one block that owns its rows (no float atomics, the same
-// result on every run).  Speed (wgmma, TMA, pipelined K/V) is later work.
+// them to 128 in device memory as the TPU path does.
+//
+// The forward in bf16 at kernel head dims 32-128 (attention_sm90.cuh, K1's
+// Hopper forward over strided operands): one 4-D tensor map per operand,
+// {D, and batch, head, row in order of stride}, so T is a map dimension of
+// its own and TMA zero-fills rows past Tq or Tk inside each (batch, head);
+// a producer warp streams 64-key K and V boxes through a 2-stage mbarrier
+// ring; S = Q K^T and O += P V run on wgmma with the online softmax on the
+// accumulators; keys past Tk are set to -inf in the last key tile only;
+// two consumer warpgroups (128 query rows) share each K/V box where that
+// grid still covers the card.  Grid (B * ceil(Tq / (64 WG)), H).
+//
+// The previous design (mma.sync, attention_common.cuh) stays for fp32, for
+// kernel head dims 192 and 256, and for the same-run comparison
+// (mmdiff_flash_mha_fwd_mma): K and V staged through registers with no load
+// in flight during the products, two __syncthreads per 64-key tile, V
+// transposed with scalar stores, m16n8k16 products.  The backward is still
+// that design's two-pass form (attention_bwd_common.cuh): a dq pass that
+// also writes delta = rowsum(dO * O), then a dk/dv pass; every gradient is
+// summed in registers by the one block that owns its rows (no float
+// atomics, the same result on every run).  Grids: (ceil(Tq / 64), H, B)
+// for the forward and the dq pass, (ceil(Tk / 64), H, B) for the dk/dv
+// pass; 128 threads per block.
 //
 // Head dims: every D with D % 8 == 0 up to 256 (JAX's flash gate), on the
 // kernels built for 32, 64, 96, 128, 192 and 256 (ops/fused_attention.py::
@@ -30,11 +48,11 @@
 // and 256 the per-warp fragments outgrow the register file and spill (see
 // PERF.md), and the forward's K/V tiles (above 48 KB) take dynamic shared
 // memory.
-//
-// Grids: forward and dq pass (ceil(Tq / 64), H, B), dk/dv pass
-// (ceil(Tk / 64), H, B); 128 threads per block.
+
+#include <type_traits>
 
 #include "attention_bwd_common.cuh"
+#include "attention_sm90.cuh"
 
 namespace mmdiff {
 
@@ -42,6 +60,275 @@ namespace mmdiff {
 struct Strides {
   long long b, h, t;
 };
+
+// ---------------------------------------------------------------------------
+// The Hopper forward (bf16, kernel head dims 32-128)
+// ---------------------------------------------------------------------------
+
+constexpr int kFlashStages = 2;  // depth of the K/V ring
+
+// Where (batch, head, row) sit among dims 1-3 of an operand's tensor map:
+// the three in order of their strides (dim 0 is the head dim).
+struct MapAxes {
+  int b, h, t;
+};
+
+template <int DK, int WG>
+struct FlashFwdSmem {
+  uint8_t q[WG][sm90::Tile<DK>::kBytes];
+  uint8_t k[kFlashStages][sm90::Tile<DK>::kBytes];
+  uint8_t v[kFlashStages][sm90::Tile<DK>::kBytes];
+  uint64_t q_full;
+  uint64_t full[kFlashStages];
+  uint64_t empty[kFlashStages];
+};
+
+struct FlashFwdArgs {
+  bf16* out;
+  float* lse;
+  int heads, len_q, len_k, dim;
+  int tiles;  // query tiles of 64 * WG rows per (batch, head)
+  Strides so;
+  MapAxes qa, ka;  // axes of q's map, and of k's and v's
+  float scale_log2;
+};
+
+// All DK / 32 chunks of the 64-row box at row `row` of (b, h).
+template <int DK>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          MapAxes ax, int b, int h, int row) {
+  int c[4];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) c[i] = ax.b == i ? b : (ax.h == i ? h : row);
+#pragma unroll
+  for (int j = 0; j < sm90::Tile<DK>::kChunks; ++j)
+    sm90::tma_load(dst + j * sm90::kChunkBytes, map, bar, j * sm90::kChunk, c[1], c[2], c[3]);
+}
+
+// Block (b * tiles + tile, h): query rows [64 WG tile, 64 WG (tile + 1))
+// of (b, h) against all of its keys.  Q, K and V reach shared memory by
+// TMA; rows past Tq or Tk are zero-filled by the maps, keys past Tk are
+// masked in the last key tile only, rows past Tq are not stored.
+template <int DK, int WG>
+__global__ void __launch_bounds__(WG * sm90::kWarpgroup + sm90::kProducerThreads,
+                                  DK <= 64 ? 2 : 1)
+    flash_mha_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map, const FlashFwdArgs a) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  FlashFwdSmem<DK, WG>& sm = aligned_smem<FlashFwdSmem<DK, WG>>(smem_raw);
+  constexpr int kTileBytes = Tile<DK>::kBytes;
+  const int h = blockIdx.y, b = blockIdx.x / a.tiles;
+  const int q0 = (blockIdx.x - b * a.tiles) * (kRows * WG);
+  const int len_k = a.len_k, ntiles = (len_k + kRows - 1) / kRows, nfull = len_k / kRows;
+  const float scale_log2 = a.scale_log2;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    for (int s = 0; s < kFlashStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], WG * kWarpgroup);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == WG * 4) {  // producer warp: one lane issues every copy
+    if ((threadIdx.x & 31) == 0) {
+      mbar_expect_tx(&sm.q_full, WG * kTileBytes);
+      for (int w = 0; w < WG; ++w)
+        load_rows<DK>(sm.q[w], &q_map, &sm.q_full, a.qa, b, h, q0 + w * kRows);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % kFlashStages;
+        mbar_wait(&sm.empty[s], ((j / kFlashStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[s], 2 * kTileBytes);
+        load_rows<DK>(sm.k[s], &k_map, &sm.full[s], a.ka, b, h, j * kRows);
+        load_rows<DK>(sm.v[s], &v_map, &sm.full[s], a.ka, b, h, j * kRows);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: query rows q0 + 64 wg + [0, 64); this thread
+  // holds rows qr[0] and qr[1].
+  const int wg = warp >> 2, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r_lo = q0 + wg * kRows + (warp & 3) * 16 + g;
+  const int qr[2] = {r_lo, r_lo + 8};
+  float o[DK / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // One 64-key tile j; `masked` (the last tile when Tk % 64 != 0) sets the
+  // logits of keys at or past Tk to -inf.
+  auto attend = [&](int j, auto masked) {
+    const int s = j % kFlashStages;
+    mbar_wait(&sm.full[s], (j / kFlashStages) & 1);
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK / 16; ++kk)
+      wgmma_ss_n64(sc, desc_k(sm.q[wg], kk), desc_k(sm.k[s], kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if constexpr (decltype(masked)::value) {
+        const int key = j * kRows + acc_col(i);
+        sc[i] = key < len_k ? sc[i] * scale_log2 : -INFINITY;
+      } else {
+        sc[i] *= scale_log2;
+      }
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float base[2], alpha[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mnew = fmaxf(m[r], mx[r]);
+      base[r] = mnew == -INFINITY ? 0.f : mnew;
+      alpha[r] = exp2f(m[r] - base[r]);
+      m[r] = mnew;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = exp2f(sc[i] - base[(i >> 1) & 1]);
+      rowsum[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rowsum[r];
+#pragma unroll
+    for (int i = 0; i < DK / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t pa[4][4];
+    acc_to_a(pa, sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DK>(o, pa[kk], desc_mn(sm.v[s], kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&sm.empty[s]);
+  };
+
+  mbar_wait(&sm.q_full, 0);
+  for (int j = 0; j < nfull; ++j) attend(j, std::false_type{});
+  if (nfull < ntiles) attend(nfull, std::true_type{});
+
+  float inv[2];
+  bool ok[2];
+  bf16* rows[2];
+  const long base_o = (long)b * a.so.b + (long)h * a.so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+    ok[r] = qr[r] < a.len_q;
+    rows[r] = a.out + base_o + (long)qr[r] * a.so.t;
+    if (ok[r] && t == 0)
+      a.lse[((long)b * a.heads + h) * a.len_q + qr[r]] = (m[r] + log2f(l[r])) * kLn2;
+  }
+  store_acc<DK>(o, rows[0], rows[1], ok[0], ok[1], inv[0], inv[1], a.dim);
+}
+
+// The map {D, and batch, head, row in order of stride} of one operand, boxes
+// of 32 lanes x 64 rows; `ax` receives where batch, head and row sit.  An
+// axis of extent 1 goes first and gets the stride that continues the one
+// below it (its stride is never stepped), so the strides grow with the dims.
+static int encode_rows_map(CUtensorMap* map, MapAxes* ax, const void* base, int dim, int batch,
+                           int heads, int len, Strides s) {
+  struct Axis {
+    long n, stride;
+    int role;  // 0 batch, 1 head, 2 row
+  } axes[3] = {{batch, (long)s.b, 0}, {heads, (long)s.h, 1}, {len, (long)s.t, 2}};
+  auto key = [](const Axis& x) { return x.n == 1 ? 0L : x.stride; };
+  for (int i = 1; i < 3; ++i)  // insertion sort by stride
+    for (int j = i; j > 0 && key(axes[j]) < key(axes[j - 1]); --j) {
+      const Axis tmp = axes[j];
+      axes[j] = axes[j - 1];
+      axes[j - 1] = tmp;
+    }
+  long gdim[4] = {dim, 0, 0, 0}, strides[3], below = dim;
+  int box[4] = {sm90::kChunk, 1, 1, 1}, pos[3];
+  for (int i = 0; i < 3; ++i) {
+    if (axes[i].n == 1) axes[i].stride = below;
+    below = axes[i].n * axes[i].stride;
+    gdim[i + 1] = axes[i].n;
+    strides[i] = axes[i].stride;
+    pos[axes[i].role] = i + 1;
+    if (axes[i].role == 2) box[i + 1] = sm90::kRows;
+  }
+  *ax = MapAxes{pos[0], pos[1], pos[2]};
+  return encode_map_4d(map, base, gdim, strides, box);
+}
+
+template <int DK, int WG>
+static int launch_fwd_sm90(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                           FlashFwdArgs a, int batch, cudaStream_t stream) {
+  a.tiles = (a.len_q + sm90::kRows * WG - 1) / (sm90::kRows * WG);
+  constexpr size_t smem = sizeof(FlashFwdSmem<DK, WG>) + 1024;
+  int err = (int)cudaFuncSetAttribute(flash_mha_fwd_sm90_kernel<DK, WG>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  flash_mha_fwd_sm90_kernel<DK, WG>
+      <<<dim3(batch * a.tiles, a.heads), WG * sm90::kWarpgroup + sm90::kProducerThreads, smem,
+         stream>>>(qm, km, vm, a);
+  return (int)cudaGetLastError();
+}
+
+// Two consumer warpgroups share each K/V tile when Tq > 64 and the grid of
+// 128-row tiles still covers the card; one otherwise (K1's rule).
+template <int DK>
+static int launch_fwd_sm90_rows(const CUtensorMap& qm, const CUtensorMap& km,
+                                const CUtensorMap& vm, const FlashFwdArgs& a, int batch,
+                                cudaStream_t stream) {
+  const long wide = (long)batch * a.heads * ((a.len_q + 2 * sm90::kRows - 1) / (2 * sm90::kRows));
+  if (a.len_q > sm90::kRows && wide >= sm_count())
+    return launch_fwd_sm90<DK, 2>(qm, km, vm, a, batch, stream);
+  return launch_fwd_sm90<DK, 1>(qm, km, vm, a, batch, stream);
+}
+
+static int dispatch_fwd_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
+                             int batch, int heads, int len_q, int len_k, int head_dim,
+                             int kernel_dim, float scale, Strides sq, Strides sk, Strides so,
+                             cudaStream_t stream) {
+  if (head_dim % 8 || head_dim < 8 || head_dim > kernel_dim) return (int)cudaErrorInvalidValue;
+  FlashFwdArgs a;
+  CUtensorMap qm, km, vm;
+  int err = encode_rows_map(&qm, &a.qa, q, head_dim, batch, heads, len_q, sq);
+  if (!err) err = encode_rows_map(&km, &a.ka, k, head_dim, batch, heads, len_k, sk);
+  MapAxes va;
+  if (!err) err = encode_rows_map(&vm, &va, v, head_dim, batch, heads, len_k, sk);
+  if (err) return err;
+  a.out = static_cast<bf16*>(out);
+  a.lse = lse;
+  a.heads = heads;
+  a.len_q = len_q;
+  a.len_k = len_k;
+  a.dim = head_dim;
+  a.tiles = 1;
+  a.so = so;
+  a.scale_log2 = kLog2e * scale;
+  switch (kernel_dim) {
+    case 32: return launch_fwd_sm90_rows<32>(qm, km, vm, a, batch, stream);
+    case 64: return launch_fwd_sm90_rows<64>(qm, km, vm, a, batch, stream);
+    case 96: return launch_fwd_sm90_rows<96>(qm, km, vm, a, batch, stream);
+    case 128: return launch_fwd_sm90_rows<128>(qm, km, vm, a, batch, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The previous design (mma.sync): the forward of fp32 and of kernel head
+// dims 192 / 256, the bf16 forward's same-run comparison, and the backward
+// ---------------------------------------------------------------------------
 
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -200,12 +487,32 @@ static int dispatch_bwd(const void* q, const void* k, const void* v, const void*
 // below a zero-padded `head_dim`).  lse and the backward's scratch delta are
 // [B, H, Tq] fp32.  Returns the first failing launch's CUDA error (0 on
 // success).
+//
+// The forward's design is chosen by the caller (ops/fused_attention.py::
+// forward_design): mmdiff_flash_mha_fwd is the Hopper kernel, bf16 at
+// kernel head dims 32-128 (16-byte aligned operands and strides, for TMA);
+// it refuses anything else.  mmdiff_flash_mha_fwd_mma is the previous design,
+// bf16 or fp32 at every kernel head dim.
 extern "C" int mmdiff_flash_mha_fwd(const void* q, const void* k, const void* v, void* out,
                                     float* lse, int batch, int heads, int len_q, int len_k,
                                     int head_dim, int kernel_dim, float scale, long long q_sb,
                                     long long q_sh, long long q_st, long long k_sb,
                                     long long k_sh, long long k_st, long long o_sb,
                                     long long o_sh, long long o_st, int is_fp32, void* stream) {
+  if (is_fp32) return (int)cudaErrorInvalidValue;
+  const mmdiff::Strides sq{q_sb, q_sh, q_st}, sk{k_sb, k_sh, k_st}, so{o_sb, o_sh, o_st};
+  return mmdiff::dispatch_fwd_sm90(q, k, v, out, lse, batch, heads, len_q, len_k, head_dim,
+                                   kernel_dim, scale, sq, sk, so,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mmdiff_flash_mha_fwd_mma(const void* q, const void* k, const void* v, void* out,
+                                        float* lse, int batch, int heads, int len_q, int len_k,
+                                        int head_dim, int kernel_dim, float scale,
+                                        long long q_sb, long long q_sh, long long q_st,
+                                        long long k_sb, long long k_sh, long long k_st,
+                                        long long o_sb, long long o_sh, long long o_st,
+                                        int is_fp32, void* stream) {
   const mmdiff::Strides sq{q_sb, q_sh, q_st}, sk{k_sb, k_sh, k_st}, so{o_sb, o_sh, o_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_fp32)

@@ -60,9 +60,12 @@ SIGNATURES = {
     "mmdiff_banded_attention_bwd_frames_per_tile": [_I] * 4,
     "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 7 + [_P],
     "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
+    "mmdiff_flash_mha_fwd_mma": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_gemm_bf16": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 3 + [_P],
     "mmdiff_conv3x3_chw": [_P] * 3 + [_I] * 5 + [_P],
+    "mmdiff_conv3x3_chw_mma": [_P] * 3 + [_I] * 5 + [_P],
+    "mmdiff_channels_last_halo": [_P] * 2 + [_I] * 5 + [_P],
 }
 
 

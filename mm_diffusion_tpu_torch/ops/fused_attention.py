@@ -12,6 +12,16 @@ logsumexp, the backward a dq pass and a dk/dv pass.  Both layouts reach the
 same kernels through their (batch, head, row) strides, so neither is
 transposed in device memory; the kernel masks ragged Tq and Tk.
 
+The forward has two designs, chosen by one rule (:func:`forward_design`):
+bf16 at kernel head dims 32-128 runs the Hopper kernel (TMA, an mbarrier
+ring fed by a producer warp, ``wgmma``; ``csrc/attention_sm90.cuh``); fp32,
+and kernel head dims 192 and 256, run the previous mma.sync design.  Each
+launch counts in :data:`FORWARD_DESIGNS` by design.  The previous design's
+bf16 build stays reachable through ``_flash_mha_fwd_previous_cuda`` for the
+same-run comparison in ``chip_smoke.py`` and the card tests (counted in
+:data:`PREVIOUS_LAUNCHES`, never by the API).  The backward is the mma.sync
+design for every input and takes either forward's output and logsumexp.
+
 Dispatch: a tensor on the CPU takes the plain version (:func:`mha_reference`
 and :func:`mha_backward_reference`); a CUDA tensor launches the kernels or
 raises.  The kernels take every head dim ``D`` with ``D % 8 == 0`` and
@@ -28,6 +38,7 @@ Each launch counts in :data:`LAUNCHES`.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Tuple
 
@@ -45,17 +56,36 @@ MAX_GRID_DIM = 65535  # B and H are grid dimensions of the kernels
 
 # Launches of each kernel since the last reset_launch_counts().
 LAUNCHES = {"flash_mha_fwd": 0, "flash_mha_bwd": 0}
+# The forward's launches by design: "sm90" (Hopper) or "mma" (previous).
+FORWARD_DESIGNS: collections.Counter = collections.Counter()
+# Launches of the previous forward design (same-run comparison only).
+PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
+# The forward's C entry point of each design (csrc/flash_mha.cu).
+FORWARD_ENTRIES = {"sm90": "mmdiff_flash_mha_fwd", "mma": "mmdiff_flash_mha_fwd_mma"}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    FORWARD_DESIGNS.clear()
+    PREVIOUS_LAUNCHES.clear()
 
 
 def kernel_head_dim(d: int) -> int:
     """The built head dim that head dim ``d`` runs on (the rule of
     ``block_attention.kernel_head_dim`` over :data:`HEAD_DIMS`, up to 256)."""
     return block_attention.kernel_head_dim(d, HEAD_DIMS)
+
+
+def forward_design(d: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """``(design, kernel head dim)`` of the forward at head dim ``d`` (before
+    the pad to a multiple of 8) and ``dtype``: ``"sm90"`` (the Hopper kernel)
+    for bf16 at kernel head dims up to 128, ``"mma"`` (the previous design)
+    for fp32 and for kernel head dims 192 and 256.  ``d > 256`` raises
+    ``ValueError``."""
+    kd = kernel_head_dim(block_attention.padded_head_dim(d))
+    hopper = dtype == torch.bfloat16 and kd <= block_attention.HEAD_DIMS[-1]
+    return ("sm90" if hopper else "mma"), kd
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +181,7 @@ def _same_strides(name: str, x: torch.Tensor, ref: torch.Tensor) -> None:
                          f"got {tuple(x.shape)} {x.stride()}")
 
 
-def flash_launch_fwd(q, k, v, out, d: int) -> torch.Tensor:
-    """Launch the forward kernel on ``[B, H, T, Dk]`` views (any (batch,
-    head, row) strides; ``Dk`` a multiple of 8 up to 256, ``k`` and ``v``
-    sharing strides) into ``out`` (q's shape), at the logit scale of head dim
-    ``d <= Dk``.  Returns ``lse [B, H, Tq]`` fp32."""
+def _launch_fwd(entry: str, q, k, v, out, d: int) -> torch.Tensor:
     b, h, tq, dk = q.shape
     tk = k.shape[2]
     _check_rows(q, k, v, out)
@@ -166,14 +192,25 @@ def flash_launch_fwd(q, k, v, out, d: int) -> torch.Tensor:
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_flash_mha_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             b, h, tq, tk, dk, kernel_head_dim(dk), 1.0 / math.sqrt(d), *q.stride()[:3],
             *k.stride()[:3], *out.stride()[:3], int(q.dtype == torch.float32), stream,
         )
     if err:
-        raise RuntimeError(f"flash MHA forward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash MHA forward kernel launch failed ({entry}): CUDA error {err}")
+    return lse
+
+
+def flash_launch_fwd(q, k, v, out, d: int) -> torch.Tensor:
+    """Launch the forward kernel of :func:`forward_design` on ``[B, H, T,
+    Dk]`` views (any (batch, head, row) strides; ``Dk`` a multiple of 8 up to
+    256, ``k`` and ``v`` sharing strides) into ``out`` (q's shape), at the
+    logit scale of head dim ``d <= Dk``.  Returns ``lse [B, H, Tq]`` fp32."""
+    design = forward_design(q.shape[-1], q.dtype)[0]
+    lse = _launch_fwd(FORWARD_ENTRIES[design], q, k, v, out, d)
     LAUNCHES["flash_mha_fwd"] += 1
+    FORWARD_DESIGNS[design] += 1
     return lse
 
 
@@ -226,6 +263,17 @@ def flash_mha_fwd_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     out = torch.empty_like(qp)
     lse = flash_launch_fwd(qp, kp, vp, out, d)
     return _unpad_into(q, out), lse
+
+
+def _flash_mha_fwd_previous_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The previous design (mma.sync) of :func:`flash_mha_fwd_cuda` on the
+    same arguments, for the same-run comparison only (head dims that are
+    multiples of 8)."""
+    d = _check_operands(q, k, v)[4]
+    out = torch.empty_like(q)
+    lse = _launch_fwd(FORWARD_ENTRIES["mma"], q, k, v, out, d)
+    PREVIOUS_LAUNCHES["flash_mha_fwd"] += 1
+    return out, lse
 
 
 def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

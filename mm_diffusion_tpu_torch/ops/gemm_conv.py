@@ -12,7 +12,17 @@ versions and the hand-written CUDA kernels' wrappers.
 * :func:`conv3x3_chw` -- 3x3 SAME conv in channel-major layout, ``[B, Ci,
   H, W]`` and ``[Co, Ci, 3, 3]`` -> ``[B, Co, H, W]``, as a direct implicit
   GEMM that never writes the im2col matrix (``csrc/conv3x3_chw.cu``;
-  counterpart of ``conv3x3_chw`` in ``tools/conv_chw_spike.py``).
+  counterpart of ``conv3x3_chw`` in ``tools/conv_chw_spike.py``).  The
+  kernel is the Hopper design (TMA boxes of each tap's shifted input,
+  ``wgmma``): the wrapper reorders the weights into tap-major K order
+  (:func:`tap_major_weights`), and a kernel of its own copies the input
+  into a channels-last layout with a one-pixel zero ring (plain version:
+  :func:`channels_last_halo`; launches in :data:`HELPER_LAUNCHES`), on
+  which a tap's shift is a box coordinate; ``Ci % 8 != 0`` runs on
+  zero-padded channels (counted in :data:`CONV_ROUTES`).  The previous
+  mma.sync design, which reads the channel-major input in place, stays
+  reachable through ``_conv3x3_chw_previous_cuda`` for the same-run
+  comparison (counted in :data:`PREVIOUS_LAUNCHES`).
 
 The kernels take bf16 activations, accumulate in fp32 and return bf16 (the
 TPU kernels' contract); the weights are cast to bf16 by the wrapper, as the
@@ -26,24 +36,36 @@ their entry points.  Each kernel wrapper counts its launches in
 
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
 from . import cuda_build
 from .common import Tolerance, kernel_path
 
-MAX_GRID_DIM = 65535  # M / 64 and the batch (GEMM), Co / 64 and B (conv) are grid dimensions
+MAX_GRID_DIM = 65535  # M / 64 and the batch (GEMM), Co / 64 and B (previous conv) are grid dimensions
 # The three kernels against their fp32 plain versions: bf16 operands and a
 # bf16 output of size ~2 (up to K = 1728 terms of 0.05-scaled weights),
 # rounded at 2^-9 relative, fp32 accumulation in another order.
 GEMM_TOL = Tolerance(2e-2, 1e-2)
 
 LAUNCHES = {"skip_gemm": 0, "gemm_blocks": 0, "conv3x3_chw": 0}
+# Calls that took a route of the conv, by "<wrapper>:<route>": "pad_channels"
+# (Ci % 8 != 0: the kernel ran on operands zero-padded to a multiple of 8
+# channels, the 16-byte rows that TMA reads).
+CONV_ROUTES: collections.Counter = collections.Counter()
+# Launches of the conv's input copy (channels_last_halo_cuda), by kernel.
+HELPER_LAUNCHES: collections.Counter = collections.Counter()
+# Launches of the conv's previous design (same-run comparison only).
+PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counter in (CONV_ROUTES, HELPER_LAUNCHES, PREVIOUS_LAUNCHES):
+        counter.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +91,26 @@ def conv3x3_chw_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     cols = F.unfold(x.float(), kernel_size=3, padding=1)  # [B, Ci*9, H*W], (ci, dy, dx) order
     out = torch.matmul(w.float().reshape(co, ci * 9), cols)
     return out.reshape(b, co, h, w_px).to(x.dtype)
+
+
+def tap_major_weights(w: torch.Tensor) -> torch.Tensor:
+    """``w [Co, Ci, 3, 3]`` in the conv kernel's K order: ``[Co, 9, Ci']``
+    with ``[co, 3 dy + dx, ci] = w[co, ci, dy, dx]`` and ``Ci'`` = Ci rounded
+    up to a multiple of 8 (zeros past Ci: 16-byte rows for TMA), contiguous,
+    in w's dtype."""
+    co, ci = w.shape[:2]
+    taps = w.permute(0, 2, 3, 1).reshape(co, 9, ci)
+    return F.pad(taps, (0, -ci % 8)).contiguous()
+
+
+def channels_last_halo(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, Ci, H, W]`` as the conv kernel reads it: channels-last, ``[B,
+    H + 2, W + 2, Ci']``, with a one-pixel ring of zeros (SAME padding) and
+    ``Ci'`` = Ci rounded up to a multiple of 8 (zeros past Ci), contiguous.
+    Output pixel ``(y, x)``'s tap ``(dy, dx)`` reads pixel ``(y + dy, x +
+    dx)`` of it."""
+    ci = x.shape[1]
+    return F.pad(x.permute(0, 2, 3, 1), (0, -ci % 8, 1, 1, 1, 1)).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -145,13 +187,59 @@ def gemm_blocks_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def conv3x3_chw_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the direct 3x3 conv on ``x [B, Ci, H, W]`` and ``w [Co, Ci, 3,
-    3]``; returns ``[B, Co, H, W]`` bf16."""
+def _check_conv(x: torch.Tensor, w: torch.Tensor) -> None:
     _check_bf16(x, "x", 4)
-    b, ci, h, w_px = x.shape
+    ci = x.shape[1]
     if w.dim() != 4 or w.shape[1:] != (ci, 3, 3):
         raise ValueError(f"w: expected [Co, {ci}, 3, 3], got {tuple(w.shape)}")
+    if min(w.shape[0], *x.shape) == 0:
+        raise ValueError(f"empty conv operands: x {tuple(x.shape)}, w {tuple(w.shape)}")
+
+
+def channels_last_halo_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the copy kernel of :func:`channels_last_halo` on a contiguous
+    bf16 ``x [B, Ci, H, W]``; returns ``[B, H + 2, W + 2, Ci']`` bf16."""
+    _check_bf16(x, "x", 4)
+    b, ci, h, w_px = x.shape
+    cip = ci + (-ci % 8)
+    out = torch.empty((b, h + 2, w_px + 2, cip), dtype=torch.bfloat16, device=x.device)
+    lib = cuda_build.load().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_channels_last_halo(x.data_ptr(), out.data_ptr(), b, ci, cip, h, w_px, stream)
+    if err:
+        raise RuntimeError(f"channels_last_halo kernel launch failed: CUDA error {err}")
+    HELPER_LAUNCHES["channels_last_halo"] += 1
+    return out
+
+
+def conv3x3_chw_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the direct 3x3 conv (the Hopper design) on ``x [B, Ci, H, W]``
+    and ``w [Co, Ci, 3, 3]``; returns ``[B, Co, H, W]`` bf16."""
+    _check_conv(x, w)
+    b, ci, h, w_px = x.shape
+    wt = tap_major_weights(_weights(w, x))
+    co = wt.shape[0]
+    xh = channels_last_halo_cuda(x)
+    if ci % 8:
+        CONV_ROUTES["conv3x3_chw:pad_channels"] += 1
+    out = torch.empty((b, co, h, w_px), dtype=torch.bfloat16, device=x.device)
+    lib = cuda_build.load().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmdiff_conv3x3_chw(xh.data_ptr(), wt.data_ptr(), out.data_ptr(), b, wt.shape[2],
+                                     co, h, w_px, stream)
+    if err:
+        raise RuntimeError(f"conv3x3_chw kernel launch failed: CUDA error {err}")
+    LAUNCHES["conv3x3_chw"] += 1
+    return out
+
+
+def _conv3x3_chw_previous_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The previous design (mma.sync) of :func:`conv3x3_chw_cuda` on the same
+    arguments, for the same-run comparison only."""
+    _check_conv(x, w)
+    b, ci, h, w_px = x.shape
     if b > MAX_GRID_DIM or (w.shape[0] + 63) // 64 > MAX_GRID_DIM:
         raise ValueError(f"batch {b} or Co {w.shape[0]} too large for the kernel's grid")
     wb = _weights(w, x)
@@ -160,11 +248,11 @@ def conv3x3_chw_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = cuda_build.load().lib
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_conv3x3_chw(x.data_ptr(), wb.data_ptr(), out.data_ptr(), b, ci, co, h,
-                                     w_px, stream)
+        err = lib.mmdiff_conv3x3_chw_mma(x.data_ptr(), wb.data_ptr(), out.data_ptr(), b, ci, co,
+                                         h, w_px, stream)
     if err:
-        raise RuntimeError(f"conv3x3_chw kernel launch failed: CUDA error {err}")
-    LAUNCHES["conv3x3_chw"] += 1
+        raise RuntimeError(f"conv3x3_chw previous kernel launch failed: CUDA error {err}")
+    PREVIOUS_LAUNCHES["conv3x3_chw"] += 1
     return out
 
 

@@ -9,7 +9,8 @@ chip (``ops/gemm_conv.py::conv3x3_chw``).  Modes:
   check  the kernel against its plain version (explicit unfold + matmul in
          fp32) and against ``F.conv2d`` at a small shape
   bench  the kernel against cuDNN's ``F.conv2d`` in NCHW and in NHWC
-         (channels_last) at the SR U-Net's 16 x 192 x 256^2 -> 192
+         (channels_last) at the SR U-Net's 16 x 192 x 256^2 -> 192; on the
+         card also the kernel's input copy alone and its previous design
   gemm   the GEMM core alone, ``[192, 1728] x [nblk, 1728, npx]`` for the
          JAX tool's three (npx, nblk) cases, against ``torch.matmul``
 
@@ -75,14 +76,18 @@ def bench(dev, dtype, gen, args) -> dict:
     flops = 2 * b * h * w_px * 9 * ci * co
     time_fn = timer(dev, args.calls, args.replays)
     results = {}
-    for name, fn in (
+    convs = [
         ("conv2d NCHW", lambda: F.conv2d(x, w, padding=1)),
         ("conv2d NHWC", lambda: F.conv2d(x_nhwc, w_nhwc, padding=1)),
         ("kernel CHW", lambda: gemm_conv.conv3x3_chw(x, w)),
-    ):
+    ]
+    if dev.type == "cuda":  # the kernel's input copy alone, and its previous design
+        convs += [("input copy", lambda: gemm_conv.channels_last_halo_cuda(x)),
+                  ("previous", lambda: gemm_conv._conv3x3_chw_previous_cuda(x, w))]
+    for name, fn in convs:
         results[name] = ms = time_fn(fn)
-        print(f"{name:12s}: {ms:8.4f} ms ({flops / ms / 1e9:.0f} GFLOP/s) "
-              f"B={b} Ci={ci} Co={co} {h}x{w_px}", flush=True)
+        rate = "" if name == "input copy" else f" ({flops / ms / 1e9:.0f} GFLOP/s)"
+        print(f"{name:12s}: {ms:8.4f} ms{rate} B={b} Ci={ci} Co={co} {h}x{w_px}", flush=True)
     return results
 
 

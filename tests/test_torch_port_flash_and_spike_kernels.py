@@ -1,7 +1,9 @@
 """The flash MHA kernels (K8) and the spike kernels (S1-S4) against their
 plain PyTorch versions, on the card: both K8 layouts, Tq != Tk with ragged
 ends, head dims on every built size (32 and 192 included) and between two; the K1 variants at ragged and packed lengths; the
-GEMM and the conv at ragged sizes.
+GEMM and the conv at ragged sizes.  The K8 forward and the conv also
+against their previous (mma.sync) designs at the same inputs, with the
+launch counters showing which design and which route ran.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 ``cuda`` and skips without a CUDA device.  On a GPU machine:
@@ -59,7 +61,9 @@ def _bthd(*xs):
 def test_flash_mha_kernels_ragged(cuda, layout, d, tq, tk):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v, dout = _operands(g, cuda, 3, 2, tq, tk, d, layout)
+    fa.reset_launch_counts()
     out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+    assert fa.FORWARD_DESIGNS == {"sm90" if d <= 128 else "mma": 1}
     assert out.stride() == q.stride()
     _close(out, fa.mha_reference(*_bthd(q, k, v)).transpose(1, 2))
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d**0.5
@@ -68,6 +72,44 @@ def test_flash_mha_kernels_ragged(cuda, layout, d, tq, tk):
     refs = fa.mha_backward_reference(*_bthd(q, k, v, dout))
     for got, ref in zip(grads, refs):
         _bwd_close(got, ref.transpose(1, 2))
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("tq,tk", [(1, 5), (100, 1024), (130, 65), (1024, 400)])
+def test_flash_mha_fwd_matches_previous_design(cuda, layout, d, tq, tk):
+    """The Hopper forward and the previous design on the same inputs: both
+    within the limits of the plain version, and of each other."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v, _ = _operands(g, cuda, 2, 3, tq, tk, d, layout)
+    out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+    prev, prev_lse = fa._flash_mha_fwd_previous_cuda(q, k, v)
+    assert prev.stride() == q.stride()
+    ref = fa.mha_reference(*_bthd(q, k, v)).transpose(1, 2)
+    lse_ref = torch.logsumexp(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d**0.5, -1)
+    for o, l in ((out, lse), (prev, prev_lse)):
+        _close(o, ref)
+        _close(l, lse_ref, fa.LSE_TOL)
+    _close(out, prev)
+    _close(lse, prev_lse, fa.LSE_TOL)
+
+
+def test_flash_mha_fwd_design_counts(cuda):
+    """bf16 up to kernel head dim 128 launches the Hopper forward, fp32 and
+    192 / 256 the previous design; the previous design's own entry counts
+    apart and never as the API's."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (32, 40, 128, 136, 256):
+            q, k, v, _ = _operands(g, cuda, 1, 2, 70, 90, d, "bthd", dtype)
+            fa.reset_launch_counts()
+            fa.flash_mha_fwd_cuda(q, k, v)
+            design = "sm90" if dtype == torch.bfloat16 and d <= 128 else "mma"
+            assert fa.forward_design(d, dtype)[0] == design
+            assert fa.FORWARD_DESIGNS == {design: 1} and fa.LAUNCHES["flash_mha_fwd"] == 1
+            fa._flash_mha_fwd_previous_cuda(q, k, v)
+            assert fa.PREVIOUS_LAUNCHES == {"flash_mha_fwd": 1}
+            assert fa.FORWARD_DESIGNS == {design: 1} and fa.LAUNCHES["flash_mha_fwd"] == 1
 
 
 def test_flash_mha_autograd_both_entry_points_and_counts(cuda):
@@ -166,14 +208,36 @@ def test_gemm_blocks(cuda, co, k, nblk, npx):
 
 @pytest.mark.parametrize("b,ci,co,h,w", [
     (1, 5, 7, 9, 13), (2, 16, 64, 3, 130), (1, 192, 192, 17, 256), (1, 20, 70, 8, 1),
+    (1, 200, 200, 6, 40), (2, 200, 200, 3, 136),
 ])
 def test_conv3x3_chw(cuda, b, ci, co, h, w):
+    """Both designs against the plain version and F.conv2d; Ci % 8 != 0
+    takes the counted padded-channel route of the Hopper design."""
     g = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn((b, ci, h, w), generator=g, device=cuda, dtype=torch.bfloat16)
     wt = torch.randn((co, ci, 3, 3), generator=g, device=cuda) * 0.05
+    gc.reset_launch_counts()
     out = gc.conv3x3_chw(x, wt)
-    _close(out, gc.conv3x3_chw_reference(x, wt), gc.GEMM_TOL)
-    _close(out, F.conv2d(x.float(), wt.float(), padding=1), gc.GEMM_TOL)
+    assert gc.CONV_ROUTES == ({"conv3x3_chw:pad_channels": 1} if ci % 8 else {})
+    prev = gc._conv3x3_chw_previous_cuda(x, wt)
+    assert gc.LAUNCHES["conv3x3_chw"] == 1 and gc.PREVIOUS_LAUNCHES == {"conv3x3_chw": 1}
+    plain, conv = gc.conv3x3_chw_reference(x, wt), F.conv2d(x.float(), wt.float(), padding=1)
+    for o in (out, prev):
+        assert o.dtype == torch.bfloat16 and o.shape == (b, co, h, w)
+        _close(o, plain, gc.GEMM_TOL)
+        _close(o, conv, gc.GEMM_TOL)
+
+
+@pytest.mark.parametrize("b,ci,h,w", [(1, 5, 9, 13), (2, 64, 3, 130), (1, 200, 2, 62), (1, 8, 1, 1)])
+def test_channels_last_halo_kernel(cuda, b, ci, h, w):
+    """The conv's input copy (channels-last, zero ring, channels padded to a
+    multiple of 8) equals its plain version exactly."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn((b, ci, h, w), generator=g, device=cuda, dtype=torch.bfloat16)
+    gc.reset_launch_counts()
+    out = gc.channels_last_halo_cuda(x)
+    assert gc.HELPER_LAUNCHES == {"channels_last_halo": 1}
+    assert torch.equal(out, gc.channels_last_halo(x))
 
 
 def test_gemm_conv_counts_and_refusals(cuda):
