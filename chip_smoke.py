@@ -68,26 +68,28 @@ Phases, each printed as it runs; any failure exits non-zero:
      time, plain time, library time and bound, and planted faults that
      the lse and noexp limits must reject (for the K8 forward, the zero
      keys that pad Tk to 128 and to 64 let into the softmax); the K8
-     forward and the conv, both the Hopper design, also checked and timed
-     in their previous design (mma.sync), which they must beat at each K8
-     hot shape and at the conv's bench shape (the conv's time includes
-     its input copy, conv3x3_chw[halo], also checked and timed alone);
-     7.2 the entry points
+     forward and backward, the GEMM (S3 and the S4 core) and the conv,
+     each the Hopper design, also checked and timed in their previous
+     design (mma.sync), which they must beat at each K8 hot shape, at the
+     S3 shape, at each S4-core case and at the conv's bench shape (the
+     conv's time includes its input copy, conv3x3_chw[halo], also checked
+     and timed alone), and the Hopper K8 backward must give bitwise equal
+     gradients in two runs; 7.2 the entry points
      themselves -- flash_mha and flash_mha_bhtd forward and backward
      through autograd at 7.1's hot shapes against the plain versions,
      then each A/B tool under
      mm_diffusion_tpu_torch/tools/ once with few iterations -- with the
      kernels' launch counts over that run, which must show the Hopper
-     forward alone.
+     forward and the Hopper backward alone.
 
 The last three lines of standard output are the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
 phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
 graph replay re-runs captured launches without counting them -- and the
 per-call numbers of phases 3, 3b and 7.1 summed over each kernel's main-path
-or hot shapes; K1-K7, the K8 forward and the conv also carry
-``previous_ms``, their previous design's
-time in the same run), the card's ``nvidia-smi`` name and power
+or hot shapes; K1-K7, the K8 forward and backward, S3, the conv and the S4
+core also carry ``previous_ms``, their previous design's time in the same
+run), the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1081,25 +1083,44 @@ def flash_parity(record):
                   f"than the previous one ({fwd['prev']} ms)")
         rec("flash_mha_fwd", max(err, lse_err), fwd["ms"], fwd["plain"], fwd["bound"], fwd["lib"], fwd["prev"])
 
+        bdesign = fa.backward_design(d, q.dtype)[0]
+        fa.reset_launch_counts()
         grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+        check(fa.BACKWARD_DESIGNS == {bdesign: 1}, f"flash_mha_bwd {label}: {dict(fa.BACKWARD_DESIGNS)}, not {bdesign}")
         refs = fa.mha_backward_reference(*bthd(q, k, v, dout))
         bwd_err = 0.0
         for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
             e, ok = fa.BACKWARD_TOL.check(a, r.transpose(1, 2))
             check(ok, f"flash_mha_bwd {label} {name}: err {e}")
             bwd_err = max(bwd_err, e)
+        # The previous design beside the Hopper one, where the Hopper one
+        # runs; the Hopper backward bitwise equal over two runs.
+        bwd_previous = bdesign == "sm90" and d % 8 == 0
+        if bwd_previous:
+            for name, a, r in zip(("dq", "dk", "dv"), fa._flash_mha_bwd_previous_cuda(q, k, v, out, lse, dout), refs):
+                e, ok = fa.BACKWARD_TOL.check(a, r.transpose(1, 2))
+                check(ok, f"flash_mha_bwd {label} {name} previous design: err {e}")
+            again = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"flash_mha_bwd {label}: two runs of the Hopper backward differ")
+            del again
         del grads, refs
         bwd = dict(
             ms=time_ms(lambda: fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)),
+            prev=time_ms(lambda: fa._flash_mha_bwd_previous_cuda(q, k, v, out, lse, dout)) if bwd_previous else None,
             plain=time_ms(lambda: fa.mha_backward_reference(*bthd(q, k, v, dout))),
             bound=bound_ms(*flash_work(b, h, tq, tk, d, backward=True)),
         )
         bwd["lib"], lib_fwd_bwd = library_attention_ms(lambda *xs: xs, [q, k, v], dout)
-        rec("flash_mha_bwd", bwd_err, bwd["ms"], bwd["plain"], bwd["bound"], bwd["lib"])
-        for name, r, e in (("fwd", fwd, max(err, lse_err)), ("bwd", bwd, bwd_err)):
+        if main:
+            check(bwd["prev"] is not None and bwd["ms"] < bwd["prev"],
+                  f"flash_mha_bwd {label}: the Hopper design ({bwd['ms']:.4f} ms) is not faster "
+                  f"than the previous one ({bwd['prev']} ms)")
+        rec("flash_mha_bwd", bwd_err, bwd["ms"], bwd["plain"], bwd["bound"], bwd["lib"], bwd["prev"])
+        for name, r, e, dsg in (("fwd", fwd, max(err, lse_err), design), ("bwd", bwd, bwd_err, bdesign)):
             print(f"flash_mha_{name} {label:13s} {layout} B={b} H={h} Tq={tq:5d} Tk={tk:5d} D={d} "
-                  f"err={e:.3e} kernel={r['ms']:.4f} ms "
-                  + (f"({design}) previous={r['prev']:.4f} ms " if r.get("prev") is not None else "")
+                  f"err={e:.3e} kernel={r['ms']:.4f} ms ({dsg}) "
+                  + (f"previous={r['prev']:.4f} ms " if r.get("prev") is not None else "")
                   + f"plain={r['plain']:.4f} ms "
                   f"library={r['lib']:.4f} ms bound={r['bound'][0]:.4f} ms ({r['bound'][1]})"
                   + (f" (library fwd+bwd {lib_fwd_bwd:.4f} ms)" if name == "bwd" else "")
@@ -1168,19 +1189,27 @@ def gemm_conv_parity(record):
     x1 = torch.randn((b, h, w, c), generator=g, device=dev, dtype=bf)
     x2 = torch.randn((b, h, w, c), generator=g, device=dev, dtype=bf)
     wt = torch.randn((2 * c, co), generator=g, device=dev) * 0.05
-    err, ok = gc.GEMM_TOL.check(gc.skip_gemm_cuda(x1, x2, wt), gc.skip_gemm_reference(x1, x2, wt))
+    plain = gc.skip_gemm_reference(x1, x2, wt)
+    err, ok = gc.GEMM_TOL.check(gc.skip_gemm_cuda(x1, x2, wt), plain)
     check(ok, f"skip_gemm: err {err}")
+    prev_err, prev_ok = gc.GEMM_TOL.check(gc._skip_gemm_previous_cuda(x1, x2, wt), plain)
+    check(prev_ok, f"skip_gemm previous design: err {prev_err}")
+    del plain
     wb = wt.to(bf)
     ms = time_ms(lambda: gc.skip_gemm_cuda(x1, x2, wt))
+    prev_ms = time_ms(lambda: gc._skip_gemm_previous_cuda(x1, x2, wt))
     plain_ms = time_ms(lambda: gc.skip_gemm_reference(x1, x2, wt))
     split_ms = time_ms(lambda: x1 @ wb[:c] + x2 @ wb[c:])
     concat_ms = time_ms(lambda: torch.cat([x1, x2], dim=-1) @ wb)
     m = b * h * w
     bound = bound_ms(*gemm_work(m, co, 2 * c, 2 * m * c * 2, wt.numel() * 4))
-    print(f"skip_gemm B={b} {h}x{w} C={c}+{c} -> {co}: err={err:.3e} kernel={ms:.4f} ms "
+    print(f"skip_gemm B={b} {h}x{w} C={c}+{c} -> {co}: err={err:.3e} (previous {prev_err:.3e}) "
+          f"kernel={ms:.4f} ms previous={prev_ms:.4f} ms tiles {gc.gemm_tiles(m, co)} "
           f"plain={plain_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]}); no single library "
           f"call: split (two matmuls summed) {split_ms:.4f} ms, concat + matmul {concat_ms:.4f} ms")
-    record("skip_gemm", err, ms, plain_ms, bound, None)
+    check(ms < prev_ms, f"skip_gemm: the Hopper design ({ms:.4f} ms) is not faster than the "
+                        f"previous one ({prev_ms:.4f} ms)")
+    record("skip_gemm", err, ms, plain_ms, bound, None, prev_ms)
     del x1, x2
 
     b, ci, co, h, w = conv_chw_spike.BENCH_SHAPE
@@ -1220,16 +1249,24 @@ def gemm_conv_parity(record):
     for npx, nblk in conv_chw_spike.GEMM_CASES:
         a = (torch.randn((co, k), generator=g, device=dev) * 0.05).to(bf)
         bb = torch.randn((nblk, k, npx), generator=g, device=dev, dtype=bf)
-        err, ok = gc.GEMM_TOL.check(gc.gemm_blocks_cuda(a, bb), gc.gemm_blocks_reference(a, bb))
+        plain = gc.gemm_blocks_reference(a, bb)
+        err, ok = gc.GEMM_TOL.check(gc.gemm_blocks_cuda(a, bb), plain)
         check(ok, f"gemm_blocks npx={npx} nblk={nblk}: err {err}")
+        prev_err, prev_ok = gc.GEMM_TOL.check(gc._gemm_blocks_previous_cuda(a, bb), plain)
+        check(prev_ok, f"gemm_blocks npx={npx} nblk={nblk} previous design: err {prev_err}")
+        del plain
         ms = time_ms(lambda: gc.gemm_blocks_cuda(a, bb))
+        prev_ms = time_ms(lambda: gc._gemm_blocks_previous_cuda(a, bb))
         plain_ms = time_ms(lambda: gc.gemm_blocks_reference(a, bb))
         lib_ms = time_ms(lambda: torch.matmul(a, bb))
         bound = bound_ms(*gemm_work(co, npx * nblk, k, a.numel() * 2, bb.numel() * 2))
-        print(f"gemm_blocks [{co}x{k}] x [{nblk}x{k}x{npx}]: err={err:.3e} kernel={ms:.4f} ms "
+        print(f"gemm_blocks [{co}x{k}] x [{nblk}x{k}x{npx}]: err={err:.3e} (previous {prev_err:.3e}) "
+              f"kernel={ms:.4f} ms previous={prev_ms:.4f} ms tiles {gc.gemm_tiles(co, npx, nblk)} "
               f"plain={plain_ms:.4f} ms library (torch.matmul)={lib_ms:.4f} ms "
               f"bound={bound[0]:.4f} ms ({bound[1]})")
-        record("gemm_blocks", err, ms, plain_ms, bound, lib_ms)
+        check(ms < prev_ms, f"gemm_blocks npx={npx} nblk={nblk}: the Hopper design ({ms:.4f} ms) is "
+                            f"not faster than the previous one ({prev_ms:.4f} ms)")
+        record("gemm_blocks", err, ms, plain_ms, bound, lib_ms, prev_ms)
         del bb
 
 
@@ -1292,11 +1329,14 @@ def entry_points():
     for mode in ("check", "bench", "gemm"):
         conv_chw_spike.main([mode] + few)
     torch.cuda.synchronize()
-    designs = {"flash_mha_fwd": dict(fa.FORWARD_DESIGNS), "conv3x3_chw routes": dict(gc.CONV_ROUTES),
-               "previous (the conv tool's bench times it)": {**fa.PREVIOUS_LAUNCHES, **gc.PREVIOUS_LAUNCHES}}
+    designs = {"flash_mha_fwd": dict(fa.FORWARD_DESIGNS), "flash_mha_bwd": dict(fa.BACKWARD_DESIGNS),
+               "conv3x3_chw routes": dict(gc.CONV_ROUTES),
+               "previous (the tools time it)": {**fa.PREVIOUS_LAUNCHES, **gc.PREVIOUS_LAUNCHES}}
     print(f"designs over the entry points' run: {designs}")
     check(fa.FORWARD_DESIGNS == {"sm90": fa.LAUNCHES["flash_mha_fwd"]} and not fa.PREVIOUS_LAUNCHES,
           f"the flash MHA API did not run the Hopper forward alone: {designs}")
+    check(fa.BACKWARD_DESIGNS == {"sm90": fa.LAUNCHES["flash_mha_bwd"]},
+          f"the flash MHA API did not run the Hopper backward alone: {designs}")
     counts = {
         "flash_mha_fwd": fa.LAUNCHES["flash_mha_fwd"],
         "flash_mha_bwd": fa.LAUNCHES["flash_mha_bwd"],

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) machinery of the attention kernels: the self-attention
 // forward (self_attention.cu) and backward (self_attention_bwd.cu), the
 // banded RS-MMA forward (banded_attention.cu) and backward
-// (banded_attention_bwd.cu) and the flash MHA forward (flash_mha.cu); its
-// copies, barriers and products also serve the direct 3x3 conv
-// (conv3x3_chw.cu).  TMA tile loads through
+// (banded_attention_bwd.cu) and the flash MHA forward and backward
+// (flash_mha.cu); its copies, barriers and products also serve the direct
+// 3x3 conv (conv3x3_chw.cu) and the GEMM of skip_gemm.cu, whose B operand
+// (row-major [K, N]) the wgmma reads MN-major from shared memory with the
+// transpose bit (wgmma_ss_mn).  TMA tile loads through
 // tensor maps of the packed projections, mbarrier rings between a producer
 // warp and the consumer warpgroups, and warpgroup products (wgmma.mma_async,
 // bf16 in, fp32 accumulate); the backward's two tile products (dq_products,
-// dkv_products), which the self-attention and banded backwards share, each with
-// its own mask.
+// dkv_products), which the self-attention, banded and flash MHA backwards
+// share, each with its own mask.
 //
 // The kernels it serves replace the TPU kernels `_self_fwd_kernel`,
 // `_self_bwd_kernel`, `_self_bwd_chunked_kernel`, `_banded_fwd_kernel`,
@@ -242,6 +244,62 @@ static __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 96] (+)= A[64 x 16] * B[16 x 96], A in shared memory (K-major), B in
+// shared memory MN-major (row-major [K, N] with N contiguous: the transpose bit).
+static __device__ __forceinline__ void wgmma_ss_mn_n96(float (&d)[48], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, "
+      "1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A in shared memory (K-major), B in
+// shared memory MN-major (row-major [K, N] with N contiguous: the transpose bit).
+static __device__ __forceinline__ void wgmma_ss_mn_n128(float (&d)[64], uint64_t desc_a,
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+      "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, "
+      "1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A (shared, K-major) * B (shared, MN-major), N = 96 or 128:
+// the GEMM's two halves of a 192- or 256-column tile.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 96) wgmma_ss_mn_n96(d, a, b, scale_d);
+  else wgmma_ss_mn_n128(d, a, b, scale_d);
+}
+
 // D[64 x 32] += A[64 x 16] * B[16 x 32], A in registers, B in shared memory (MN-major).
 static __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
                                                    uint64_t desc_b) {
@@ -386,7 +444,7 @@ __device__ __forceinline__ void thread_rows(int (&rows)[2], int r0) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward's tile products (self-attention and banded backward)
+// The backward's tile products (self-attention, banded and flash MHA backward)
 // ---------------------------------------------------------------------------
 // Column x of a tile's accumulator held by this thread: x = col(i) for its
 // element i, row (i >> 1) & 1 of its two rows.

@@ -62,7 +62,9 @@ SIGNATURES = {
     "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_flash_mha_fwd_mma": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
-    "mmdiff_gemm_bf16": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 3 + [_P],
+    "mmdiff_flash_mha_bwd_mma": [_P] * 10 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
+    "mmdiff_gemm_bf16": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 4 + [_P],
+    "mmdiff_gemm_bf16_mma": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 3 + [_P],
     "mmdiff_conv3x3_chw": [_P] * 3 + [_I] * 5 + [_P],
     "mmdiff_conv3x3_chw_mma": [_P] * 3 + [_I] * 5 + [_P],
     "mmdiff_channels_last_halo": [_P] * 2 + [_I] * 5 + [_P],

@@ -12,15 +12,18 @@ logsumexp, the backward a dq pass and a dk/dv pass.  Both layouts reach the
 same kernels through their (batch, head, row) strides, so neither is
 transposed in device memory; the kernel masks ragged Tq and Tk.
 
-The forward has two designs, chosen by one rule (:func:`forward_design`):
-bf16 at kernel head dims 32-128 runs the Hopper kernel (TMA, an mbarrier
-ring fed by a producer warp, ``wgmma``; ``csrc/attention_sm90.cuh``); fp32,
-and kernel head dims 192 and 256, run the previous mma.sync design.  Each
-launch counts in :data:`FORWARD_DESIGNS` by design.  The previous design's
-bf16 build stays reachable through ``_flash_mha_fwd_previous_cuda`` for the
-same-run comparison in ``chip_smoke.py`` and the card tests (counted in
-:data:`PREVIOUS_LAUNCHES`, never by the API).  The backward is the mma.sync
-design for every input and takes either forward's output and logsumexp.
+Each direction has two designs, chosen by one rule (:func:`forward_design`,
+:func:`backward_design`): bf16 at kernel head dims 32-128 runs the Hopper
+kernels (TMA, mbarrier rings fed by a producer warp, ``wgmma``;
+``csrc/attention_sm90.cuh``: the forward K1's, the backward the dq and dk/dv
+passes of K4/K5); fp32, and kernel head dims 192 and 256, run the previous
+mma.sync design.  Each launch counts in :data:`FORWARD_DESIGNS` or
+:data:`BACKWARD_DESIGNS` by design.  The previous design's bf16 builds stay
+reachable through ``_flash_mha_fwd_previous_cuda`` and
+``_flash_mha_bwd_previous_cuda`` for the same-run comparison in
+``chip_smoke.py`` and the card tests (counted in :data:`PREVIOUS_LAUNCHES`,
+never by the API).  Either backward takes either forward's output and
+logsumexp.
 
 Dispatch: a tensor on the CPU takes the plain version (:func:`mha_reference`
 and :func:`mha_backward_reference`); a CUDA tensor launches the kernels or
@@ -56,19 +59,21 @@ MAX_GRID_DIM = 65535  # B and H are grid dimensions of the kernels
 
 # Launches of each kernel since the last reset_launch_counts().
 LAUNCHES = {"flash_mha_fwd": 0, "flash_mha_bwd": 0}
-# The forward's launches by design: "sm90" (Hopper) or "mma" (previous).
+# Each direction's launches by design: "sm90" (Hopper) or "mma" (previous).
 FORWARD_DESIGNS: collections.Counter = collections.Counter()
-# Launches of the previous forward design (same-run comparison only).
+BACKWARD_DESIGNS: collections.Counter = collections.Counter()
+# Launches of the previous designs by kernel (same-run comparison only).
 PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
-# The forward's C entry point of each design (csrc/flash_mha.cu).
+# The C entry point of each design (csrc/flash_mha.cu).
 FORWARD_ENTRIES = {"sm90": "mmdiff_flash_mha_fwd", "mma": "mmdiff_flash_mha_fwd_mma"}
+BACKWARD_ENTRIES = {"sm90": "mmdiff_flash_mha_bwd", "mma": "mmdiff_flash_mha_bwd_mma"}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    FORWARD_DESIGNS.clear()
-    PREVIOUS_LAUNCHES.clear()
+    for counter in (FORWARD_DESIGNS, BACKWARD_DESIGNS, PREVIOUS_LAUNCHES):
+        counter.clear()
 
 
 def kernel_head_dim(d: int) -> int:
@@ -86,6 +91,13 @@ def forward_design(d: int, dtype: torch.dtype) -> Tuple[str, int]:
     kd = kernel_head_dim(block_attention.padded_head_dim(d))
     hopper = dtype == torch.bfloat16 and kd <= block_attention.HEAD_DIMS[-1]
     return ("sm90" if hopper else "mma"), kd
+
+
+def backward_design(d: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """``(design, kernel head dim)`` of the backward: the rule of
+    :func:`forward_design` (the Hopper passes for bf16 at kernel head dims
+    up to 128, the previous design for fp32 and 192 / 256)."""
+    return forward_design(d, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -214,11 +226,7 @@ def flash_launch_fwd(q, k, v, out, d: int) -> torch.Tensor:
     return lse
 
 
-def flash_launch_bwd(q, k, v, out, g, lse, dq, dk, dv, d: int) -> None:
-    """Launch the backward kernels on the forward's views, ``out``, ``lse``
-    and the output gradient ``g`` (out's strides), writing ``dq`` (q's
-    strides), ``dk`` and ``dv`` (k's strides), at the logit scale of head
-    dim ``d``."""
+def _launch_bwd(entry: str, q, k, v, out, g, lse, dq, dk, dv, d: int) -> None:
     b, h, tq, dk_ = q.shape
     tk = k.shape[2]
     _check_rows(q, k, v, out, g, dq, dk, dv)
@@ -230,15 +238,25 @@ def flash_launch_bwd(q, k, v, out, g, lse, dq, dk, dv, d: int) -> None:
     delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_flash_mha_bwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, tq, tk, dk_, kernel_head_dim(dk_), 1.0 / math.sqrt(d), *q.stride()[:3],
             *k.stride()[:3], *out.stride()[:3], int(q.dtype == torch.float32), stream,
         )
     if err:
-        raise RuntimeError(f"flash MHA backward kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash MHA backward kernel launch failed ({entry}): CUDA error {err}")
+
+
+def flash_launch_bwd(q, k, v, out, g, lse, dq, dk, dv, d: int) -> None:
+    """Launch the backward kernels of :func:`backward_design` on the
+    forward's views, ``out``, ``lse`` and the output gradient ``g`` (out's
+    strides), writing ``dq`` (q's strides), ``dk`` and ``dv`` (k's strides),
+    at the logit scale of head dim ``d``."""
+    design = backward_design(q.shape[-1], q.dtype)[0]
+    _launch_bwd(BACKWARD_ENTRIES[design], q, k, v, out, g, lse, dq, dk, dv, d)
     LAUNCHES["flash_mha_bwd"] += 1
+    BACKWARD_DESIGNS[design] += 1
 
 
 def _pad(x: torch.Tensor, dp: int) -> torch.Tensor:
@@ -276,18 +294,24 @@ def _flash_mha_fwd_previous_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     return out, lse
 
 
-def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels on the forward's q, k, v, ``out`` and
-    ``lse`` and the output gradient ``g`` (``out``'s layout); a D that is not
-    a multiple of 8 runs on zero-padded copies.  Returns ``(dq, dk, dv)`` in
-    the layouts of q, k, v."""
-    b, h, tq, tk, d = _check_operands(q, k, v)
+def _check_bwd(q, k, v, out, g) -> int:
+    """Validate the backward's operands; returns the head dim."""
+    d = _check_operands(q, k, v)[4]
     for name, x in (("out", out), ("g", g)):
         if not same_layout(x, q) or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(
                 f"{name}: expected q's shape {tuple(q.shape)}, strides {q.stride()} and dtype, "
                 f"got {tuple(x.shape)} {x.stride()} {x.dtype}"
             )
+    return d
+
+
+def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels on the forward's q, k, v, ``out`` and
+    ``lse`` and the output gradient ``g`` (``out``'s layout); a D that is not
+    a multiple of 8 runs on zero-padded copies.  Returns ``(dq, dk, dv)`` in
+    the layouts of q, k, v."""
+    d = _check_bwd(q, k, v, out, g)
     dp = block_attention.padded_head_dim(d)
     if dp != d:
         block_attention.HEAD_DIM_ROUTES["flash_mha_bwd:pad"] += 1
@@ -297,6 +321,17 @@ def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor
         gp = torch.empty_like(op).copy_(gp)
     flash_launch_bwd(qp, kp, vp, op, gp, lse, dq, dk, dv, d)
     return _unpad_into(q, dq), _unpad_into(k, dk), _unpad_into(v, dv)
+
+
+def _flash_mha_bwd_previous_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The previous design (mma.sync) of :func:`flash_mha_bwd_cuda` on the
+    same arguments, for the same-run comparison only (head dims that are
+    multiples of 8, ``g`` in ``out``'s strides)."""
+    d = _check_bwd(q, k, v, out, g)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd(BACKWARD_ENTRIES["mma"], q, k, v, out, g, lse, dq, dk, dv, d)
+    PREVIOUS_LAUNCHES["flash_mha_bwd"] += 1
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,14 @@ versions and the hand-written CUDA kernels' wrappers.
 * :func:`gemm_blocks` -- ``[Co, K] x [nblk, K, npx] -> [nblk, Co, npx]``,
   the GEMM core of ``tools/conv_chw_spike.py`` (``gemm()``), on the same
   kernel (``csrc/skip_gemm.cu``) with one part.
+
+  The GEMM kernel is the Hopper design (TMA boxes of A K-major and of B
+  MN-major, a producer warpgroup feeding a 4-stage ring, ``wgmma``,
+  persistent blocks), on block tiles of :func:`gemm_tiles`: 192 rows of A
+  by 192 or 256 columns of B, so that a tile covers the short side whole at
+  both hot shapes.  Its previous mma.sync design stays reachable through
+  ``_skip_gemm_previous_cuda`` / ``_gemm_blocks_previous_cuda`` for the
+  same-run comparison (counted in :data:`PREVIOUS_LAUNCHES`).
 * :func:`conv3x3_chw` -- 3x3 SAME conv in channel-major layout, ``[B, Ci,
   H, W]`` and ``[Co, Ci, 3, 3]`` -> ``[B, Co, H, W]``, as a direct implicit
   GEMM that never writes the im2col matrix (``csrc/conv3x3_chw.cu``;
@@ -37,6 +45,7 @@ their entry points.  Each kernel wrapper counts its launches in
 from __future__ import annotations
 
 import collections
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +53,9 @@ import torch.nn.functional as F
 from . import cuda_build
 from .common import Tolerance, kernel_path
 
-MAX_GRID_DIM = 65535  # M / 64 and the batch (GEMM), Co / 64 and B (previous conv) are grid dimensions
+MAX_GRID_DIM = 65535  # M / 64 and the batch (previous GEMM), Co / 64 and B (previous conv) are grid dimensions
+INT_MAX = 2**31 - 1  # the Hopper GEMM's tile count is an int
+GEMM_TILE_M = 192  # rows of A per block tile of the Hopper GEMM (three consumer warpgroups)
 # The three kernels against their fp32 plain versions: bf16 operands and a
 # bf16 output of size ~2 (up to K = 1728 terms of 0.05-scaled weights),
 # rounded at 2^-9 relative, fp32 accumulation in another order.
@@ -57,7 +68,7 @@ LAUNCHES = {"skip_gemm": 0, "gemm_blocks": 0, "conv3x3_chw": 0}
 CONV_ROUTES: collections.Counter = collections.Counter()
 # Launches of the conv's input copy (channels_last_halo_cuda), by kernel.
 HELPER_LAUNCHES: collections.Counter = collections.Counter()
-# Launches of the conv's previous design (same-run comparison only).
+# Launches of the previous designs by wrapper (same-run comparison only).
 PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -113,6 +124,34 @@ def channels_last_halo(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x.permute(0, 2, 3, 1), (0, -ci % 8, 1, 1, 1, 1)).contiguous()
 
 
+@dataclasses.dataclass(frozen=True)
+class GemmTiles:
+    """The Hopper GEMM's block tiles over ``C [batch, M, N]``: ``rows`` x
+    ``cols``, ``m_tiles`` x ``n_tiles`` of them per batch entry."""
+
+    rows: int
+    cols: int
+    m_tiles: int
+    n_tiles: int
+    batch: int
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles * self.batch
+
+
+def gemm_tiles(m: int, n: int, batch: int = 1) -> GemmTiles:
+    """The tile rule of the Hopper GEMM: 192 rows of A (three consumer
+    warpgroups of 64) by 192 columns of B when N <= 192, else 256 (two
+    m64n128 ``wgmma`` a warpgroup).  A tile then covers the short side
+    whole at both hot shapes: every row of A at the conv core (M = Co =
+    192), so each byte of B leaves device memory once; every column of B at
+    the skip projection (N = CO = 192), so each row of x1 and x2 is read
+    once."""
+    cols = 192 if n <= 192 else 256
+    return GemmTiles(GEMM_TILE_M, cols, -(-m // GEMM_TILE_M), -(-n // cols), batch)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -136,27 +175,35 @@ def _weights(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_gemm(a0, lda0, a0_batch, k0, a1, lda1, a1_batch, k1, b, ldb, b_batch, c, ldc,
-                 c_batch, m, n, batch, name):
-    if any(x % 8 for x in (k0, k1, n, lda0, lda1, ldb, ldc)):
+                 c_batch, m, n, batch, name, previous=False):
+    """Launch the Hopper GEMM (or, with ``previous``, its mma.sync design)
+    on the operands' pointers and element strides; counts the launch."""
+    if any(x % 8 for x in (k0, k1, n, lda0, lda1, ldb, ldc, a0_batch, a1_batch, b_batch, c_batch)):
         raise ValueError(f"{name}: K of each part, N and the row strides must be multiples of 8")
-    if (m + 63) // 64 > MAX_GRID_DIM or batch > MAX_GRID_DIM:
+    if min(m, n, k0 + k1) == 0:
+        raise ValueError(f"{name}: empty GEMM (M = {m}, N = {n}, K = {k0 + k1})")
+    tiles = gemm_tiles(m, n, batch)
+    if previous and ((m + 63) // 64 > MAX_GRID_DIM or batch > MAX_GRID_DIM):
         raise ValueError(f"{name}: M = {m} or batch = {batch} is too large for the kernel's grid")
+    if tiles.tiles > INT_MAX:
+        raise ValueError(f"{name}: {tiles.tiles} tiles are too many for the kernel")
     lib = cuda_build.load().lib
+    tile_arg = () if previous else (tiles.cols,)
+    entry = lib.mmdiff_gemm_bf16_mma if previous else lib.mmdiff_gemm_bf16
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_gemm_bf16(
+        err = entry(
             a0.data_ptr(), lda0, a0_batch, k0,
             a1.data_ptr() if a1 is not None else None, lda1, a1_batch, k1,
-            b.data_ptr(), ldb, b_batch, c.data_ptr(), ldc, c_batch, m, n, batch, stream,
+            b.data_ptr(), ldb, b_batch, c.data_ptr(), ldc, c_batch, m, n, batch, *tile_arg, stream,
         )
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{name} kernel launch failed ({'previous design' if previous else 'Hopper'}): "
+                           f"CUDA error {err}")
+    (PREVIOUS_LAUNCHES if previous else LAUNCHES)[name] += 1
 
 
-def skip_gemm_cuda(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the two-part GEMM on ``x1 [B, H, W, C1]``, ``x2 [B, H, W,
-    C2]`` and ``w [C1 + C2, CO]``; returns ``[B, H, W, CO]`` bf16."""
+def _skip_gemm_launch(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, previous: bool) -> torch.Tensor:
     _check_bf16(x1, "x1", 4)
     _check_bf16(x2, "x2", 4)
     c1, c2 = x1.shape[-1], x2.shape[-1]
@@ -168,13 +215,11 @@ def skip_gemm_cuda(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch
     co = wb.shape[1]
     m = x1.numel() // c1
     out = torch.empty((*x1.shape[:-1], co), dtype=torch.bfloat16, device=x1.device)
-    _launch_gemm(x1, c1, 0, c1, x2, c2, 0, c2, wb, co, 0, out, co, 0, m, co, 1, "skip_gemm")
+    _launch_gemm(x1, c1, 0, c1, x2, c2, 0, c2, wb, co, 0, out, co, 0, m, co, 1, "skip_gemm", previous)
     return out
 
 
-def gemm_blocks_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the GEMM on ``a [Co, K]`` (shared) and ``b [nblk, K, npx]``;
-    returns ``[nblk, Co, npx]`` bf16."""
+def _gemm_blocks_launch(a: torch.Tensor, b: torch.Tensor, previous: bool) -> torch.Tensor:
     _check_bf16(b, "b", 3)
     nblk, k, npx = b.shape
     if a.dim() != 2 or a.shape[1] != k:
@@ -183,8 +228,33 @@ def gemm_blocks_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     co = ab.shape[0]
     out = torch.empty((nblk, co, npx), dtype=torch.bfloat16, device=b.device)
     _launch_gemm(ab, k, 0, k, None, 0, 0, 0, b, npx, k * npx, out, npx, co * npx, co, npx, nblk,
-                 "gemm_blocks")
+                 "gemm_blocks", previous)
     return out
+
+
+def skip_gemm_cuda(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the two-part GEMM (the Hopper design) on ``x1 [B, H, W, C1]``,
+    ``x2 [B, H, W, C2]`` and ``w [C1 + C2, CO]``; returns ``[B, H, W, CO]``
+    bf16."""
+    return _skip_gemm_launch(x1, x2, w, previous=False)
+
+
+def gemm_blocks_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the GEMM (the Hopper design) on ``a [Co, K]`` (shared) and
+    ``b [nblk, K, npx]``; returns ``[nblk, Co, npx]`` bf16."""
+    return _gemm_blocks_launch(a, b, previous=False)
+
+
+def _skip_gemm_previous_cuda(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The previous design (mma.sync) of :func:`skip_gemm_cuda` on the same
+    arguments, for the same-run comparison only."""
+    return _skip_gemm_launch(x1, x2, w, previous=True)
+
+
+def _gemm_blocks_previous_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The previous design (mma.sync) of :func:`gemm_blocks_cuda` on the
+    same arguments, for the same-run comparison only."""
+    return _gemm_blocks_launch(a, b, previous=True)
 
 
 def _check_conv(x: torch.Tensor, w: torch.Tensor) -> None:

@@ -2,7 +2,8 @@
 in turns.
 
     python -m mm_diffusion_tpu_torch.tools.ab_self_attention DIR [DIR ...]
-        [--rounds 2] [--backward] [--calls 10] [--replays 10]
+        [--rounds 2] [--backward] [--kernels attention,flash,gemm]
+        [--calls 10] [--replays 10]
 
 Run it from the root of a checkout (it reads ``chip_smoke.py``'s shape
 lists there).  Each DIR holds another checkout: its ``mm_diffusion_tpu_torch``
@@ -17,8 +18,13 @@ and the training step's (batch 4, ``chip_smoke.TRAIN_BANDED_SHAPES``), the
 last shift of the span, and, with ``--backward``, of the self-attention
 backward (K4/K5) and of the banded backward (K6/K7) at the training step's
 shapes (``chip_smoke.TRAIN_SELF_SHAPES``, ``chip_smoke.TRAIN_BANDED_SHAPES``,
-with each pass's device time from torch.profiler beside it); each output is
-checked against the plain version first.  Needs a CUDA device.
+with each pass's device time from torch.profiler beside it).  With
+``--kernels`` naming ``flash``, the flash MHA forward (K8) at its hot
+shapes (``chip_smoke.FLASH_SHAPES``) and, with ``--backward``, its backward
+with each pass's device time; naming ``gemm``, the GEMM of S3 and the S4
+core at the JAX tools' shapes; ``attention`` (the default) is K1-K7 as
+above.  Each output is checked against the plain version first.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -29,14 +35,11 @@ import subprocess
 import sys
 
 
-def child(root: str, backward: bool, calls: int, replays: int) -> None:
+def child(root: str, backward: bool, kernels, calls: int, replays: int) -> None:
     sys.path.insert(0, os.getcwd())
-    from chip_smoke import SELF_SHAPES, TRAIN_SELF_SHAPES
-
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    from mm_diffusion_tpu_torch.ops import block_attention as ba
     from mm_diffusion_tpu_torch.ops import cuda_build
     from mm_diffusion_tpu_torch.utils.timing import device_ms, nvidia_smi_line
 
@@ -44,6 +47,21 @@ def child(root: str, backward: bool, calls: int, replays: int) -> None:
     print(f"[{root}] {nvidia_smi_line()}; library {built.path}, built in {built.build_seconds:.1f} s")
     g = torch.Generator(device="cuda").manual_seed(0)
     time = lambda fn: device_ms(fn, calls=calls, replays=replays)  # noqa: E731
+    if "attention" in kernels:
+        attention(root, g, time, backward)
+    if "flash" in kernels:
+        flash(root, g, time, backward)
+    if "gemm" in kernels:
+        gemm(root, g, time)
+
+
+def attention(root, g, time, backward) -> None:
+    from chip_smoke import SELF_SHAPES, TRAIN_SELF_SHAPES
+
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
     for kind, shapes in (("fwd", SELF_SHAPES), ("bwd", TRAIN_SELF_SHAPES if backward else [])):
         total = 0.0
         for label, n, t, c, h, layout in shapes:
@@ -118,16 +136,85 @@ def banded_backward(root, g, time) -> None:
         ms = time(call)
         kind = "K6" if lw == 1 else "K7"
         totals[kind] = totals.get(kind, 0.0) + ms
-        passes = ", ".join(f"{k} {us:.1f} us" for k, us in pass_us(call).items())
+        passes = ", ".join(f"{k} {us:.1f} us" for k, us in pass_us(call, "banded_attention_bwd").items())
         print(f"[{root}] banded bwd {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} lw={lw:2d} {ms:.4f} ms "
               f"(torch.profiler, per pass: {passes})")
     for kind, total in totals.items():
         print(f"[{root}] banded bwd {kind} summed {total:.4f} ms")
 
 
-def pass_us(call, calls: int = 5) -> dict:
-    """Device microseconds per call of each banded backward pass (dq, dkv),
-    from torch.profiler's kernel events over ``calls`` eager calls."""
+def flash(root, g, time, backward) -> None:
+    from chip_smoke import FLASH_SHAPES
+
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import fused_attention as fa
+
+    totals = {}
+    for label, b, h, tq, tk, d, layout in FLASH_SHAPES:
+        def make(t):
+            shape = (b, h, t, d) if layout == "bhtd" else (b, t, h, d)
+            x = torch.randn(shape, generator=g, device="cuda", dtype=torch.bfloat16)
+            return x if layout == "bhtd" else x.transpose(1, 2)  # [B, H, T, D] views
+
+        q, k, v, dout = make(tq), make(tk), make(tk), make(tq)
+        bthd = [x.transpose(1, 2) for x in (q, k, v, dout)]
+        out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+        err, ok = fa.FORWARD_TOL.check(out, fa.mha_reference(*bthd[:3]).transpose(1, 2))
+        if not ok:
+            raise SystemExit(f"[{root}] flash fwd {label}: error {err} over the limit")
+        runs = {"fwd": lambda: fa.flash_mha_fwd_cuda(q, k, v)}
+        if backward:
+            for a, r in zip(fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout), fa.mha_backward_reference(*bthd)):
+                err, ok = fa.BACKWARD_TOL.check(a, r.transpose(1, 2))
+                if not ok:
+                    raise SystemExit(f"[{root}] flash bwd {label}: error {err} over the limit")
+            runs["bwd"] = lambda: fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+        for kind, call in runs.items():
+            ms = time(call)
+            totals[kind] = totals.get(kind, 0.0) + ms
+            passes = ""
+            if kind == "bwd":
+                us = pass_us(call, "flash_mha_bwd")
+                passes = " (torch.profiler, per pass: " + ", ".join(f"{k} {x:.1f} us" for k, x in us.items()) + ")"
+            print(f"[{root}] flash {kind} {label:13s} B={b} H={h} Tq={tq:5d} Tk={tk:5d} D={d} {ms:.4f} ms{passes}")
+    for kind, total in totals.items():
+        print(f"[{root}] flash {kind} summed {total:.4f} ms")
+
+
+def gemm(root, g, time) -> None:
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import gemm_conv as gc
+    from mm_diffusion_tpu_torch.tools import bench_skip_conv, conv_chw_spike
+
+    bf = torch.bfloat16
+    b, h, w, c, co = bench_skip_conv.SHAPE
+    x1, x2 = (torch.randn((b, h, w, c), generator=g, device="cuda", dtype=bf) for _ in range(2))
+    wt = torch.randn((2 * c, co), generator=g, device="cuda") * 0.05
+    err, ok = gc.GEMM_TOL.check(gc.skip_gemm_cuda(x1, x2, wt), gc.skip_gemm_reference(x1, x2, wt))
+    if not ok:
+        raise SystemExit(f"[{root}] skip_gemm: error {err} over the limit")
+    print(f"[{root}] gemm S3 B={b} {h}x{w} C={c}+{c} -> {co} {time(lambda: gc.skip_gemm_cuda(x1, x2, wt)):.4f} ms")
+    del x1, x2
+    total = 0.0
+    for npx, nblk in conv_chw_spike.GEMM_CASES:
+        a = torch.randn((conv_chw_spike.GEMM_CO, conv_chw_spike.GEMM_K), generator=g, device="cuda") * 0.05
+        bb = torch.randn((nblk, conv_chw_spike.GEMM_K, npx), generator=g, device="cuda", dtype=bf)
+        err, ok = gc.GEMM_TOL.check(gc.gemm_blocks_cuda(a, bb), gc.gemm_blocks_reference(a, bb))
+        if not ok:
+            raise SystemExit(f"[{root}] gemm_blocks: error {err} over the limit")
+        ms = time(lambda: gc.gemm_blocks_cuda(a, bb))
+        total += ms
+        print(f"[{root}] gemm S4 core npx={npx} nblk={nblk} {ms:.4f} ms")
+        del bb
+    print(f"[{root}] gemm S4 core summed {total:.4f} ms")
+
+
+def pass_us(call, kernel: str, calls: int = 5) -> dict:
+    """Device microseconds per call of each pass (dq, dkv) of the backward
+    whose kernels' names hold ``kernel``, from torch.profiler's kernel
+    events over ``calls`` eager calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -137,7 +224,7 @@ def pass_us(call, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     us = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and "banded_attention_bwd" in e.name:
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
             key = "dq" if "_dq_" in e.name else "dkv"
             us[key] = us.get(key, 0.0) + e.time_range.elapsed_us() / calls
     return us
@@ -148,18 +235,23 @@ def main(argv=None) -> int:
     ap.add_argument("dirs", nargs="+", help="checkouts to compare")
     ap.add_argument("--rounds", type=int, default=2, help="passes over the checkouts, alternating order")
     ap.add_argument("--backward", action="store_true", help="also time the backwards")
+    ap.add_argument("--kernels", default="attention",
+                    help="comma-separated: attention (K1-K7), flash (K8), gemm (S3, S4 core)")
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--replays", type=int, default=10)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= {"attention", "flash", "gemm"}:
+        ap.error(f"--kernels: unknown {sorted(set(kernels) - {'attention', 'flash', 'gemm'})}")
     if args.child:
-        child(args.child, args.backward, args.calls, args.replays)
+        child(args.child, args.backward, kernels, args.calls, args.replays)
         return 0
     for r in range(args.rounds):
         for root in args.dirs if r % 2 == 0 else args.dirs[::-1]:
             # the file, not the module: the child must import the package from `root`
-            cmd = [sys.executable, os.path.abspath(__file__), root, "--child", root,
-                   "--calls", str(args.calls), "--replays", str(args.replays)]
+            cmd = [sys.executable, os.path.abspath(__file__), root, "--child", root, "--kernels",
+                   args.kernels, "--calls", str(args.calls), "--replays", str(args.replays)]
             rc = subprocess.run(cmd + (["--backward"] if args.backward else [])).returncode
             if rc:
                 return rc

@@ -12,7 +12,8 @@ chip (``ops/gemm_conv.py::conv3x3_chw``).  Modes:
          (channels_last) at the SR U-Net's 16 x 192 x 256^2 -> 192; on the
          card also the kernel's input copy alone and its previous design
   gemm   the GEMM core alone, ``[192, 1728] x [nblk, 1728, npx]`` for the
-         JAX tool's three (npx, nblk) cases, against ``torch.matmul``
+         JAX tool's three (npx, nblk) cases, against ``torch.matmul``; on the
+         card also the GEMM's previous design
 
 Times are device milliseconds per call (``calls`` calls captured in one CUDA
 graph, replayed ``replays`` times); on the CPU, host-clock ms.
@@ -102,6 +103,8 @@ def gemm(dev, dtype, gen, args) -> dict:
             "matmul": time_fn(lambda: torch.matmul(a, bb)),
             "kernel": time_fn(lambda: gemm_conv.gemm_blocks(a, bb)),
         }
+        if dev.type == "cuda":  # the kernel's previous design
+            row["previous"] = time_fn(lambda: gemm_conv._gemm_blocks_previous_cuda(a, bb))
         results[(npx, nblk)] = row
         print(f"gemm [{GEMM_CO}x{GEMM_K}]x[{GEMM_K}x{npx}] x{nblk}: "
               + "  ".join(f"{k} {v:.4f} ms ({flops / v / 1e9:.0f} GFLOP/s)" for k, v in row.items()),

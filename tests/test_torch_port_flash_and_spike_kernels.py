@@ -1,9 +1,9 @@
 """The flash MHA kernels (K8) and the spike kernels (S1-S4) against their
 plain PyTorch versions, on the card: both K8 layouts, Tq != Tk with ragged
 ends, head dims on every built size (32 and 192 included) and between two; the K1 variants at ragged and packed lengths; the
-GEMM and the conv at ragged sizes.  The K8 forward and the conv also
-against their previous (mma.sync) designs at the same inputs, with the
-launch counters showing which design and which route ran.
+GEMM and the conv at ragged sizes.  The K8 forward and backward, the GEMM
+and the conv also against their previous (mma.sync) designs at the same
+inputs, with the launch counters showing which design and which route ran.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 ``cuda`` and skips without a CUDA device.  On a GPU machine:
@@ -69,9 +69,52 @@ def test_flash_mha_kernels_ragged(cuda, layout, d, tq, tk):
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d**0.5
     _close(lse, torch.logsumexp(logits, dim=-1), fa.LSE_TOL)
     grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+    assert fa.BACKWARD_DESIGNS == {"sm90" if d <= 128 else "mma": 1}
     refs = fa.mha_backward_reference(*_bthd(q, k, v, dout))
-    for got, ref in zip(grads, refs):
+    for got, ref, like in zip(grads, refs, (q, k, v)):
+        assert got.stride() == like.stride()
         _bwd_close(got, ref.transpose(1, 2))
+
+
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("tq,tk", [(1, 5), (17, 33), (64, 64), (100, 1024), (130, 65), (1024, 400)])
+def test_flash_mha_bwd_matches_previous_design(cuda, layout, d, tq, tk):
+    """The Hopper backward and the previous design on the same inputs, in
+    the caller's strides: each gradient within the limit of the plain
+    version, and of the other design's."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v, dout = _operands(g, cuda, 2, 3, tq, tk, d, layout)
+    out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+    fa.reset_launch_counts()
+    grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+    prev = fa._flash_mha_bwd_previous_cuda(q, k, v, out, lse, dout)
+    assert fa.BACKWARD_DESIGNS == {"sm90": 1} and fa.PREVIOUS_LAUNCHES == {"flash_mha_bwd": 1}
+    refs = fa.mha_backward_reference(*_bthd(q, k, v, dout))
+    for got, old, ref, like in zip(grads, prev, refs, (q, k, v)):
+        assert got.stride() == old.stride() == like.stride()
+        _bwd_close(got, ref.transpose(1, 2))
+        _bwd_close(old, ref.transpose(1, 2))
+        _bwd_close(got, old)
+
+
+def test_flash_mha_bwd_design_counts(cuda):
+    """bf16 up to kernel head dim 128 launches the Hopper backward, fp32 and
+    192 / 256 the previous design; the previous design's own entry counts
+    apart and never as the API's."""
+    g = torch.Generator(device=cuda).manual_seed(16)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (32, 40, 128, 136, 256):
+            q, k, v, dout = _operands(g, cuda, 1, 2, 70, 90, d, "bthd", dtype)
+            out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+            fa.reset_launch_counts()
+            fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+            design = "sm90" if dtype == torch.bfloat16 and d <= 128 else "mma"
+            assert fa.backward_design(d, dtype)[0] == design
+            assert fa.BACKWARD_DESIGNS == {design: 1} and fa.LAUNCHES["flash_mha_bwd"] == 1
+            fa._flash_mha_bwd_previous_cuda(q, k, v, out, lse, dout)
+            assert fa.PREVIOUS_LAUNCHES == {"flash_mha_bwd": 1}
+            assert fa.BACKWARD_DESIGNS == {design: 1} and fa.LAUNCHES["flash_mha_bwd"] == 1
 
 
 @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
@@ -128,15 +171,21 @@ def test_flash_mha_autograd_both_entry_points_and_counts(cuda):
     for leaf, ref in zip(bhtd, refs):
         _bwd_close(leaf.grad, ref.transpose(1, 2))
     assert fa.LAUNCHES == {"flash_mha_fwd": 2, "flash_mha_bwd": 2}
+    assert fa.BACKWARD_DESIGNS == {"mma": 2}  # fp32 leaves
 
 
 def test_flash_mha_backward_is_deterministic(cuda):
+    """Bitwise equal gradients over two runs: the Hopper backward (bf16)
+    and the previous design (fp32), Tq and Tk ragged."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    q, k, v, dout = _operands(g, cuda, 4, 4, 300, 129, 64, "bthd")
-    out, lse = fa.flash_mha_fwd_cuda(q, k, v)
-    first = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
-    second = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for dtype, design in ((torch.bfloat16, "sm90"), (torch.float32, "mma")):
+        q, k, v, dout = _operands(g, cuda, 4, 4, 300, 129, 64, "bthd", dtype)
+        out, lse = fa.flash_mha_fwd_cuda(q, k, v)
+        fa.reset_launch_counts()
+        first = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+        second = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
+        assert fa.BACKWARD_DESIGNS == {design: 2}
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("d", [8, 40, 160, 256])
@@ -185,25 +234,45 @@ def test_attention_variant_counts(cuda):
     assert ba.LAUNCHES["self_attention"] == 4  # stock, hoist, recip, exp2 launch the stock kernel
 
 
+# M = 21 .. 2080 rows (ragged past 192 at (3, 7, 13) and (2, 40, 26)); K0 = 16, 40, 64, 72
+# (not a multiple of 64 but for 64 and 192); CO 8 .. 264 (one or two 192- or 256-column tiles).
 @pytest.mark.parametrize("shape,c1,c2,co", [
     ((1, 3, 7), 16, 40, 8), ((2, 5, 9), 192, 192, 192), ((1, 4, 33), 64, 8, 200),
+    ((3, 7, 13), 40, 192, 192), ((2, 40, 26), 72, 24, 264),
 ])
 def test_skip_gemm(cuda, shape, c1, c2, co):
+    """The Hopper GEMM (through the API) and its previous design."""
     g = torch.Generator(device=cuda).manual_seed(4)
     x1 = torch.randn((*shape, c1), generator=g, device=cuda, dtype=torch.bfloat16)
     x2 = torch.randn((*shape, c2), generator=g, device=cuda, dtype=torch.bfloat16)
     w = torch.randn((c1 + c2, co), generator=g, device=cuda) * 0.05
+    gc.reset_launch_counts()
     out = gc.skip_gemm(x1, x2, w)
-    assert out.dtype == torch.bfloat16 and out.shape == (*shape, co)
-    _close(out, gc.skip_gemm_reference(x1, x2, w), gc.GEMM_TOL)
+    prev = gc._skip_gemm_previous_cuda(x1, x2, w)
+    assert gc.LAUNCHES["skip_gemm"] == 1 and gc.PREVIOUS_LAUNCHES == {"skip_gemm": 1}
+    ref = gc.skip_gemm_reference(x1, x2, w)
+    for o in (out, prev):
+        assert o.dtype == torch.bfloat16 and o.shape == (*shape, co)
+        _close(o, ref, gc.GEMM_TOL)
 
 
-@pytest.mark.parametrize("co,k,nblk,npx", [(192, 1728, 2, 256), (100, 72, 3, 24), (8, 8, 1, 8)])
+# Co 8 .. 200 (ragged past 192 at 200), K 8 .. 1728 (72, 136: not multiples of 64), npx 8 .. 264
+# (ragged past 256 at 264).
+@pytest.mark.parametrize("co,k,nblk,npx", [
+    (192, 1728, 2, 256), (100, 72, 3, 24), (8, 8, 1, 8), (200, 136, 2, 264),
+])
 def test_gemm_blocks(cuda, co, k, nblk, npx):
+    """The Hopper GEMM (through the API) and its previous design."""
     g = torch.Generator(device=cuda).manual_seed(5)
     a = torch.randn((co, k), generator=g, device=cuda) * 0.05
     b = torch.randn((nblk, k, npx), generator=g, device=cuda, dtype=torch.bfloat16)
-    _close(gc.gemm_blocks(a, b), gc.gemm_blocks_reference(a, b), gc.GEMM_TOL)
+    gc.reset_launch_counts()
+    out = gc.gemm_blocks(a, b)
+    prev = gc._gemm_blocks_previous_cuda(a, b)
+    assert gc.LAUNCHES["gemm_blocks"] == 1 and gc.PREVIOUS_LAUNCHES == {"gemm_blocks": 1}
+    ref = gc.gemm_blocks_reference(a, b)
+    for o in (out, prev):
+        _close(o, ref, gc.GEMM_TOL)
 
 
 @pytest.mark.parametrize("b,ci,co,h,w", [
@@ -247,6 +316,7 @@ def test_gemm_conv_counts_and_refusals(cuda):
     gc.gemm_blocks(torch.randn((8, 8), device=cuda), torch.randn((2, 8, 8), device=cuda).bfloat16())
     gc.conv3x3_chw(x, torch.randn((8, 4, 3, 3), device=cuda))
     assert gc.LAUNCHES == {"skip_gemm": 1, "gemm_blocks": 1, "conv3x3_chw": 1}
+    assert not gc.PREVIOUS_LAUNCHES
     x6 = torch.randn((1, 4, 4, 6), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
         gc.skip_gemm(x6, x6, torch.randn((12, 8), device=cuda))

@@ -3,8 +3,8 @@ against the JAX package's, on the CPU (the port's plain path), in fp32:
 `flash_mha` / `flash_mha_bhtd` against JAX's (the einsum path on the CPU)
 at 1e-5 abs (summation order only), and against JAX's library TPU flash
 kernel run in interpret mode -- with the padding and segment-id masks of a
-ragged Tk, as tests/test_fused_attention.py runs it -- outputs and q/k/v
-gradients at 2e-4 (that test's tolerance)."""
+ragged Tk or Tq, as `flash_mha_bhtd` builds them -- outputs and q/k/v
+gradients at 2e-4 (tests/test_fused_attention.py's tolerance)."""
 
 import math
 
@@ -45,25 +45,35 @@ def test_output_takes_v_dtype():
     assert pfu.flash_mha(q, q, v).dtype == torch.float32
 
 
-@pytest.mark.parametrize("t_k", [256, 200])  # 200: the JAX kernel pads to 256 and masks
-def test_matches_library_flash_kernel_interpret_mode(t_k):
+@pytest.mark.parametrize("t_q,t_k", [
+    pytest.param(256, 256, id="256"),
+    pytest.param(256, 200, id="200"),  # the JAX kernel pads Tk to 256 and masks
+    pytest.param(100, 256, id="q100-256"),  # a ragged Tq: q padded to 128, its rows masked
+])
+def test_matches_library_flash_kernel_interpret_mode(t_q, t_k):
+    """Outputs and gradients of the library kernel's forward and its dq /
+    dkv backward kernels, with the padding and segment ids that
+    `flash_mha_bhtd` builds (mm_diffusion_tpu/ops/fused_attention.py:
+    every T padded to a multiple of 128, each pad masked by q and kv
+    segment ids), against the port's plain forward and backward."""
     from jax.experimental.pallas import tpu as pltpu
     from jax.experimental.pallas.ops.tpu import flash_attention as fa
 
-    b, h, t_q, d = 2, 2, 256, 64
+    b, h, d = 2, 2, 64
     q, k, v = randn(3, b, h, t_q, d), randn(4, b, h, t_k, d), randn(5, b, h, t_k, d)
     g = randn(6, b, h, t_q, d)
-    pad = (-t_k) % 128
+    pad_q, pad_k = (-t_q) % 128, (-t_k) % 128
     seg = None
-    if pad:
+    if pad_q or pad_k:
         seg = fa.SegmentIds(
-            q=jnp.ones((b, t_q), jnp.int32),
-            kv=(jnp.arange(t_k + pad) < t_k).astype(jnp.int32)[None].repeat(b, 0),
+            q=(jnp.arange(t_q + pad_q) < t_q).astype(jnp.int32)[None].repeat(b, 0),
+            kv=(jnp.arange(t_k + pad_k) < t_k).astype(jnp.int32)[None].repeat(b, 0),
         )
 
     def loss(q, k, v):
-        kp, vp = (jnp.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0))) for x in (k, v))
-        out = fa.flash_attention(q, kp, vp, segment_ids=seg, sm_scale=1.0 / math.sqrt(d))
+        qp = jnp.pad(q, ((0, 0), (0, 0), (0, pad_q), (0, 0)))
+        kp, vp = (jnp.pad(x, ((0, 0), (0, 0), (0, pad_k), (0, 0))) for x in (k, v))
+        out = fa.flash_attention(qp, kp, vp, segment_ids=seg, sm_scale=1.0 / math.sqrt(d))[:, :, :t_q]
         return jnp.sum(out * jnp.asarray(g)), out
 
     with pltpu.force_tpu_interpret_mode():
@@ -79,10 +89,11 @@ def test_matches_library_flash_kernel_interpret_mode(t_k):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref_grad), **KERNEL_TOL)
 
 
-@pytest.mark.parametrize("tq,tk", [(24, 24), (24, 9)])
+@pytest.mark.parametrize("tq,tk", [(24, 24), (24, 9), (100, 65), (65, 130)])
 def test_gradients_match_jax_vjp(tq, tk):
     """Both layouts' CPU backward (the plain backward behind the autograd
-    function) against jax.vjp of JAX's flash_mha (einsum on the CPU)."""
+    function) against jax.vjp of JAX's flash_mha (einsum on the CPU), also
+    where Tq and Tk cross the kernels' 64-row tile on either side."""
     b, h, d = 2, 3, 64
     q, k, v, g = randn(7, b, tq, h, d), randn(8, b, tk, h, d), randn(9, b, tk, h, d), randn(10, b, tq, h, d)
     _, vjp = jax.vjp(jfu.flash_mha, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -114,3 +125,4 @@ def test_cpu_path_launches_no_kernel():
     x = torch.randn(1, 16, 2, 64, requires_grad=True)
     pfu.flash_mha(x, x, x).sum().backward()
     assert pfu.LAUNCHES == {"flash_mha_fwd": 0, "flash_mha_bwd": 0}
+    assert not pfu.FORWARD_DESIGNS and not pfu.BACKWARD_DESIGNS
