@@ -62,16 +62,18 @@ Phases, each printed as it runs; any failure exits non-zero:
      and backward (K8, ops/fused_attention.py) at its hot shapes in both
      layouts (and at head dims 32, 256, and 12 and 36 on zero-padded
      copies), the K1 variants of the A/B tool
-     (S1/S2: rows, nomax, noexp),
+     (S1/S2: rows, nomax, noexp; also at head dims 12, 36, 136 and 200
+     through their routes, checked with the route and launch counters),
      the two-part skip GEMM (S3), the direct 3x3 conv and its GEMM core
      (S4), each against its plain version as in phase 3 with its device
      time, plain time, library time and bound, and planted faults that
      the lse and noexp limits must reject (for the K8 forward, the zero
      keys that pad Tk to 128 and to 64 let into the softmax); the K8
-     forward and backward, the GEMM (S3 and the S4 core) and the conv,
-     each the Hopper design, also checked and timed in their previous
-     design (mma.sync), which they must beat at each K8 hot shape, at the
-     S3 shape, at each S4-core case and at the conv's bench shape (the
+     forward and backward, the K1 variants, the GEMM (S3 and the S4 core)
+     and the conv, each the Hopper design, also checked and timed in their
+     previous design (mma.sync), which they must beat at each K8 hot shape,
+     at each variant's main case, at the S3 shape, at each S4-core case
+     and at the conv's bench shape (the
      conv's time includes its input copy, conv3x3_chw[halo], also checked
      and timed alone), and the Hopper K8 backward must give bitwise equal
      gradients in two runs; 7.2 the entry points
@@ -87,10 +89,10 @@ The last three lines of standard output are the kernels' JSON record
 phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
 graph replay re-runs captured launches without counting them -- and the
 per-call numbers of phases 3, 3b and 7.1 summed over each kernel's main-path
-or hot shapes; K1-K7, the K8 forward and backward, S3, the conv and the S4
-core also carry ``previous_ms``, their previous design's time in the same
-run), the card's ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+or hot shapes; K1-K7, the K8 forward and backward, S1, S2, S3, the conv
+and the S4 core also carry ``previous_ms``, their previous design's time in
+the same run), the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -285,12 +287,13 @@ def bound_ms(flops: float, nbytes: float):
     return max(ops, mem), "operations" if ops >= mem else "bytes"
 
 
-def self_attention_work(n, t, c, h, backward=False):
-    """(FLOPs, bytes) of packed self-attention, bf16 in and out, fp32 lse:
-    the forward's two [T, T] products, or the backward's five (S, dP, dV,
-    dQ, dK), each input read once and each output written once."""
+def self_attention_work(n, t, c, h, backward=False, lse=True):
+    """(FLOPs, bytes) of packed self-attention, bf16 in and out, fp32 lse
+    (none without ``lse``: the K1 variants): the forward's two [T, T]
+    products, or the backward's five (S, dP, dV, dQ, dK), each input read
+    once and each output written once."""
     d = c // h
-    rows, lse = n * t, n * h * t * 4
+    rows, lse = n * t, n * h * t * 4 * lse
     if not backward:
         return 4 * n * h * t * t * d, rows * (3 * c + c) * 2 + lse
     return 10 * n * h * t * t * d, rows * (3 * c + c + c + 3 * c) * 2 + lse
@@ -406,7 +409,9 @@ def build() -> None:
     print(f"library: {built.path}")
     print(f"nvcc compile {built.build_seconds:.2f} s, load total {time.perf_counter() - t0:.2f} s")
     table = ptxas_table(built.log)
-    print(f"ptxas per kernel ({len(table)}): registers, spill stores / loads (bytes)")
+    print(f"ptxas per kernel ({len(table)}): registers, spill stores / loads (bytes); "
+          "self_attention_sm90_kernel<head dim, warpgroups, mode>: mode 0 K1, 1 rows (S1; at "
+          "T <= 32 self_attention_rows_sm90_kernel), 2 nomax, 3 noexp (S2)")
     for name, regs, st, ld in table:
         flag = " (Hopper design)" if "sm90" in name else ""
         print(f"  {name:48s} {regs:4d} regs  spill {st}/{ld}{flag}")
@@ -1127,13 +1132,26 @@ def flash_parity(record):
                   + ("" if main else " [extra case, not summed]"))
 
 
+# The variants at head dims 12 and 36 (a zero-padded copy) and 136 and 200
+# (the kernels built at 192 and 256), checked and timed, not in the sums.
+# (label, N, T, C, heads).
+VARIANT_EXTRA_CASES = [
+    ("head dim 12", 1024, 16, 48, 4),
+    ("head dim 36", 16, 256, 144, 4),
+    ("head dim 136", 256, 25, 272, 2),
+    ("head dim 200", 16, 1024, 400, 2),
+]
+
+
 def variant_parity(record):
     """Phase 7.1 (S1, S2): the K1 variants that are kernels of their own
-    (rows, nomax, noexp) against their plain versions at the JAX tools'
-    cases (rows: S1's four; nomax, noexp: S2's three).  noexp's limit must
-    also reject two planted faults: the plain output with each sequence's
-    keys and values taken from its neighbour, and without the 1/sqrt(d)
-    scale."""
+    (rows, nomax, noexp), each the Hopper design, against their plain
+    versions and their previous design (mma.sync, which they must beat) at
+    the JAX tools' cases (rows: S1's four; nomax, noexp: S2's three), and
+    at VARIANT_EXTRA_CASES' head dims through their routes, with the
+    counters showing the route and the kernel.  noexp's limit must also
+    reject two planted faults: the plain output with each sequence's keys
+    and values taken from its neighbour, and without the 1/sqrt(d) scale."""
     import torch
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
@@ -1143,33 +1161,54 @@ def variant_parity(record):
     g = torch.Generator(device=dev).manual_seed(8)
     for variant, cases in (("rows", CASES), ("nomax", CASES[:3]), ("noexp", CASES[:3])):
         name = f"self_attention_variant[{variant}]"
-        for label, n, t, c, h in cases:
+        for label, n, t, c, h in cases + VARIANT_EXTRA_CASES:
+            main = (label, n, t, c, h) in cases
+            d = c // h
             qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
             tol = ba.VARIANT_TOL[variant]
+            ba.reset_launch_counts()
             out = ba.self_attention_variant_cuda(qkv, h, variant)
+            dp = ba.padded_head_dim(d)
+            routes = {k: v for k, v in {"self_attention_variant:pad": int(dp != d),
+                                        "self_attention_variant:wide": int(dp > 128)}.items() if v}
+            check(dict(ba.VARIANT_LAUNCHES) == {variant: 1} and dict(ba.HEAD_DIM_ROUTES) == routes
+                  and not ba.PREVIOUS_LAUNCHES and ba.LAUNCHES["self_attention"] == 0,
+                  f"{name} {label}: launches {dict(ba.VARIANT_LAUNCHES)}, routes {dict(ba.HEAD_DIM_ROUTES)}")
             ref = ba.self_attention_variant_reference(qkv, h, variant)
             err, ok = tol.check(out, ref)
             check(ok, f"{name} {label}: err {err}")
-            if variant == "noexp":
+            if variant == "noexp" and main:
                 mixed = torch.cat([qkv[..., :c], qkv.roll(1, dims=0)[..., c:]], dim=-1)
                 faults = {
                     "keys of the neighbouring sequence": ba.self_attention_variant_reference(mixed, h, variant),
-                    "no 1/sqrt(d) scale": ref * (c // h) ** 0.5,
+                    "no 1/sqrt(d) scale": ref * d ** 0.5,
                 }
                 readings = {k: tol.check(out, f) for k, f in faults.items()}
                 print(f"{name} {label}: err {err:.3e}, max|plain| {ref.float().abs().max().item():.3e} "
                       f"({tol}); planted faults: "
                       + ", ".join(f"{k} err {e:.3e} rejected {not o}" for k, (e, o) in readings.items()))
                 check(not any(o for _, o in readings.values()), f"{name} {label}: a planted fault passes")
-            del out, ref
             ms = time_ms(lambda: ba.self_attention_variant_cuda(qkv, h, variant))
+            prev = ""
+            if main:
+                previous = lambda: ba._self_attention_variant_previous_cuda(qkv, h, variant)  # noqa: E731
+                prev_err, prev_ok = tol.check(previous(), ref)
+                check(prev_ok, f"{name} {label} (previous design): err {prev_err}")
+                prev_ms = time_ms(previous)
+                prev = f"previous={prev_ms:.4f} ms (err {prev_err:.3e}) "
+            del out, ref
             plain_ms = time_ms(lambda: ba.self_attention_variant_reference(qkv, h, variant))
             lib_ms = library_attention_ms(packed_views("thirds", h), [qkv])
-            bound = bound_ms(*self_attention_work(n, t, c, h))
+            bound = bound_ms(*self_attention_work(n, t, c, h, lse=False))
             print(f"{name:30s} {label:13s} N={n:5d} T={t:5d} C={c} H={h:2d} err={err:.3e} "
-                  f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library (SDPA fwd)={lib_ms:.4f} ms "
-                  f"bound={bound[0]:.4f} ms ({bound[1]})")
-            record(name, err, ms, plain_ms, bound, lib_ms)
+                  f"kernel={ms:.4f} ms {prev}plain={plain_ms:.4f} ms library (SDPA fwd)={lib_ms:.4f} ms "
+                  f"bound={bound[0]:.4f} ms ({bound[1]})"
+                  + ("" if main else f" [extra case, route {routes or 'kernel'}, not summed]"))
+            if main:
+                check(ms < prev_ms, f"{name} {label}: the Hopper design ({ms:.4f} ms) is not faster than "
+                                    f"the previous one ({prev_ms:.4f} ms)")
+                record(name, err, ms, plain_ms, bound, lib_ms, prev_ms)
+            del qkv
 
 
 def gemm_conv_parity(record):
@@ -1331,7 +1370,8 @@ def entry_points():
     torch.cuda.synchronize()
     designs = {"flash_mha_fwd": dict(fa.FORWARD_DESIGNS), "flash_mha_bwd": dict(fa.BACKWARD_DESIGNS),
                "conv3x3_chw routes": dict(gc.CONV_ROUTES),
-               "previous (the tools time it)": {**fa.PREVIOUS_LAUNCHES, **gc.PREVIOUS_LAUNCHES}}
+               "previous (the tools time it)": {**fa.PREVIOUS_LAUNCHES, **gc.PREVIOUS_LAUNCHES,
+                                                **ba.PREVIOUS_LAUNCHES}}
     print(f"designs over the entry points' run: {designs}")
     check(fa.FORWARD_DESIGNS == {"sm90": fa.LAUNCHES["flash_mha_fwd"]} and not fa.PREVIOUS_LAUNCHES,
           f"the flash MHA API did not run the Hopper forward alone: {designs}")

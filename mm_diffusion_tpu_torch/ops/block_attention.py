@@ -48,14 +48,21 @@ dims only).
 :func:`self_attention_variant` serves the A/B tool
 ``tools/bench_attn_variants.py`` (the TPU spikes' K1 variants, see
 :data:`VARIANTS`); the model never calls it.  Its launches are counted per
-variant in :data:`VARIANT_LAUNCHES`.
+variant in :data:`VARIANT_LAUNCHES`.  In bf16, ``rows``, ``nomax`` and
+``noexp`` run modes of K1's Hopper kernel (``rows`` at ``T <= 32`` on
+persistent blocks, :func:`rows_launch_plan`), built for every head dim in
+:data:`VARIANT_HEAD_DIMS`, so a ``d`` above 128 needs no K8 route: it runs
+the variant kernel built at 192 or 256 (route ``wide``); ``d % 8 != 0``
+takes the zero-padded copy (route ``pad``).  fp32 runs the previous
+design, built up to 128.  The previous design's bf16 build stays reachable
+through ``_self_attention_variant_previous_cuda``.
 """
 
 from __future__ import annotations
 
 import collections
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +72,7 @@ from .common import Tolerance, kernel_path
 
 LAYOUTS = ("thirds", "per_head")
 HEAD_DIMS = (32, 64, 96, 128)  # the head dims the kernels are built for
+VARIANT_HEAD_DIMS = HEAD_DIMS + (192, 256)  # the bf16 variant kernels' (rows, nomax, noexp)
 MAX_HEAD_DIM = 256  # the largest head dim any kernel of the port is built for (K8)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -84,18 +92,20 @@ VARIANT_LAUNCHES: collections.Counter = collections.Counter()
 # Launches of the previous designs (same-run comparison only).
 PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
 # Calls that took a head-dim route, by "<wrapper>:<route>": "pad" (the
-# kernel ran on a zero-padded copy) and "flash" (the K8 kernels ran; their
-# launches count in fused_attention.LAUNCHES).
+# kernel ran on a zero-padded copy), "flash" (the K8 kernels ran; their
+# launches count in fused_attention.LAUNCHES) and "wide" (a variant kernel
+# built at head dim 192 or 256 ran).
 HEAD_DIM_ROUTES: collections.Counter = collections.Counter()
 
 # The K1 forward's A/B variants (TPU spikes tools/bench_attn_variants.py and
 # tools/bench_attn_variants2.py), thirds layout.  On this card hoist, recip
 # and exp2 are what the stock kernel already does, so those names launch it;
-# rows, nomax and noexp are compile-time variants of it (csrc/self_attention.cu).
+# rows, nomax and noexp are compile-time modes of it (csrc/self_attention.cu).
 VARIANTS = ("stock", "hoist", "recip", "exp2", "rows", "nomax", "noexp")
 VARIANT_CODES = {"rows": 1, "nomax": 2, "noexp": 3}
 NOMAX_CLAMP = 40.0  # nomax: logits clamped here; exact only below it
 NOEXP_SCALE = 1e-3  # noexp: p = NOEXP_SCALE * scaled logits
+TILE_ROWS = 64  # rows of a Hopper kernel's tile (wgmma M)
 
 # Each kernel's limit against its plain version (fp32 math on the same bf16
 # inputs); the flash MHA kernels (fused_attention.py) are held to the same.
@@ -221,19 +231,20 @@ def self_attention_reference(
 
 
 def self_attention_variant_reference(
-    qkv: torch.Tensor, num_heads: int, variant: str
+    qkv: torch.Tensor, num_heads: int, variant: str, scale: float | None = None
 ) -> torch.Tensor:
     """Plain version of one K1 variant over thirds-layout ``[N, T, 3C]``, in
     fp32: softmax attention for stock / hoist / recip / exp2 / rows;
     ``nomax`` normalises ``exp(min(logit, 40))`` with no max subtracted;
-    ``noexp`` is ``(NOEXP_SCALE * logits) @ v`` with no softmax."""
+    ``noexp`` is ``(NOEXP_SCALE * logits) @ v`` with no softmax.  The logit
+    scale is ``1/sqrt(d)`` unless ``scale`` is given."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     if variant not in ("nomax", "noexp"):
-        return self_attention_reference(qkv, num_heads)
+        return self_attention_reference(qkv, num_heads, scale=scale)
     n, t, c3 = qkv.shape
     q, k, v = split_packed_qkv(qkv.float(), num_heads)
-    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) * (1.0 / math.sqrt(q.shape[-1]))
+    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) * _scale(q.shape[-1], scale)
     if variant == "nomax":
         p = torch.exp(logits.clamp(max=NOMAX_CLAMP))
         p = p / p.sum(dim=-1, keepdim=True)
@@ -775,26 +786,115 @@ def banded_bwd_frames_per_tile(n: int, frames: int, length: int, num_heads: int)
     )
 
 
+class RowsPlan(NamedTuple):
+    """The launch of the ``rows`` variant (``mmdiff_self_attention_variant_fwd``):
+    ``pack`` whole sequences per 64-row tile; ``blocks`` and ``tiles_per_block``
+    -- at ``pack > 1`` a one-dimensional grid of persistent blocks, block b
+    taking the work items (tile, head) ``b + i * blocks``, ``i <
+    tiles_per_block``; at ``pack == 1`` K1's grid ``(blocks, heads)`` of one
+    tile each, ``64 * warpgroups`` query rows of one sequence a block."""
+
+    pack: int
+    blocks: int
+    tiles_per_block: int
+    warpgroups: int
+
+
+def rows_launch_plan(n: int, t: int, heads: int, kernel_dim: int, sm_count: int,
+                     blocks_per_sm: int) -> RowsPlan:
+    """The ``rows`` variant's launch on a card of ``sm_count`` SMs holding
+    ``blocks_per_sm`` of its persistent blocks each.  At ``T <= 32``:
+    ``floor(64 / T)`` whole sequences a tile (never fewer: the grid is sized
+    to the card instead), ``ceil(N / pack) * heads`` work items over at most
+    ``sm_count * blocks_per_sm`` blocks.  At ``T > 32``: K1's grid, with
+    two consumer warpgroups when ``T > 64`` and the 128-row tiles still
+    give every SM a block (kernel head dims up to 128)."""
+    if t <= TILE_ROWS // 2:
+        pack = TILE_ROWS // t
+        items = -(-n // pack) * heads
+        blocks = min(items, sm_count * blocks_per_sm)
+        return RowsPlan(pack, blocks, -(-items // blocks), 1)
+    wide = n * heads * -(-t // (2 * TILE_ROWS))
+    wg = 2 if kernel_dim <= HEAD_DIMS[-1] and t > TILE_ROWS and wide >= sm_count else 1
+    return RowsPlan(1, n * -(-t // (TILE_ROWS * wg)), 1, wg)
+
+
+_ROWS_BLOCKS_PER_SM: dict = {}
+
+
+def _rows_plan_on_card(qkv: torch.Tensor, n: int, t: int, heads: int, kernel_dim: int) -> RowsPlan:
+    lib = cuda_build.load().lib
+    key = (qkv.device.index, kernel_dim)
+    if key not in _ROWS_BLOCKS_PER_SM:
+        with torch.cuda.device(qkv.device):
+            per_sm = lib.mmdiff_self_attention_rows_blocks_per_sm(kernel_dim)
+        if per_sm < 1:
+            raise RuntimeError(f"the rows kernel at head dim {kernel_dim} fits no block on an SM")
+        _ROWS_BLOCKS_PER_SM[key] = per_sm
+    sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+    return rows_launch_plan(n, t, heads, kernel_dim, sms, _ROWS_BLOCKS_PER_SM[key])
+
+
+def _variant_launch(qkv: torch.Tensor, num_heads: int, variant: str, d: int, previous: bool):
+    """Launch a variant (Hopper, or with ``previous`` the mma.sync design) on
+    thirds-layout ``qkv`` whose head dim a kernel is built for, at the logit
+    scale of head dim ``d``."""
+    n, t, c, dk = _check_qkv(qkv, num_heads)
+    _check_aligned(qkv)
+    fp32 = qkv.dtype == torch.float32
+    kd = kernel_head_dim(dk, HEAD_DIMS if previous or fp32 else VARIANT_HEAD_DIMS)
+    lib = cuda_build.load().lib
+    out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
+    args = (qkv.data_ptr(), out.data_ptr(), n, t, num_heads, dk, kd, 1.0 / math.sqrt(d),
+            VARIANT_CODES[variant])
+    if previous:
+        entry, args = lib.mmdiff_self_attention_variant_fwd_mma, args + (int(fp32),)
+    else:
+        rows = variant == "rows" and not fp32
+        plan = _rows_plan_on_card(qkv, n, t, num_heads, kd) if rows else (0, 0, 0, 0)
+        entry, args = lib.mmdiff_self_attention_variant_fwd, args + (*plan, int(fp32))
+    with torch.cuda.device(qkv.device):
+        err = entry(*args, _stream())
+    if err:
+        raise RuntimeError(f"self-attention {variant} kernel launch failed: CUDA error {err}")
+    return out
+
+
 def self_attention_variant_cuda(qkv: torch.Tensor, num_heads: int, variant: str) -> torch.Tensor:
     """Launch one K1 variant's kernel on thirds-layout ``qkv``; returns
-    ``out [N, T, C]``.  stock / hoist / recip / exp2 launch the stock kernel."""
+    ``out [N, T, C]``.  stock / hoist / recip / exp2 launch the stock kernel
+    (and its routes); rows / nomax / noexp take every ``d <= 256`` in bf16
+    (module docstring; fp32 up to 128)."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     if variant not in VARIANT_CODES:
         out, _ = self_attention_cuda(qkv, num_heads)
         VARIANT_LAUNCHES[variant] += 1
         return out
-    n, t, c, d = _check_qkv(qkv, num_heads)
-    lib = cuda_build.load().lib
-    out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = lib.mmdiff_self_attention_variant_fwd(
-            qkv.data_ptr(), out.data_ptr(), n, t, num_heads, d, kernel_head_dim(d),
-            VARIANT_CODES[variant], int(qkv.dtype == torch.float32), _stream(),
+    d = _check_qkv(qkv, num_heads)[3]
+    dp = padded_head_dim(d)
+    if qkv.dtype == torch.float32 and dp > HEAD_DIMS[-1]:
+        raise ValueError(
+            f"the fp32 {variant} kernel is built for head dims up to {HEAD_DIMS[-1]}, got d = {d}"
         )
-    if err:
-        raise RuntimeError(f"self-attention {variant} kernel launch failed: CUDA error {err}")
+    if dp != d:
+        HEAD_DIM_ROUTES["self_attention_variant:pad"] += 1
+    if dp > HEAD_DIMS[-1]:
+        HEAD_DIM_ROUTES["self_attention_variant:wide"] += 1
+    out = _variant_launch(pad_head_dim(qkv, num_heads, dp, 3), num_heads, variant, d, False)
     VARIANT_LAUNCHES[variant] += 1
+    return unpad_head_dim(out, num_heads, d, 1)
+
+
+def _self_attention_variant_previous_cuda(qkv: torch.Tensor, num_heads: int,
+                                          variant: str) -> torch.Tensor:
+    """The previous design (mma.sync) of :func:`self_attention_variant_cuda`
+    for rows / nomax / noexp on the same arguments, for the same-run
+    comparison only (kernel head dims only)."""
+    if variant not in VARIANT_CODES:
+        raise ValueError(f"no kernel of its own for variant {variant!r}: {tuple(VARIANT_CODES)}")
+    out = _variant_launch(qkv, num_heads, variant, _check_qkv(qkv, num_heads)[3], True)
+    PREVIOUS_LAUNCHES[f"self_attention_variant[{variant}]"] += 1
     return out
 
 

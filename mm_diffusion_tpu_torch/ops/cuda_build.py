@@ -58,7 +58,9 @@ SIGNATURES = {
     "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "mmdiff_banded_attention_bwd_mma": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "mmdiff_banded_attention_bwd_frames_per_tile": [_I] * 4,
-    "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 7 + [_P],
+    "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 5 + [_F] + [_I] * 6 + [_P],
+    "mmdiff_self_attention_variant_fwd_mma": [_P, _P] + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    "mmdiff_self_attention_rows_blocks_per_sm": [_I],
     "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_flash_mha_fwd_mma": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],

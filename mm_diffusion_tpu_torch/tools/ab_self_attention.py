@@ -2,7 +2,7 @@
 in turns.
 
     python -m mm_diffusion_tpu_torch.tools.ab_self_attention DIR [DIR ...]
-        [--rounds 2] [--backward] [--kernels attention,flash,gemm]
+        [--rounds 2] [--backward] [--kernels attention,flash,gemm,variants]
         [--calls 10] [--replays 10]
 
 Run it from the root of a checkout (it reads ``chip_smoke.py``'s shape
@@ -22,9 +22,11 @@ with each pass's device time from torch.profiler beside it).  With
 ``--kernels`` naming ``flash``, the flash MHA forward (K8) at its hot
 shapes (``chip_smoke.FLASH_SHAPES``) and, with ``--backward``, its backward
 with each pass's device time; naming ``gemm``, the GEMM of S3 and the S4
-core at the JAX tools' shapes; ``attention`` (the default) is K1-K7 as
-above.  Each output is checked against the plain version first.  Needs a
-CUDA device.
+core at the JAX tools' shapes; naming ``variants``, the K1 variants rows,
+nomax and noexp at the A/B tool's cases (``bench_attn_variants.CASES``;
+nomax and noexp at the first three); ``attention`` (the default) is K1-K7
+as above.  Each output is checked against the plain version first.  Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,6 +55,8 @@ def child(root: str, backward: bool, kernels, calls: int, replays: int) -> None:
         flash(root, g, time, backward)
     if "gemm" in kernels:
         gemm(root, g, time)
+    if "variants" in kernels:
+        variants(root, g, time)
 
 
 def attention(root, g, time, backward) -> None:
@@ -211,6 +215,26 @@ def gemm(root, g, time) -> None:
     print(f"[{root}] gemm S4 core summed {total:.4f} ms")
 
 
+def variants(root, g, time) -> None:
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.tools.bench_attn_variants import CASES
+
+    for variant, cases in (("rows", CASES), ("nomax", CASES[:3]), ("noexp", CASES[:3])):
+        total = 0.0
+        for label, n, t, c, h in cases:
+            qkv = torch.randn((n, t, 3 * c), generator=g, device="cuda", dtype=torch.bfloat16)
+            err, ok = ba.VARIANT_TOL[variant].check(ba.self_attention_variant_cuda(qkv, h, variant),
+                                                    ba.self_attention_variant_reference(qkv, h, variant))
+            if not ok:
+                raise SystemExit(f"[{root}] {variant} {label}: error {err} over the limit")
+            ms = time(lambda: ba.self_attention_variant_cuda(qkv, h, variant))
+            total += ms
+            print(f"[{root}] variant {variant:5s} {label:13s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {ms:.4f} ms")
+        print(f"[{root}] variant {variant} summed {total:.4f} ms")
+
+
 def pass_us(call, kernel: str, calls: int = 5) -> dict:
     """Device microseconds per call of each pass (dq, dkv) of the backward
     whose kernels' names hold ``kernel``, from torch.profiler's kernel
@@ -236,14 +260,16 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2, help="passes over the checkouts, alternating order")
     ap.add_argument("--backward", action="store_true", help="also time the backwards")
     ap.add_argument("--kernels", default="attention",
-                    help="comma-separated: attention (K1-K7), flash (K8), gemm (S3, S4 core)")
+                    help="comma-separated: attention (K1-K7), flash (K8), gemm (S3, S4 core), "
+                         "variants (S1, S2)")
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--replays", type=int, default=10)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     kernels = args.kernels.split(",")
-    if not set(kernels) <= {"attention", "flash", "gemm"}:
-        ap.error(f"--kernels: unknown {sorted(set(kernels) - {'attention', 'flash', 'gemm'})}")
+    known = {"attention", "flash", "gemm", "variants"}
+    if not set(kernels) <= known:
+        ap.error(f"--kernels: unknown {sorted(set(kernels) - known)}")
     if args.child:
         child(args.child, args.backward, kernels, args.calls, args.replays)
         return 0

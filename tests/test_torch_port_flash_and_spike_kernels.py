@@ -1,9 +1,12 @@
 """The flash MHA kernels (K8) and the spike kernels (S1-S4) against their
 plain PyTorch versions, on the card: both K8 layouts, Tq != Tk with ragged
-ends, head dims on every built size (32 and 192 included) and between two; the K1 variants at ragged and packed lengths; the
-GEMM and the conv at ragged sizes.  The K8 forward and backward, the GEMM
-and the conv also against their previous (mma.sync) designs at the same
-inputs, with the launch counters showing which design and which route ran.
+ends, head dims on every built size (32 and 192 included) and between two;
+the K1 variants at ragged and packed lengths (rows on its persistent kernel
+at T <= 32, with a partial last pack) and at head dims 12-200 through their
+routes, nomax at its clamp; the GEMM and the conv at ragged sizes.  The K8
+forward and backward, the K1 variants, the GEMM and the conv also against
+their previous (mma.sync) designs at the same inputs, with the launch
+counters showing which design and which route ran.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 ``cuda`` and skips without a CUDA device.  On a GPU machine:
@@ -216,13 +219,59 @@ def test_flash_mha_unsupported_inputs_raise(cuda):
 
 
 @pytest.mark.parametrize("variant", ba.VARIANTS)
-@pytest.mark.parametrize("n,t", [(1, 1), (5, 7), (9, 16), (3, 25), (4, 32), (2, 33), (3, 100)])
+@pytest.mark.parametrize("n,t", [(1, 1), (5, 7), (9, 16), (3, 25), (4, 32), (2, 33), (3, 100),
+                                 (4099, 16), (41, 25)])
 def test_attention_variants(cuda, variant, n, t):
+    """Each variant against its plain version at head dims 64, 96, 128 and,
+    through their routes, 12 and 36 (a zero-padded copy) and 136 and 200
+    (rows / nomax / noexp: the kernels built at 192 and 256); T <= 32 runs
+    rows on its persistent kernel (N = 4099, T = 16 and N = 41, T = 25 end
+    on a partial pack).  rows / nomax / noexp also in their previous design
+    at the kernel head dims; the counts show what ran."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    for heads, c in ((2, 128), (2, 192), (2, 256)):
+    for heads, c in ((2, 128), (2, 192), (2, 256), (2, 24), (2, 72), (2, 272), (2, 400)):
+        d = c // heads
         qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
-        _close(ba.self_attention_variant(qkv, heads, variant),
-               ba.self_attention_variant_reference(qkv, heads, variant), ba.VARIANT_TOL[variant])
+        ref = ba.self_attention_variant_reference(qkv, heads, variant)
+        tol = ba.VARIANT_TOL[variant]
+        ba.reset_launch_counts()
+        _close(ba.self_attention_variant(qkv, heads, variant), ref, tol)
+        assert dict(ba.VARIANT_LAUNCHES) == {variant: 1}
+        if variant not in ba.VARIANT_CODES:
+            continue
+        dp = ba.padded_head_dim(d)
+        routes = {"self_attention_variant:pad": int(dp != d), "self_attention_variant:wide": int(dp > 128)}
+        assert dict(ba.HEAD_DIM_ROUTES) == {k: v for k, v in routes.items() if v}
+        assert ba.LAUNCHES["self_attention"] == 0 and not ba.PREVIOUS_LAUNCHES
+        if dp == d <= 128:
+            _close(ba._self_attention_variant_previous_cuda(qkv, heads, variant), ref, tol)
+            assert dict(ba.PREVIOUS_LAUNCHES) == {f"self_attention_variant[{variant}]": 1}
+
+
+def test_nomax_at_the_clamp(cuda):
+    """nomax with logits far above its clamp at 40: P = e^40 ~ 2.4e17 for
+    every key whose logit reaches it, finite when packed to bf16 and summed
+    in fp32 over T = 1024 keys, and the output within the limit."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    n, t, heads, c = 2, 1024, 2, 128
+    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    qkv[..., : 2 * c] *= 4  # logits ~ N(0, 16^2): many far above 40
+    ref = ba.self_attention_variant_reference(qkv, heads, "nomax")
+    logits = torch.einsum("nqhd,nkhd->nhqk", *ba.split_packed_qkv(qkv.float(), heads)[:2]) / 8
+    assert (logits > 2 * ba.NOMAX_CLAMP).any()
+    out = ba.self_attention_variant(qkv, heads, "nomax")
+    assert torch.isfinite(out).all()
+    _close(out, ref, ba.VARIANT_TOL["nomax"])
+
+
+@pytest.mark.parametrize("variant", sorted(ba.VARIANT_CODES))
+def test_attention_variant_unsupported_inputs_raise(cuda, variant):
+    """d > 256 (no kernel is built for it), and fp32 above 128 (the fp32
+    variants are the previous design, built up to 128)."""
+    with pytest.raises(ValueError, match="above 256"):
+        ba.self_attention_variant(torch.randn((1, 16, 3 * 264), device=cuda, dtype=torch.bfloat16), 1, variant)
+    with pytest.raises(ValueError, match="up to 128"):
+        ba.self_attention_variant(torch.randn((1, 16, 3 * 136), device=cuda), 1, variant)
 
 
 def test_attention_variant_counts(cuda):
