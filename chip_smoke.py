@@ -83,6 +83,23 @@ Phases, each printed as it runs; any failure exits non-zero:
      mm_diffusion_tpu_torch/tools/ once with few iterations -- with the
      kernels' launch counts over that run, which must show the Hopper
      forward and the Hopper backward alone.
+  8. zero-shot conditional sampling at the flagship base config of the
+     sampling CLI's LAUNCH_SCRIPT_ARGS: 8.1 one step of the gradient method
+     (audio->video, scale 3.0: a forward and an input-only backward of the
+     MM-UNet) on the card (bf16, kernels) against the CPU (fp32, plain
+     versions) with the same random non-zero weights, inputs, noise and a
+     fixed shift -- the consistency loss and the gradient with respect to
+     the video, the backward kernels' launches (K4-K7 each), the peak
+     memory and the step's median time over a few runs; 8.2 the backward
+     kernels K4-K7 at the sampler's batch-1 shapes (phase 3's MM-UNet
+     shapes, banded shifts 0, the middle and the last) against their plain
+     backwards, with device time and bound; 8.3 the a2v CLI,
+     scripts/audio2video_sample_sr.py, at the reference's settings (scale
+     3.0, ddim25 SR of all 16 frames) with one cut, 25 respaced steps where
+     the reference runs 1000: finite outputs, files written, the median
+     gradient step, the stage times, the peak memory and each kernel's
+     launches (K1-K7 all), and the projected 1000-step clip; 8.4 the v2a
+     CLI (the replacement method: no backward) under the same cut.
 
 The last three lines of standard output are the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
@@ -91,7 +108,10 @@ graph replay re-runs captured launches without counting them -- and the
 per-call numbers of phases 3, 3b and 7.1 summed over each kernel's main-path
 or hot shapes; K1-K7, the K8 forward and backward, S1, S2, S3, the conv
 and the S4 core also carry ``previous_ms``, their previous design's time in
-the same run), the card's ``nvidia-smi`` name and power limit, and
+the same run; K1-K7 carry ``a2v_launches``, their launches in phase 8.3's
+a2v run (K1's include the SR stage's), and K4-K7 ``a2v_ms`` and
+``a2v_bound_ms``, phase 8.2's per-call numbers summed over the sampler's
+batch-1 shapes), the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1390,6 +1410,266 @@ def entry_points():
         check(n > 0, f"{name} never launched through its entry point")
     return counts
 
+# Phase 8: zero-shot conditional sampling at the flagship base config of
+# scripts/multimodal_sample_sr.py's LAUNCH_SCRIPT_ARGS, the reference's
+# audio->video settings (gradient method, classifier scale 3.0, ddim25 SR of
+# all 16 frames).  The one cut: 25 respaced steps, where the reference runs
+# 1000.
+COND_STEPS = 25
+COND_SCALE = 3.0
+# Phase 8.1, one gradient-method step, bf16 on the card vs fp32 on the CPU,
+# same weights, inputs, noise and shift: the relative gap of the consistency
+# loss (H100 reading 1.712e-4) and the relative L2 of the gradient with
+# respect to the video (reading 6.622e-2; it crosses the whole MM-UNet and
+# the RS-MMA coupling in bf16, where 6.1's parameter gradient crosses the
+# net once).  Each limit is about 4x its first reading.
+COND_LOSS_REL_TOL = 7e-4
+COND_GRAD_REL_L2_TOL = 0.25
+COND_STEP_REPEATS = 5  # gradient steps timed on the card in 8.1 (median)
+COND_SHIFT = 5  # 8.1's RS-MMA shift at every shifting site, as phase 6.1's
+
+
+def conditional_flags():
+    """The model and SR flags of LAUNCH_SCRIPT_ARGS (its sampler flags are
+    the unconditional CLI's), the reference's a2v settings and the cut."""
+    from mm_diffusion_tpu_torch.scripts import multimodal_sample_sr as cli
+
+    argv, drop = [], {"--sample_fn", "--sample_steps"}
+    args = iter(cli.LAUNCH_SCRIPT_ARGS)
+    for flag in args:
+        value = next(args)
+        if flag not in drop:
+            argv += [flag, value]
+    return argv + ["--classifier_scale", str(COND_SCALE), "--timestep_respacing", str(COND_STEPS)]
+
+
+def bwd_kernel_name(kind, key):
+    """The JSON name of a backward launch: self by sequence length (K4 /
+    K5), banded by window (K6 / K7)."""
+    if kind == "self":
+        return "self_attention_bwd[T>512]" if key >= K5_MIN_T else "self_attention_bwd[T<=512]"
+    return "banded_attention_bwd[lw=1]" if key == 1 else "banded_attention_bwd[lw>1]"
+
+
+def conditional_gradient_parity():
+    """Phase 8.1: one gradient-method step (samplers/ancestral.py::
+    conditional_gradient_step), card vs CPU, then its time on the card."""
+    import statistics
+
+    import torch
+
+    from mm_diffusion_tpu_torch import configs
+    from mm_diffusion_tpu_torch.data.synthetic import load_synthetic_data
+    from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.samplers import conditional_gradient_step
+    from mm_diffusion_tpu_torch.scripts import audio2video_sample_sr as cli
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    phase(f"8.1 one gradient-method step (a2v, scale {COND_SCALE}): card (bf16, kernels) vs CPU "
+          "(fp32, plain versions)")
+    torch.set_num_threads(os.cpu_count() or 1)
+    dev = torch.device("cuda")
+    args = cli.create_argparser().parse_args(conditional_flags())
+    kwargs = {**vars(args), "use_fp16": False}
+    cpu_model, diffusion = configs.create_model_and_diffusion(**kwargs)
+    randomize_(cpu_model, seed=41).eval().requires_grad_(False)
+    gpu_model = MultimodalUNet(configs.create_model_config(**{**kwargs, "use_fp16": True}))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to(dev).eval().requires_grad_(False)
+    cfg = cpu_model.cfg
+    cond = torch.from_numpy(next(load_synthetic_data(
+        1, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=3))["audio"])
+    rng = torch.Generator().manual_seed(4)
+    f, c, h, w = cfg.video_size
+    x_T = {"video": torch.randn((1, f, h, w, c), generator=rng),
+           "audio": torch.randn((1, cfg.audio_size[1], 1), generator=rng)}
+    noise = {k: torch.randn(v.shape, generator=rng) for k, v in x_T.items()}
+    i = COND_STEPS // 2
+    t = torch.tensor([i])
+
+    def step(model, device):
+        on = lambda x: {k: v.to(device) for k, v in x.items()}  # noqa: E731
+        d = diffusion.to(device)
+        tt = t.to(device)
+        x = {**on(x_T), "audio": d.q_sample(cond.to(device), tt, x_T["audio"].to(device))}
+
+        def model_fn(xx, t_model):
+            v, a = model(xx["video"], xx["audio"], t_model, shift=COND_SHIFT)
+            return {"video": v, "audio": a}
+
+        with torch.no_grad():
+            return conditional_gradient_step(d, model_fn, x, tt, cond.to(device), "audio",
+                                             x_T["audio"].to(device), noise=on(noise))
+
+    t0 = time.perf_counter()
+    ref_loss, ref_grad, _ = step(cpu_model, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ba.reset_launch_counts()
+    loss, grad, _ = step(gpu_model, dev)
+    torch.cuda.synchronize()
+    counts, self_t, banded_w = dict(ba.LAUNCHES), dict(ba.SELF_BWD_LENGTHS), dict(ba.BANDED_BWD_WINDOWS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    e = rel_l2(grad.cpu(), ref_grad)
+    gap = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    print(f"step i={i} of {COND_STEPS}: loss card {loss.item():.6e} CPU {ref_loss.item():.6e}, relative "
+          f"gap {gap:.3e} (tolerance {COND_LOSS_REL_TOL}); gradient w.r.t. the video ({grad.numel()} "
+          f"values, max |CPU| {ref_grad.abs().max().item():.3e}) rel L2 {e:.3e} (tolerance "
+          f"{COND_GRAD_REL_L2_TOL}); CPU step {cpu_s:.1f} s; peak device memory {peak_gib:.2f} GiB")
+    print(f"launches in the card's step: {counts}; self backward by T {self_t}; banded backward by "
+          f"window {banded_w}")
+    check(gap <= COND_LOSS_REL_TOL, "consistency loss card vs CPU")
+    check(e <= COND_GRAD_REL_L2_TOL, "video gradient card vs CPU")
+    bwd = {}
+    for kind, table in (("self", self_t), ("banded", banded_w)):
+        for key, n in table.items():
+            bwd[bwd_kernel_name(kind, key)] = bwd.get(bwd_kernel_name(kind, key), 0) + n
+    for name in ("self_attention_bwd[T<=512]", "self_attention_bwd[T>512]",
+                 "banded_attention_bwd[lw=1]", "banded_attention_bwd[lw>1]"):
+        check(bwd.get(name, 0) > 0, f"{name} not launched by the gradient step")
+    times = []
+    for _ in range(COND_STEP_REPEATS):
+        t0 = time.perf_counter()
+        step(gpu_model, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"gradient step on the card: median {statistics.median(times):.2f} ms over {COND_STEP_REPEATS} "
+          f"(host wall to a synchronisation; {', '.join(f'{x:.2f}' for x in times)})")
+    del cpu_model, gpu_model
+
+
+def sampler_backward_parity():
+    """Phase 8.2: the backward kernels (K4-K7) at the sampler's batch-1
+    shapes (phase 3's MM-UNet shapes, banded shifts 0, the middle and the
+    last), each against its plain backward; returns {kernel: {"ms",
+    "bound_ms"} summed over the shapes}."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    phase(f"8.2 backward kernels at the sampler's batch-1 shapes vs plain backwards (bf16, {ba.BACKWARD_TOL})")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    make = lambda *shape: torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    sums = {}
+
+    def add(name, ms, bound):
+        s = sums.setdefault(name, {"ms": 0.0, "bound_ms": 0.0})
+        s["ms"] += ms
+        s["bound_ms"] += bound[0]
+
+    for label, n, t, c, h, layout in SELF_SHAPES:
+        if not label.startswith("mm "):
+            continue  # the SR U-Net is not differentiated
+        qkv, dout = make(n, t, 3 * c), make(n, t, c)
+        out, lse = ba.self_attention_cuda(qkv, h, layout)
+        dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)
+        err, ok = ba.BACKWARD_TOL.check(dqkv, ba.self_attention_backward_reference(qkv, dout, h, layout))
+        check(ok, f"self_attention_bwd {label} (batch 1): err {err}")
+        ms = time_ms(lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
+        bound = bound_ms(*self_attention_work(n, t, c, h, backward=True))
+        print(f"self_attention_bwd {label:18s} N={n:5d} T={t:5d} C={c} H={h} {layout:8s} err={err:.3e} "
+              f"kernel={ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})")
+        add(bwd_kernel_name("self", t), ms, bound)
+    for label, f, tq, tk, c, h, lw in BANDED_SHAPES:
+        q_src, kv_src, dout = make(1, f, tq, 3 * c), make(1, f, tk, 3 * c), make(1, f, tq, c)
+        span, err = f - lw, 0.0
+        for s in sorted({0, span // 2, span}):
+            out, lse = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
+            got = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
+            ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
+            errs = [ba.BACKWARD_TOL.check(a, b) for a, b in zip(got, ref)]
+            err = max(err, *(e for e, _ in errs))
+            check(all(ok for _, ok in errs), f"banded_attention_bwd {label} shift {s} (batch 1): err {errs}")
+        ms = time_ms(lambda: ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))
+        bound = bound_ms(*banded_work(1, f, tq, tk, c, h, lw, backward=True))
+        print(f"banded_attention_bwd {label:20s} N=1 F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} lw={lw:2d} "
+              f"shifts {sorted({0, span // 2, span})} err={err:.3e} kernel={ms:.4f} ms (shift {s}) "
+              f"bound={bound[0]:.4f} ms ({bound[1]})")
+        add(bwd_kernel_name("banded", lw), ms, bound)
+    for name, v in sums.items():
+        print(f"{name} at the sampler's batch-1 shapes, summed: {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms")
+    return sums
+
+
+def conditional_clis(tmp: str):
+    """Phase 8.3-8.4: both conditional CLIs end to end with random non-zero
+    weights saved to .pt files; returns the a2v run's launches per kernel."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mm_diffusion_tpu_torch import configs
+    from mm_diffusion_tpu_torch.models.image_unet import ImageSuperResModel
+    from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.scripts import audio2video_sample_sr as a2v
+    from mm_diffusion_tpu_torch.scripts import video2audio_sample as v2a
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    flags = conditional_flags()
+    args = a2v.create_argparser().parse_args(flags)
+    base_pt, sr_pt = os.path.join(tmp, "cond_base.pt"), os.path.join(tmp, "cond_sr.pt")
+    torch.save(randomize_(MultimodalUNet(configs.create_model_config(**vars(args))), seed=23).state_dict(),
+               base_pt)
+    torch.save(randomize_(ImageSuperResModel(configs.create_image_sr_config(**vars(args))), seed=24)
+               .state_dict(), sr_pt)
+    common = flags + ["--multimodal_model_path", base_pt, "--device", "cuda", "--sample_num", "1"]
+
+    def run(cli, name, argv):
+        argv = argv + ["--output_dir", os.path.join(tmp, name)]
+        print("argv:", " ".join(argv))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ba.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {
+            "self_attention": ba.LAUNCHES["self_attention"],
+            "banded_attention[lw=1]": ba.BANDED_WINDOWS.get(1, 0),
+            "banded_attention[lw>1]": sum(v for k, v in ba.BANDED_WINDOWS.items() if k > 1),
+        }
+        for kind, table in (("self", ba.SELF_BWD_LENGTHS), ("banded", ba.BANDED_BWD_WINDOWS)):
+            for key, n in table.items():
+                counts[bwd_kernel_name(kind, key)] = counts.get(bwd_kernel_name(kind, key), 0) + n
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        timing = result["timings"][0]
+        samples = result["samples"]
+        for key, arr in samples.items():
+            check(bool(np.isfinite(arr).all()), f"{name} {key} has non-finite values")
+            print(f"{key}: shape {arr.shape}, finite, mean {arr.mean():.4f}, std {arr.std():.4f}")
+        check(result["paths"] and all(os.path.exists(p) for p in result["paths"]), f"{name}: files missing")
+        step_ms = statistics.median(timing["step_s"]) * 1e3
+        print(f"outputs written: {result['paths']}")
+        print(f"{name}: {len(timing['step_s'])} steps, median step {step_ms:.2f} ms; base stage "
+              f"{timing['base_s']:.3f} s" + (f", SR stage {timing['sr_s']:.3f} s" if "sr_s" in timing else "")
+              + f"; peak device memory {peak_gib:.2f} GiB (max_memory_allocated); CLI wall {wall:.1f} s")
+        print(f"{name} launches over the run: {counts}; per step: "
+              f"{ {k: v / COND_STEPS for k, v in counts.items() if k.startswith(('self', 'banded'))} }")
+        return samples, timing, counts, step_ms
+
+    phase(f"8.3 a2v CLI: scripts/audio2video_sample_sr.py, gradient method (scale {COND_SCALE}), "
+          f"{COND_STEPS} steps (the reference: 1000), ddim25 SR of all 16 frames")
+    samples, timing, counts, step_ms = run(a2v, "a2v", common + ["--sr_model_path", sr_pt])
+    for key, shape in (("video", (1, 16, 64, 64, 3)), ("audio", (1, 25600, 1)),
+                       ("sr_video", (1, 16, 256, 256, 3))):
+        check(samples[key].shape == shape, f"a2v {key} shape {samples[key].shape} != {shape}")
+    for name, n in counts.items():
+        check(n > 0, f"{name} never launched in the a2v run")
+    check(len(counts) == 7, f"a2v run launched {sorted(counts)}, not K1-K7")
+    print(f"projected 1000-step a2v clip: {step_ms * 1000 / 1e3:.1f} s base (1000 x the median step) "
+          f"+ {timing['sr_s']:.3f} s SR")
+
+    phase(f"8.4 v2a CLI: scripts/video2audio_sample.py, replacement method, {COND_STEPS} steps")
+    v2a_samples, _, v2a_counts, _ = run(v2a, "v2a", common + ["--classifier_scale", "0.0"])
+    check(v2a_samples["audio"].shape == (1, 25600, 1), f"v2a audio shape {v2a_samples['audio'].shape}")
+    check(not any("_bwd" in k for k in v2a_counts), f"the replacement method ran a backward: {v2a_counts}")
+    return counts
+
 
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
@@ -1417,6 +1697,10 @@ def main() -> int:
             launches.update({k: v for k, v in training(tmp).items() if "_bwd" in k})
         summary.update(spike_parity())
         launches.update(entry_points())
+        conditional_gradient_parity()
+        sampler_bwd = sampler_backward_parity()
+        with tempfile.TemporaryDirectory() as tmp:
+            a2v_launches = conditional_clis(tmp)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1434,6 +1718,8 @@ def main() -> int:
             "bound_by": max(summary[name]["by"], key=summary[name]["by"].get),
             "library_ms": summary[name]["library_ms"],
             **({"previous_ms": summary[name]["previous_ms"]} if "previous_ms" in summary[name] else {}),
+            **({"a2v_launches": a2v_launches[name]} if name in a2v_launches else {}),
+            **({f"a2v_{k}": v for k, v in sampler_bwd[name].items()} if name in sampler_bwd else {}),
         }
         for name in REPLACES
     ]

@@ -9,7 +9,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from .diffusion import GaussianDiffusion, LossType, ModelMeanType, ModelVarType, make_schedule
 from .models.image_unet import ImageSuperResModel, ImageUNetConfig
-from .models.mm_unet import MMUNetConfig
+from .models.mm_unet import MMUNetConfig, MultimodalUNet
 
 
 def diffusion_defaults() -> Dict[str, Any]:
@@ -166,6 +166,23 @@ def create_gaussian_diffusion(
         loss_type=loss_type,
         rescale_timesteps=rescale_timesteps,
     )
+
+
+def create_model_and_diffusion(**kwargs):
+    """``(MultimodalUNet, GaussianDiffusion)`` from reference-style flags,
+    each diffusion flag defaulting to :func:`diffusion_defaults`."""
+    dd = {**diffusion_defaults(), **kwargs}
+    diffusion = create_gaussian_diffusion(
+        steps=dd["diffusion_steps"],
+        learn_sigma=dd["learn_sigma"],
+        noise_schedule=dd["noise_schedule"],
+        use_kl=dd["use_kl"],
+        predict_xstart=dd["predict_xstart"],
+        rescale_timesteps=dd["rescale_timesteps"],
+        rescale_learned_sigmas=dd["rescale_learned_sigmas"],
+        timestep_respacing=dd["timestep_respacing"],
+    )
+    return MultimodalUNet(create_model_config(**kwargs)), diffusion
 
 
 # -- image / SR model ----------------------------------------------------------

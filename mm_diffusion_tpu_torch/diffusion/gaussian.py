@@ -1,8 +1,9 @@
 """Gaussian diffusion (counterpart of ``mm_diffusion_tpu/diffusion/gaussian.py``):
 the forward process ``q(x_t | x_0)``, the reverse-process mean and variance
-(learned-range sigma included), ``p_sample`` and eta-0 DDIM steps, and the
-training losses (MSE / rescaled MSE with the learned-sigma VLB term, KL /
-rescaled KL).
+(every mean and variance type), ``p_sample`` with ``denoised_fn`` and
+``cond_fn`` guidance, DDIM steps (``eta``, guidance) and the DDIM encoding
+step, the training losses (MSE / rescaled MSE with the learned-sigma VLB
+term, KL / rescaled KL) and the full-chain bound in bits/dim.
 
 A state is one tensor or a dict of tensors (``{"video", "audio"}``); each
 formula is written once and mapped over the leaves, with one shared
@@ -69,6 +70,11 @@ def tree_leaves(x: State):
 def _bcast(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Per-timestep coefficients shaped to broadcast over a rank-``ndim`` leaf."""
     return table[t].reshape(t.shape + (1,) * (ndim - 1))
+
+
+def _nonzero(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """1 where ``t != 0``, shaped to broadcast over a rank-``ndim`` leaf."""
+    return (t != 0).float().reshape(t.shape + (1,) * (ndim - 1))
 
 
 def mean_flat(x: torch.Tensor) -> torch.Tensor:
@@ -168,6 +174,14 @@ class GaussianDiffusion:
             x_t, eps,
         )
 
+    def predict_xstart_from_xprev(self, x_t: State, t: torch.Tensor, xprev: State) -> State:
+        tb = self.tables
+        return tree_map(
+            lambda xt, xp: _bcast(1.0 / tb.posterior_mean_coef1, t, xt.dim()) * xp
+            - _bcast(tb.posterior_mean_coef2 / tb.posterior_mean_coef1, t, xt.dim()) * xt,
+            x_t, xprev,
+        )
+
     def predict_eps_from_xstart(self, x_t: State, t: torch.Tensor, xstart: State) -> State:
         tb = self.tables
         return tree_map(
@@ -179,15 +193,18 @@ class GaussianDiffusion:
     def split_model_output(self, model_output: State):
         """(mean part, variance values or None): learned variance rides the
         second half of the channel (last) axis."""
-        if self.var_type != ModelVarType.LEARNED_RANGE:
+        if self.var_type not in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
             return model_output, None
         halves = tree_map(lambda mo: mo.chunk(2, dim=-1), model_output)
         return tree_map(lambda h: h[0], halves), tree_map(lambda h: h[1], halves)
 
     def model_variance(self, var_values: Optional[State], x: State, t: torch.Tensor):
-        """Per-leaf (variance, log_variance): learned-range interpolation
-        between the clipped posterior and beta log-variances, or a fixed table."""
+        """Per-leaf (variance, log_variance): the learned log-variance, the
+        learned-range interpolation between the clipped posterior and beta
+        log-variances, or a fixed table."""
         tb = self.tables
+        if self.var_type == ModelVarType.LEARNED:
+            return tree_map(torch.exp, var_values), var_values
         if self.var_type == ModelVarType.LEARNED_RANGE:
 
             def interp(v, xt):
@@ -198,33 +215,38 @@ class GaussianDiffusion:
 
             log_variance = tree_map(interp, var_values, x)
             return tree_map(torch.exp, log_variance), log_variance
-        fixed = {
+        var, log_var = {
             ModelVarType.FIXED_LARGE: (tb.fixed_large_variance, tb.fixed_large_log_variance),
             ModelVarType.FIXED_SMALL: (tb.posterior_variance, tb.posterior_log_variance_clipped),
-        }
-        if self.var_type not in fixed:
-            raise NotImplementedError(f"{self.var_type} is not ported")
-        var, log_var = fixed[self.var_type]
+        }[self.var_type]
         variance = tree_map(lambda xt: _bcast(var, t, xt.dim()).expand(xt.shape), x)
         log_variance = tree_map(lambda xt: _bcast(log_var, t, xt.dim()).expand(xt.shape), x)
         return variance, log_variance
 
-    def p_mean_variance(self, model_fn: ModelFn, x: State, t: torch.Tensor, clip_denoised: bool = True):
-        """Reverse-process mean / variance and the x0 prediction."""
+    def p_mean_variance(
+        self, model_fn: ModelFn, x: State, t: torch.Tensor, clip_denoised: bool = True,
+        denoised_fn: Optional[Callable[[State], State]] = None,
+    ):
+        """Reverse-process mean / variance and the x0 prediction;
+        ``denoised_fn`` maps each x0 prediction before the clip."""
         model_output = model_fn(x, self.model_timesteps(t))
         mean_part, var_values = self.split_model_output(model_output)
         variance, log_variance = self.model_variance(var_values, x, t)
 
         def process_xstart(x0):
+            if denoised_fn is not None:
+                x0 = denoised_fn(x0)
             return tree_map(lambda l: l.clamp(-1.0, 1.0), x0) if clip_denoised else x0
 
-        if self.mean_type == ModelMeanType.START_X:
-            pred_xstart = process_xstart(mean_part)
-        elif self.mean_type == ModelMeanType.EPSILON:
-            pred_xstart = process_xstart(self.predict_xstart_from_eps(x, t, mean_part))
+        if self.mean_type == ModelMeanType.PREVIOUS_X:
+            pred_xstart = process_xstart(self.predict_xstart_from_xprev(x, t, mean_part))
+            mean = mean_part
         else:
-            raise NotImplementedError(f"{self.mean_type} is not ported")
-        mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
+            if self.mean_type == ModelMeanType.START_X:
+                pred_xstart = process_xstart(mean_part)
+            else:
+                pred_xstart = process_xstart(self.predict_xstart_from_eps(x, t, mean_part))
+            mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
         return {
             "mean": mean,
             "variance": variance,
@@ -240,30 +262,95 @@ class GaussianDiffusion:
         t: torch.Tensor,
         clip_denoised: bool = True,
         generator: Optional[torch.Generator] = None,
+        denoised_fn=None,
+        cond_fn=None,
+        noise: Optional[State] = None,
     ):
-        """One ancestral step, its noise drawn from ``generator``."""
-        out = self.p_mean_variance(model_fn, x, t, clip_denoised)
-        noise = tree_randn_like(x, generator)
-        nonzero = (t != 0).float()
+        """One ancestral step; ``noise`` defaults to a draw from ``generator``.
+        ``cond_fn(x, t_model) -> gradient`` shifts the mean by variance x
+        gradient."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
+        if cond_fn is not None:
+            out["mean"] = self.condition_mean(cond_fn, out, x, t)
+        if noise is None:
+            noise = tree_randn_like(x, generator)
         sample = tree_map(
-            lambda m, lv, n: m
-            + nonzero.reshape(t.shape + (1,) * (m.dim() - 1)) * torch.exp(0.5 * lv) * n,
+            lambda m, lv, n: m + _nonzero(t, m.dim()) * torch.exp(0.5 * lv) * n,
             out["mean"], out["log_variance"], noise,
         )
-        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+        return {"sample": sample, "pred_xstart": out["pred_xstart"], "pred_noise": out["model_output"]}
 
-    def ddim_sample(self, model_fn: ModelFn, x: State, t: torch.Tensor, clip_denoised: bool = True):
-        """One deterministic DDIM step (eta 0)."""
-        out = self.p_mean_variance(model_fn, x, t, clip_denoised)
+    def condition_mean(self, cond_fn, p_mean_var, x: State, t: torch.Tensor) -> State:
+        """The mean shifted by variance x ``cond_fn``'s gradient."""
+        gradient = cond_fn(x, self.model_timesteps(t))
+        return tree_map(lambda m, v, g: m + v * g, p_mean_var["mean"], p_mean_var["variance"], gradient)
+
+    def condition_score(self, cond_fn, p_mean_var, x: State, t: torch.Tensor):
+        """Score conditioning: eps moved by -sqrt(1 - alpha_bar) x gradient,
+        then x0 and the mean recomputed from it."""
+        tb = self.tables
+        gradient = cond_fn(x, self.model_timesteps(t))
+        eps = self.predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = tree_map(
+            lambda e, g, xt: e - torch.sqrt(1.0 - _bcast(tb.alphas_cumprod, t, xt.dim())) * g,
+            eps, gradient, x,
+        )
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self.predict_xstart_from_eps(x, t, eps)
+        out["mean"], _, _ = self.q_posterior_mean_variance(out["pred_xstart"], x, t)
+        return out
+
+    def ddim_sample(
+        self,
+        model_fn: ModelFn,
+        x: State,
+        t: torch.Tensor,
+        clip_denoised: bool = True,
+        generator: Optional[torch.Generator] = None,
+        denoised_fn=None,
+        cond_fn=None,
+        eta: float = 0.0,
+        noise: Optional[State] = None,
+    ):
+        """One DDIM step; at ``eta`` > 0 its noise defaults to a draw from
+        ``generator`` (at eta 0 none is drawn)."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t)
+        tb = self.tables
         eps = self.predict_eps_from_xstart(x, t, out["pred_xstart"])
-        abar_prev = self.tables.alphas_cumprod_prev
+        if noise is None and eta > 0:
+            noise = tree_randn_like(x, generator)
 
-        def step(x0, e, xt):
-            a = _bcast(abar_prev, t, xt.dim())
-            return x0 * torch.sqrt(a) + torch.sqrt(1.0 - a) * e
+        def step(x0, e, xt, n=None):
+            abar = _bcast(tb.alphas_cumprod, t, xt.dim())
+            abar_prev = _bcast(tb.alphas_cumprod_prev, t, xt.dim())
+            sigma = eta * torch.sqrt((1.0 - abar_prev) / (1.0 - abar)) * torch.sqrt(1.0 - abar / abar_prev)
+            mean_pred = x0 * torch.sqrt(abar_prev) + torch.sqrt(1.0 - abar_prev - sigma**2) * e
+            return mean_pred if n is None else mean_pred + _nonzero(t, xt.dim()) * sigma * n
 
-        sample = tree_map(step, out["pred_xstart"], eps, x)
+        if noise is None:
+            sample = tree_map(step, out["pred_xstart"], eps, x)
+        else:
+            sample = tree_map(step, out["pred_xstart"], eps, x, noise)
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_reverse_sample(
+        self, model_fn: ModelFn, x: State, t: torch.Tensor, clip_denoised: bool = True,
+        denoised_fn=None,
+    ):
+        """One deterministic DDIM encoding step x_t -> x_{t+1}."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
+        tb = self.tables
+
+        def step(x0, xt):
+            eps = (_bcast(tb.sqrt_recip_alphas_cumprod, t, xt.dim()) * xt - x0) / _bcast(
+                tb.sqrt_recipm1_alphas_cumprod, t, xt.dim()
+            )
+            abar_next = _bcast(tb.alphas_cumprod_next, t, xt.dim())
+            return x0 * torch.sqrt(abar_next) + torch.sqrt(1.0 - abar_next) * eps
+
+        return {"sample": tree_map(step, out["pred_xstart"], x), "pred_xstart": out["pred_xstart"]}
 
     # -- the variational bound and the training losses ---------------------------
 
@@ -314,12 +401,12 @@ class GaussianDiffusion:
                 if self.loss_type == LossType.RESCALED_MSE:
                     vb = tree_map(lambda v: v * (self.num_timesteps / 1000.0), vb)
                 terms["vb"] = vb
-            if self.mean_type == ModelMeanType.START_X:
+            if self.mean_type == ModelMeanType.PREVIOUS_X:
+                target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+            elif self.mean_type == ModelMeanType.START_X:
                 target = x_start
-            elif self.mean_type == ModelMeanType.EPSILON:
-                target = noise
             else:
-                raise NotImplementedError(f"{self.mean_type} is not ported")
+                target = noise
             terms["mse"] = tree_map(
                 lambda tgt, mo: mean_flat((tgt - mo.to(tgt.dtype)) ** 2), target, mean_part
             )
@@ -333,3 +420,44 @@ class GaussianDiffusion:
         leaves = [leaf for key in ("mse", "vb") if key in terms for leaf in tree_leaves(terms[key])]
         terms["loss"] = sum(leaves[1:], leaves[0])
         return terms
+
+    def prior_bpd(self, x_start: State) -> State:
+        """KL(q(x_T | x_0) || N(0, I)) per leaf, in bits/dim, shape [B]."""
+        b = tree_leaves(x_start)[0].shape[0]
+        t = torch.full((b,), self.num_timesteps - 1, dtype=torch.long, device=self.tables.betas.device)
+        mean, _, log_var = self.q_mean_variance(x_start, t)
+        return tree_map(
+            lambda m, lv: mean_flat(normal_kl(m, lv, torch.zeros_like(m), torch.zeros_like(lv))) / math.log(2.0),
+            mean, log_var,
+        )
+
+    def calc_bpd_loop(
+        self, model_fn: ModelFn, x_start: State, clip_denoised: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """The full-chain variational bound in bits/dim, per batch element.
+
+        Returns per-leaf states: ``total_bpd`` / ``prior_bpd`` of shape [B]
+        and ``vb`` / ``xstart_mse`` / ``mse`` of shape [B, T], column 0 being
+        t = T - 1.  Each step's noise is a draw from ``generator``."""
+        b = tree_leaves(x_start)[0].shape[0]
+        device = self.tables.betas.device
+        cols = {"vb": [], "xstart_mse": [], "mse": []}
+        for i in reversed(range(self.num_timesteps)):
+            t = torch.full((b,), i, dtype=torch.long, device=device)
+            noise = tree_randn_like(x_start, generator)
+            x_t = self.q_sample(x_start, t, noise)
+            out = self.vb_terms_bpd(model_fn, x_start, x_t, t, clip_denoised)
+            eps = self.predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            cols["vb"].append(out["output"])
+            cols["xstart_mse"].append(
+                tree_map(lambda xs, px: mean_flat((px - xs) ** 2), x_start, out["pred_xstart"])
+            )
+            cols["mse"].append(tree_map(lambda e, n: mean_flat((e - n) ** 2), eps, noise))
+        seq = {k: tree_map(lambda *c: torch.stack(c, dim=1), *v) for k, v in cols.items()}
+        prior = self.prior_bpd(x_start)
+        return {
+            "total_bpd": tree_map(lambda v, p: v.sum(dim=1) + p, seq["vb"], prior),
+            "prior_bpd": prior,
+            **seq,
+        }

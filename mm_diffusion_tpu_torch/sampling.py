@@ -1,5 +1,6 @@
-"""Sampling pipelines: the base joint audio-video sampler, the 64->256
-frame super-resolution sampler, and the chain of both (counterpart of
+"""Sampling pipelines: the base joint audio-video sampler, the zero-shot
+conditional (audio->video, video->audio) sampler, the 64->256 frame
+super-resolution sampler, and the chain of base and SR (counterpart of
 ``mm_diffusion_tpu/sampling.py``).
 
 Randomness is explicit: a device ``torch.Generator`` for the noise, and a
@@ -10,18 +11,20 @@ host, so no draw waits on the device.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from .diffusion.gaussian import GaussianDiffusion
 from .samplers import (
     DPMSolver,
+    conditional_p_sample_loop,
     ddim_sample_loop,
     model_input_time,
     noise_schedule_from_diffusion,
     p_sample_loop,
 )
+from .utils.timing import sync
 
 SAMPLE_FNS = ("dpm_solver", "dpm_solver++", "ddpm", "ddim")
 
@@ -37,7 +40,7 @@ def _randn(shape, generator, device):
 def _ancestral(sample_fn, diffusion, model_fn, x_T, generator, clip_denoised):
     if sample_fn == "ddpm":
         return p_sample_loop(diffusion, model_fn, x_T, generator, clip_denoised)
-    return ddim_sample_loop(diffusion, model_fn, x_T, clip_denoised)
+    return ddim_sample_loop(diffusion, model_fn, x_T, clip_denoised, generator=generator)
 
 
 def mm_raw_model(model, shift_generator: Optional[torch.Generator] = None):
@@ -123,6 +126,52 @@ def build_base_sampler(
     return sample
 
 
+def build_conditional_sampler(
+    model,
+    diffusion: GaussianDiffusion,
+    condition_key: str,
+    class_scale: float = 0.0,
+    clip_denoised: bool = True,
+    shift_generator: Optional[torch.Generator] = None,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Zero-shot audio->video (``condition_key="audio"``) or video->audio
+    sampler: the replacement method at ``class_scale`` 0, else the gradient
+    method (``samplers/ancestral.py::conditional_p_sample_loop``).
+
+    Returns ``sample(condition, generator=None, x_T=None, step_seconds=None)
+    -> {"video": [n,F,H,W,3], "audio": [n,L,1]}``, ``condition`` being the
+    ground truth of ``condition_key`` ([n, ...] on the model's device).
+    The gradient method differentiates each step through the model with
+    respect to its input alone: the model's parameters are frozen
+    (``requires_grad_(False)``), and the loop runs under ``no_grad``, not
+    inference mode, because autograd must save the step's tensors."""
+    if condition_key not in ("video", "audio"):
+        raise ValueError(f"condition_key {condition_key!r} not in ('video', 'audio')")
+    f, c, h, w = model.cfg.video_size
+    ca, length = model.cfg.audio_size
+    device = _device(model)
+    raw = mm_raw_model(model, shift_generator)
+    if class_scale > 0:
+        model.requires_grad_(False)
+
+    @torch.no_grad()
+    def sample(condition, generator: Optional[torch.Generator] = None, x_T=None,
+               step_seconds: Optional[List[float]] = None):
+        n = condition.shape[0]
+        if x_T is None:
+            x_T = {
+                "video": _randn((n, f, h, w, c), generator, device),
+                "audio": _randn((n, length, ca), generator, device),
+            }
+        return conditional_p_sample_loop(
+            diffusion, lambda x, t: raw(x, t, strip_sigma=False), x_T, condition, condition_key,
+            class_scale=class_scale, clip_denoised=clip_denoised, generator=generator,
+            step_seconds=step_seconds,
+        )
+
+    return sample
+
+
 def build_sr_sampler(
     sr_model,
     sr_diffusion: GaussianDiffusion,
@@ -170,11 +219,6 @@ def shared_clip_noise(
     return base.expand(n_clips, frames, size, size, 3).reshape(n_clips * frames, size, size, 3)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def sample_base_and_sr(
     base_sampler,
     sr_sampler,
@@ -194,7 +238,7 @@ def sample_base_and_sr(
     out = base_sampler(n, generator=generator, x_T=x_T)
     video = out["video"]
     if timings is not None:
-        _sync(video.device)
+        sync(video.device)
         timings["base_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     clips = []
@@ -207,6 +251,6 @@ def sample_base_and_sr(
         clips.append(sr_sampler(video[b], x_T=noise, generator=generator))
     sr_video = torch.stack(clips).reshape(n, frames, sr_size, sr_size, 3)
     if timings is not None:
-        _sync(sr_video.device)
+        sync(sr_video.device)
         timings["sr_s"] = time.perf_counter() - t1
     return {"video": video, "audio": out["audio"], "sr_video": sr_video}

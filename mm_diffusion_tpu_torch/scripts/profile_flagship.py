@@ -1,7 +1,9 @@
 """Where the device time goes in one base evaluation and one SR step of the
-flagship sampler (random non-zero weights, batch 1, bf16), and in one step
-of the flagship training (the bench config: batch 4, remat, bf16 compute,
-fp32 AdamW and EMA), by kernel kind, with torch.profiler.  Needs one CUDA
+flagship sampler (random non-zero weights, batch 1, bf16), in one step of
+zero-shot audio->video sampling by the gradient method (the same base
+model: a forward and an input-only backward), and in one step of the
+flagship training (the bench config: batch 4, remat, bf16 compute, fp32
+AdamW and EMA), by kernel kind, with torch.profiler.  Needs one CUDA
 device.
 
     python -m mm_diffusion_tpu_torch.scripts.profile_flagship
@@ -29,7 +31,7 @@ from ..weights import randomize_
 from .multimodal_sample_sr import LAUNCH_SCRIPT_ARGS, create_argparser
 
 KINDS = (  # (kind, substrings of the kernel name), first match wins
-    ("attention (hand CUDA)", ("attention_fwd_kernel",)),
+    ("attention (hand CUDA)", ("attention_fwd_kernel", "attention_sm90_kernel", "attention_fwd_sm90")),
     ("attention backward (hand CUDA)", ("attention_bwd",)),
     ("optimizer / EMA", ("multi_tensor", "foreach", "adam")),
     ("convolution", ("fprop", "dgrad", "wgrad", "conv", "cudnn", "implicit", "winograd",
@@ -117,6 +119,32 @@ def train_step_call(dev: torch.device, seed: int):
     return lambda: step(state, batch, *gens)
 
 
+def a2v_step_call(base, dev: torch.device, seed: int):
+    """One gradient-method step of audio->video sampling (the middle of 25
+    respaced steps) as a closure, the base model frozen."""
+    from ..samplers import conditional_gradient_step
+    from ..sampling import mm_raw_model
+
+    base.requires_grad_(False)
+    diffusion = configs.create_gaussian_diffusion(timestep_respacing="25").to(dev)
+    raw = mm_raw_model(base, torch.Generator().manual_seed(seed))
+    f, c, h, w = base.cfg.video_size
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = {"video": torch.randn((1, f, h, w, c), generator=g, device=dev),
+         "audio": torch.randn((1, base.cfg.audio_size[1], 1), generator=g, device=dev)}
+    cond = torch.rand((1, base.cfg.audio_size[1], 1), generator=g, device=dev) * 2 - 1
+    t = torch.full((1,), 12, device=dev)
+
+    def step():
+        with torch.no_grad():
+            return conditional_gradient_step(
+                diffusion, lambda xx, tt: raw(xx, tt, strip_sigma=False), x, t, cond, "audio", x["audio"],
+                generator=g,
+            )
+
+    return step
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -145,6 +173,10 @@ def main(argv=None) -> None:
     ts = torch.full((f,), 500, device=dev)
     report("base MM-UNet evaluation (1 of 20 NFE)", *profile_call(lambda: base(video, audio, t, shift)))
     report("SR U-Net step, 16 frames (1 of 25)", *profile_call(lambda: sr(x, ts, low)))
+    torch.cuda.reset_peak_memory_stats()
+    report("a2v gradient step, batch 1 (forward + input-only backward)",
+           *profile_call(a2v_step_call(base, dev, args.seed), grad=True))
+    print(f"   peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
 if __name__ == "__main__":

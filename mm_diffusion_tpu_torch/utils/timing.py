@@ -85,6 +85,13 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU): the end of a
+    host-clock measurement on a card."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def resolve_device(name: str) -> torch.device:
     """The tools' ``--device``: ``cuda`` needs a card and never falls back
     to the CPU; ``cpu`` is taken only when asked for."""

@@ -1,7 +1,8 @@
 """The PyTorch port never imports JAX nor anything of the JAX package: every
 module imports, a tiny forward of both models, a tiny training loss and
-backward, the flash MHA and spike-kernel entry points and the A/B tools run,
-in a fresh interpreter where jax / flax / optax cannot be
+backward, one tiny step of the conditional sampler's gradient method, the
+flash MHA and spike-kernel entry points and the A/B tools run, in a fresh
+interpreter where jax / flax / optax cannot be
 imported, and no module of the JAX package gets loaded -- not even one that
 does not import JAX.  No port module and not chip_smoke.py has an import of
 the JAX package, and library attention is timed only as chip_smoke.py's
@@ -56,6 +57,21 @@ loss = diffusion.training_losses(mm_model_fn(model, 1), x0, torch.tensor([0, 7])
 loss.backward()
 assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in model.parameters())
 
+from mm_diffusion_tpu_torch.sampling import mm_raw_model
+from mm_diffusion_tpu_torch.samplers import conditional_gradient_step
+model.eval().requires_grad_(False)
+raw = mm_raw_model(model)
+x_T = {"video": torch.randn(1, 4, 16, 16, 3), "audio": torch.randn(1, 1024, 1)}
+cond = torch.rand(1, 1024, 1) * 2 - 1
+with torch.no_grad():
+    step_loss, step_grad, prev = conditional_gradient_step(
+        diffusion, lambda x, tt: raw(x, tt, strip_sigma=False),
+        {**x_T, "audio": diffusion.q_sample(cond, torch.tensor([50]), x_T["audio"])},
+        torch.tensor([50]), cond, "audio", x_T["audio"])
+assert step_grad.shape == x_T["video"].shape and bool(step_grad.abs().max() > 0)
+assert bool(torch.isfinite(step_loss)) and bool(torch.isfinite(step_grad).all())
+assert all(bool(torch.isfinite(v).all()) for v in prev.values())
+
 from mm_diffusion_tpu_torch.ops import block_attention, fused_attention, gemm_conv
 x = torch.randn(1, 8, 2, 64, requires_grad=True)
 fused_attention.flash_mha(x, x, x).sum().backward()
@@ -81,9 +97,12 @@ print("JAXPKG", ",".join(jax_pkg))
 """
 
 ALLOWED_FROM_JAX_PACKAGE: set = set()
-# The flash MHA and spike-kernel modules and the A/B tools: imported and run
-# (plain versions, small shapes) by the probe above, and scanned below.
+# The conditional CLIs, the flash MHA and spike-kernel modules and the A/B
+# tools: imported (the tools also run, plain versions, small shapes) by the
+# probe above, and scanned below.
 NEW_MODULES = {
+    "mm_diffusion_tpu_torch.scripts.audio2video_sample_sr",
+    "mm_diffusion_tpu_torch.scripts.video2audio_sample",
     "mm_diffusion_tpu_torch.ops.fused_attention",
     "mm_diffusion_tpu_torch.ops.gemm_conv",
     "mm_diffusion_tpu_torch.utils.timing",
