@@ -42,7 +42,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      as a yardstick and not one call for the same function, the same SDPA
      backward on the window gathered into [N*F, H, lw*Tk, d] (the gather
      untimed).  At T = 1024 the Hopper K1 and K5, and at both ds2 shapes
-     the Hopper K6, must beat their previous design.
+     the Hopper K6, must beat their previous design.  Then K1 and K4/K5 at
+     the SR U-Net's training shapes (the per-head qkv order, 6 and 12
+     heads) and the single-modal audio U-Net's (T = 6400, 1600 and 400 at
+     head dims 64, 96 and 128), batch 4: out, lse and gradient against the
+     plain versions, the gradient bitwise over two runs, timed beside the
+     plain version, SDPA and the bound.
   4. one model evaluation on the card (bf16, kernels) against the CPU (fp32,
      plain versions) with the same random non-zero weights: the stock
      MM-UNet at batch 1, and the SR U-Net on 2 frames; relative L2 error.
@@ -100,6 +105,19 @@ Phases, each printed as it runs; any failure exits non-zero:
      gradient step, the stage times, the peak memory and each kernel's
      launches (K1-K7 all), and the projected 1000-step clip; 8.4 the v2a
      CLI (the replacement method: no backward) under the same cut.
+  9. SR and single-modal training at full width: 9.1 one SR U-Net loss
+     and gradient (the SR flags of LAUNCH_SCRIPT_ARGS, 256 <- 64, batch 1)
+     on the card (bf16, kernels, use_checkpoint) against the CPU (fp32,
+     plain versions), phase 6.1's limits, the backward through K4/K5 at
+     T = 1024, 256 and 64; the same for the single-modal audio U-Net
+     (25600 samples, 128 channels, 4 heads; K4/K5 at T = 6400, 1600 and
+     400); 9.2 scripts/image_sr_train.py at those flags, batch 4,
+     use_checkpoint, synthetic data, SR_TRAIN_STEPS steps with a
+     checkpoint and a preview triptych at the last, a resume for one step,
+     then the same flags without use_checkpoint, whose peak memory must be
+     higher; 9.3 scripts/single_modal_train.py for video (16x64x64) and
+     audio, batch 4, use_checkpoint: the median step after two warm-up
+     steps, the peak memory and K1/K4/K5's launches of each run.
 
 The last three lines of standard output are the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
@@ -111,8 +129,12 @@ and the S4 core also carry ``previous_ms``, their previous design's time in
 the same run; K1-K7 carry ``a2v_launches``, their launches in phase 8.3's
 a2v run (K1's include the SR stage's), and K4-K7 ``a2v_ms`` and
 ``a2v_bound_ms``, phase 8.2's per-call numbers summed over the sampler's
-batch-1 shapes), the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.
+batch-1 shapes; K1, K4 and K5 carry ``sr_train_launches``,
+``single_video_train_launches`` and ``single_audio_train_launches``, their
+launches in phases 9.2 and 9.3's training runs, and ``sr_train_ms`` /
+``audio_train_ms`` with their ``*_bound_ms``, phase 3b's per-call numbers
+summed over the SR and audio training shapes), the card's ``nvidia-smi``
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -179,6 +201,22 @@ TRAIN_BANDED_SHAPES = [  # (label, N, F, Tq, Tk, C, heads, lw)
     ("ds8 audio->video", 4, 16, 25, 64, 512, 8, 8),
     ("middle video->audio", 4, 16, 64, 25, 512, 8, 16),
     ("middle audio->video", 4, 16, 25, 64, 512, 8, 16),
+]
+# Main-path shapes of the SR U-Net's and the single-modal audio U-Net's
+# training steps at batch 4 (phase 3b's extra backward cases, checked and
+# timed with their bounds, not in the sums): the SR U-Net's attention at
+# 64x64 / 32x32 / 16x16 of its 256x256 input (ds 8/16/32, head dim 64, the
+# per-head qkv order), and the audio stream's self-attention at 25600 / 4^k
+# samples (128 channels, mult 1,2,3,4, 4 heads: head dims 64, 96, 128).
+SR_TRAIN_SELF_SHAPES = [  # (label, N, T, C, heads, layout)
+    ("sr ds8", 4, 1024, 384, 6, "per_head"),
+    ("sr ds16", 4, 256, 768, 12, "per_head"),
+    ("sr ds32", 4, 64, 768, 12, "per_head"),
+]
+AUDIO_TRAIN_SELF_SHAPES = [  # (label, N, T, C, heads, layout)
+    ("audio ds2", 4, 6400, 256, 4, "thirds"),
+    ("audio ds4", 4, 1600, 384, 4, "thirds"),
+    ("audio ds8", 4, 400, 512, 4, "thirds"),
 ]
 # Extra self-attention cases of phases 3 and 3b (checked and timed, not in
 # the sums): ragged T with N >= 2, whose rows past T are the next sequence's;
@@ -773,6 +811,77 @@ def banded_head_dims(g) -> None:
         print(f"banded_attention_bwd {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} lw={lw:2d} "
               f"shift={s} forward err={max(fwd_err, lse_err):.3e}; err={max(e for e, _ in errs):.3e} "
               f"kernel={ms:.4f} ms [extra case, not summed; forward {ran_fwd}; backward {ran}]")
+
+
+def slice_attention_cases(forward_summary, backward_summary):
+    """Phase 3b, continued: the self-attention forward (K1) and backward
+    (K4/K5) at the SR U-Net's and the single-modal audio U-Net's training
+    shapes (SR_TRAIN_SELF_SHAPES, AUDIO_TRAIN_SELF_SHAPES), each held to its
+    plain version (the forward's out and lse too), the backward also
+    bitwise over two runs; timed with the plain version, the library call
+    and the bound.  Errors go into the kernels' summaries; returns {kernel:
+    {"sr_train_ms", "sr_train_bound_ms", "audio_train_ms",
+    "audio_train_bound_ms"}} summed over each kernel's shapes."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    phase(f"3b. (continued) K1 and K4/K5 at the SR U-Net's (per-head qkv) and the single-modal audio "
+          f"U-Net's training shapes, batch 4 (out {ba.FORWARD_TOL}, lse {ba.LSE_TOL}, backward "
+          f"{ba.BACKWARD_TOL})")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    sums = {}
+
+    def add(name, key, ms, bound):
+        d = sums.setdefault(name, {})
+        d[f"{key}_ms"] = d.get(f"{key}_ms", 0.0) + ms
+        d[f"{key}_bound_ms"] = d.get(f"{key}_bound_ms", 0.0) + bound[0]
+
+    for key, shapes in (("sr_train", SR_TRAIN_SELF_SHAPES), ("audio_train", AUDIO_TRAIN_SELF_SHAPES)):
+        for label, n, t, c, h, layout in shapes:
+            qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+            dout = torch.randn((n, t, c), generator=g, device=dev, dtype=torch.bfloat16)
+            (out, lse), ran = routed_call("self_attention", c // h,
+                                          lambda: ba.self_attention_cuda(qkv, h, layout))
+            fwd_err, lse_err, ok = self_forward_check(qkv, h, layout, out, lse)
+            check(ok, f"self_attention {label}: err {fwd_err}, lse {lse_err}")
+            fwd_ms = time_ms(lambda: ba.self_attention_cuda(qkv, h, layout))
+            fwd_plain_ms = time_ms(lambda: ba.self_attention_reference(qkv, h, layout))
+            fwd_lib_ms = library_attention_ms(packed_views(layout, h), [qkv])
+            fwd_bound = bound_ms(*self_attention_work(n, t, c, h))
+            print(f"self_attention {label:11s} N={n} T={t:5d} C={c} H={h:2d} {layout:8s} err={fwd_err:.3e} "
+                  f"lse_err={lse_err:.3e} kernel={fwd_ms:.4f} ms plain={fwd_plain_ms:.4f} ms library "
+                  f"(SDPA fwd)={fwd_lib_ms:.4f} ms bound={fwd_bound[0]:.4f} ms ({fwd_bound[1]}) [{ran}]")
+            dqkv, ran = routed_call("self_attention_bwd", c // h,
+                                    lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
+            check(torch.equal(dqkv, ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout)),
+                  f"self_attention_bwd {label}: two runs differ")
+            ref = ba.self_attention_backward_reference(qkv, dout, h, layout)
+            err, ok = ba.BACKWARD_TOL.check(dqkv, ref)
+            check(ok, f"self_attention_bwd {label}: err {err}")
+            scale = ref.float().abs().max().item()
+            del ref, dqkv
+            ms = time_ms(lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
+            plain_ms = time_ms(lambda: ba.self_attention_backward_reference(qkv, dout, h, layout))
+            g_heads = dout.view(n, t, h, c // h).transpose(1, 2)
+            lib_ms, lib_fwd_bwd_ms = library_attention_ms(packed_views(layout, h), [qkv], g_heads)
+            bound = bound_ms(*self_attention_work(n, t, c, h, backward=True))
+            name = bwd_kernel_name("self", t)
+            print(f"self_attention_bwd {label:11s} N={n} T={t:5d} C={c} H={h:2d} {layout:8s} err={err:.3e} "
+                  f"(max|plain| {scale:.3e}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms library bwd="
+                  f"{lib_ms:.4f} ms (fwd+bwd {lib_fwd_bwd_ms:.4f} ms) bound={bound[0]:.4f} ms ({bound[1]}) "
+                  f"[{name}; {ran}]")
+            forward_summary["self_attention"]["max_abs_err"] = max(
+                forward_summary["self_attention"]["max_abs_err"], fwd_err, lse_err)
+            backward_summary[name]["max_abs_err"] = max(backward_summary[name]["max_abs_err"], err)
+            add("self_attention", key, fwd_ms, fwd_bound)
+            add(name, key, ms, bound)
+            del qkv, dout, out, lse
+            torch.cuda.empty_cache()
+    for name, v in sums.items():
+        print(f"{name} summed: " + ", ".join(f"{k} {x:.4f}" for k, x in v.items()))
+    return sums
 
 
 def rel_l2(a, b) -> float:
@@ -1671,6 +1780,236 @@ def conditional_clis(tmp: str):
     return counts
 
 
+# Phase 9: SR U-Net training and single-modal training at full width.  The
+# SR flags are those of scripts/multimodal_sample_sr.py's LAUNCH_SCRIPT_ARGS
+# (192 channels, attention at ds 32/16/8, head channels 64, resblock_updown,
+# learned sigma, 256 <- 64); the single-modal flags 128 channels, 4 heads,
+# attention at ds 2/4/8 (scripts/single_modal_train.py's defaults).  Cut:
+# SR_TRAIN_STEPS steps (+1 resumed), SINGLE_TRAIN_STEPS per modality.
+SR_FLAGS = (
+    "--large_size 256 --small_size 64 --sr_num_channels 192 --sr_attention_resolutions 32,16,8 "
+    "--sr_num_head_channels 64 --sr_resblock_updown True --sr_learn_sigma True --use_fp16 True"
+).split()
+SR_TRAIN_STEPS = 10
+SR_NO_REMAT_STEPS = 3  # the same flags without use_checkpoint, for its peak memory
+SINGLE_FLAGS = ("--num_channels 128 --num_heads 4 --attention_resolutions 2,4,8 "
+                "--use_checkpoint True --batch_size 4").split()
+SINGLE_SIZES = {"video": ["--video_size", "16,3,64,64"], "audio": ["--audio_size", "1,25600"]}
+SINGLE_TRAIN_STEPS = 6
+
+
+def self_kernel_counts():
+    """K1 / K4 / K5 launches since the counters were last set to 0."""
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    counts = {"self_attention": ba.LAUNCHES["self_attention"]}
+    for t, n in ba.SELF_BWD_LENGTHS.items():
+        counts[bwd_kernel_name("self", t)] = counts.get(bwd_kernel_name("self", t), 0) + n
+    return counts
+
+
+def card_vs_cpu_gradient(label, cpu_model, gpu_model, diffusion, adapter, batch, noise, t):
+    """One loss and parameter gradient of ``diffusion.training_losses`` on
+    the CPU (fp32, plain versions) and on the card (bf16, kernels, remat),
+    same weights and draws; checks both against LOSS_REL_TOL /
+    GRAD_REL_L2_TOL and returns the card's backward lengths by T."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    def loss_and_grad(model, device):
+        on = {k: v.to(device) for k, v in batch.items()}
+        x_start, model_fn = adapter(model, on)
+        terms = diffusion.to(device).training_losses(model_fn, x_start, t.to(device), noise=noise.to(device))
+        loss = terms["loss"].mean()
+        loss.backward()
+        grad = torch.cat([p.grad.reshape(-1).double().cpu() for p in model.parameters()])
+        return loss.item(), grad
+
+    t0 = time.perf_counter()
+    ref_loss, ref_grad = loss_and_grad(cpu_model, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    ba.reset_launch_counts()
+    loss, grad = loss_and_grad(gpu_model, torch.device("cuda"))
+    torch.cuda.synchronize()
+    counts, lengths = self_kernel_counts(), dict(ba.SELF_BWD_LENGTHS)
+    e = rel_l2(grad, ref_grad)
+    gap = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"{label}: loss card {loss:.6f} CPU {ref_loss:.6f}, relative gap {gap:.3e} (tolerance "
+          f"{LOSS_REL_TOL}); gradient ({grad.numel()} values) rel L2 {e:.3e} (tolerance "
+          f"{GRAD_REL_L2_TOL}); CPU loss+backward {cpu_s:.1f} s; launches {counts}; backward by T {lengths}")
+    check(gap <= LOSS_REL_TOL, f"{label}: loss card vs CPU")
+    check(e <= GRAD_REL_L2_TOL, f"{label}: gradient card vs CPU")
+    return lengths
+
+
+def sr_gradient_parity() -> None:
+    """Phase 9.1: one SR U-Net loss and gradient, card vs CPU."""
+    import torch
+
+    from mm_diffusion_tpu_torch import configs
+    from mm_diffusion_tpu_torch.models.image_unet import ImageSuperResModel
+    from mm_diffusion_tpu_torch.scripts import image_sr_train as cli
+    from mm_diffusion_tpu_torch.train import ImageSRTask
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    phase("9.1 SR U-Net, one loss and gradient at batch 1: card (bf16, kernels, use_checkpoint) vs CPU "
+          "(fp32, plain versions)")
+    torch.set_num_threads(os.cpu_count() or 1)
+    args = vars(cli.create_argparser().parse_args(SR_FLAGS))
+    cpu_model = randomize_(ImageSuperResModel(configs.create_image_sr_config(
+        **{**args, "use_fp16": False})), seed=51).train()
+    gpu_model = ImageSuperResModel(configs.create_image_sr_config(**{**args, "use_checkpoint": True}))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to("cuda").train()
+    diffusion = configs.create_gaussian_diffusion(steps=1000, learn_sigma=True)
+    batch = {k: torch.from_numpy(v) for k, v in next(cli.synthetic_sr_data(1, 256, 64, seed=3)).items()}
+    noise = torch.randn(batch["high_res"].shape, generator=torch.Generator().manual_seed(4))
+    lengths = card_vs_cpu_gradient("SR U-Net", cpu_model, gpu_model, diffusion, ImageSRTask().adapter(None),
+                                   batch, noise, torch.tensor([321]))
+    check(set(lengths) == {1024, 256, 64}, f"the SR backward went through K4/K5 at T {sorted(lengths)}")
+    del cpu_model, gpu_model
+
+
+def train_cli_run(cli, argv, steps):
+    """Run a train CLI for ``steps`` steps with the counters at 0; returns
+    (loop, K1/K4/K5 launches, peak GiB, median step ms after two)."""
+    import statistics
+
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    argv = argv + ["--device", "cuda", "--log_interval", "1", "--max_steps", str(steps)]
+    print("argv:", " ".join(argv))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ba.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = self_kernel_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = loop.history
+    for r in rows:
+        print(f"step {int(r['step']):3d} loss {r['loss']:.5f} grad_norm {r['grad_norm']:.4e} "
+              f"step_ms {r['step_ms']:.1f}")
+    check(len(rows) == steps and loop.state.step == steps, "train CLI step count")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows),
+          "non-finite loss or gradient norm")
+    median_ms = statistics.median(r["step_ms"] for r in rows[2:])
+    print(f"median step {median_ms:.1f} ms over steps 3-{steps}; peak device memory {peak_gib:.2f} GiB "
+          f"(max_memory_allocated); CLI wall {wall:.1f} s; launches {counts}; self backward by T "
+          f"{dict(ba.SELF_BWD_LENGTHS)}")
+    return loop, counts, peak_gib, median_ms
+
+
+def sr_training(tmp: str):
+    """Phase 9.2: scripts/image_sr_train.py at the SR flags, batch 4,
+    use_checkpoint, synthetic data: SR_TRAIN_STEPS steps with a checkpoint
+    and a preview at the last, a resume for one step, and the same flags
+    without use_checkpoint for its peak memory; returns the first run's
+    K1/K4/K5 launches."""
+    import gc
+
+    import torch
+
+    from mm_diffusion_tpu_torch.scripts import image_sr_train as cli
+
+    phase(f"9.2 SR train CLI: scripts/image_sr_train.py, batch 4, use_checkpoint, {SR_TRAIN_STEPS} steps")
+    out_dir = os.path.join(tmp, "sr_train")
+    common = SR_FLAGS + ["--batch_size", "4"]
+    argv = common + ["--use_checkpoint", "True", "--output_dir", out_dir, "--save_interval", str(SR_TRAIN_STEPS)]
+    loop, counts, peak, _ = train_cli_run(cli, argv, SR_TRAIN_STEPS)
+    for name in ("self_attention", "self_attention_bwd[T<=512]", "self_attention_bwd[T>512]"):
+        check(counts.get(name, 0) > 0, f"{name} never launched in the SR training run")
+    previews = sorted(os.listdir(os.path.join(out_dir, "previews")))
+    check(len(previews) == 1 and previews[0].startswith(f"step_{SR_TRAIN_STEPS:06d}"),
+          f"SR preview files {previews}")
+    print(f"preview: {previews[0]}; checkpoints: {sorted(os.listdir(os.path.join(out_dir, 'checkpoints')))}")
+    del loop
+    gc.collect()
+
+    loop = cli.main(argv + ["--device", "cuda", "--log_interval", "1", "--max_steps", str(SR_TRAIN_STEPS + 1)])
+    r = loop.history[-1]
+    print(f"resumed from step {loop.resumed_from}; step {int(r['step'])} loss {r['loss']:.5f}")
+    check(loop.resumed_from == SR_TRAIN_STEPS and loop.state.step == SR_TRAIN_STEPS + 1, "SR resume")
+    check(math.isfinite(r["loss"]), "non-finite loss after the resume")
+    del loop
+    gc.collect()
+
+    no_remat = common + ["--output_dir", os.path.join(tmp, "sr_train_no_remat"), "--save_interval", "1000000"]
+    loop, _, peak_no_remat, _ = train_cli_run(cli, no_remat, SR_NO_REMAT_STEPS)
+    check(not loop.model.cfg.use_checkpoint, "the no-remat run has use_checkpoint set")
+    print(f"peak device memory: {peak:.2f} GiB with use_checkpoint, {peak_no_remat:.2f} GiB without")
+    check(peak < peak_no_remat, "use_checkpoint did not lower the SR training's peak memory")
+    del loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def single_audio_gradient_parity() -> None:
+    """Phase 9.3 (first part): one loss and gradient of the single-modal
+    audio U-Net, card vs CPU."""
+    import torch
+
+    from mm_diffusion_tpu_torch import configs
+    from mm_diffusion_tpu_torch.data.synthetic import load_synthetic_data
+    from mm_diffusion_tpu_torch.models.single_unet import SingleModalUNet
+    from mm_diffusion_tpu_torch.scripts import single_modal_train as cli
+    from mm_diffusion_tpu_torch.train import SingleModalTask
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    phase("9.3 single-modal audio U-Net, one loss and gradient at batch 1: card (bf16, kernels, "
+          "use_checkpoint) vs CPU (fp32, plain versions)")
+    torch.set_num_threads(os.cpu_count() or 1)
+    args = cli.create_argparser().parse_args(SINGLE_FLAGS + SINGLE_SIZES["audio"] + ["--modality", "audio"])
+    flags = {k: getattr(args, k) for k in cli.single_model_defaults()}
+    cpu_model = randomize_(SingleModalUNet(cli.create_single_config(
+        **{**flags, "use_checkpoint": False}, dtype="float32")), seed=61).train()
+    gpu_model = SingleModalUNet(cli.create_single_config(**flags))
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    gpu_model.to("cuda").train()
+    cfg = cpu_model.cfg
+    audio = next(load_synthetic_data(1, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=3))["audio"]
+    batch = {"x": torch.from_numpy(audio)}
+    noise = torch.randn(batch["x"].shape, generator=torch.Generator().manual_seed(4))
+    lengths = card_vs_cpu_gradient("single-modal audio U-Net", cpu_model, gpu_model,
+                                   configs.create_gaussian_diffusion(steps=1000),
+                                   SingleModalTask().adapter(None), batch, noise, torch.tensor([321]))
+    check(set(lengths) == {6400, 1600, 400}, f"the audio backward went through K4/K5 at T {sorted(lengths)}")
+    del cpu_model, gpu_model
+
+
+def single_training(tmp: str):
+    """Phase 9.3: scripts/single_modal_train.py for video (16x64x64) and
+    audio (25600 samples), batch 4, use_checkpoint; returns {modality:
+    K1/K4/K5 launches}."""
+    import gc
+
+    import torch
+
+    from mm_diffusion_tpu_torch.scripts import single_modal_train as cli
+
+    launches = {}
+    for modality in ("video", "audio"):
+        phase(f"9.3 single-modal train CLI: scripts/single_modal_train.py --modality {modality}, batch 4, "
+              f"use_checkpoint, {SINGLE_TRAIN_STEPS} steps")
+        argv = SINGLE_FLAGS + SINGLE_SIZES[modality] + [
+            "--modality", modality, "--output_dir", os.path.join(tmp, f"single_{modality}"),
+            "--save_interval", "1000000"]
+        loop, counts, _, _ = train_cli_run(cli, argv, SINGLE_TRAIN_STEPS)
+        for name in ("self_attention", "self_attention_bwd[T<=512]", "self_attention_bwd[T>512]"):
+            check(counts.get(name, 0) > 0, f"{name} never launched in the {modality} training run")
+        launches[modality] = counts
+        del loop
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     try:
@@ -1690,6 +2029,7 @@ def main() -> int:
         build()
         summary = kernel_parity()
         summary.update(backward_parity(summary))
+        slice_cases = slice_attention_cases(summary, summary)
         model_parity()
         with tempfile.TemporaryDirectory() as tmp:
             launches = flagship(tmp)
@@ -1701,6 +2041,11 @@ def main() -> int:
         sampler_bwd = sampler_backward_parity()
         with tempfile.TemporaryDirectory() as tmp:
             a2v_launches = conditional_clis(tmp)
+        sr_gradient_parity()
+        single_audio_gradient_parity()
+        with tempfile.TemporaryDirectory() as tmp:
+            sr_launches = sr_training(tmp)
+            single_launches = single_training(tmp)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -1720,6 +2065,10 @@ def main() -> int:
             **({"previous_ms": summary[name]["previous_ms"]} if "previous_ms" in summary[name] else {}),
             **({"a2v_launches": a2v_launches[name]} if name in a2v_launches else {}),
             **({f"a2v_{k}": v for k, v in sampler_bwd[name].items()} if name in sampler_bwd else {}),
+            **({"sr_train_launches": sr_launches[name],
+                "single_video_train_launches": single_launches["video"][name],
+                "single_audio_train_launches": single_launches["audio"][name]} if name in sr_launches else {}),
+            **slice_cases.get(name, {}),
         }
         for name in REPLACES
     ]

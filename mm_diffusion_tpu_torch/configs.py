@@ -230,6 +230,7 @@ def create_image_sr_config(
     sr_num_res_blocks=2,
     sr_learn_sigma=True,
     sr_class_cond=False,
+    use_checkpoint=False,
     sr_attention_resolutions="16,8",
     sr_num_heads=4,
     sr_num_head_channels=-1,
@@ -260,6 +261,7 @@ def create_image_sr_config(
         num_heads_upsample=sr_num_heads_upsample,
         use_scale_shift_norm=bool(sr_use_scale_shift_norm),
         resblock_updown=bool(sr_resblock_updown),
+        use_checkpoint=bool(use_checkpoint),
         dtype=dtype or ("bfloat16" if use_fp16 else "float32"),
     )
 

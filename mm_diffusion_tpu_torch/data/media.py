@@ -92,7 +92,10 @@ def save_video(video: np.ndarray, path: str, fps: int = 10) -> str:
 
 
 def save_image(img: np.ndarray, path: str) -> str:
-    """[-1,1] float image [H,W,C] -> png (parity: save_img, common.py:35-44)."""
+    """[-1,1] float image [H,W,C] -> png (parity: save_img, common.py:35-44).
+
+    Returns the path written: ``.npz`` where neither OpenCV nor imageio is
+    installed."""
     frames = to_uint8_video(img[None])[0]
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     if _HAS_CV2:
@@ -101,8 +104,9 @@ def save_image(img: np.ndarray, path: str) -> str:
     if _HAS_IMAGEIO:
         imageio.imwrite(path, frames)
         return path
-    np.savez_compressed(os.path.splitext(path)[0] + ".npz", image=frames)
-    return path
+    npz_path = os.path.splitext(path)[0] + ".npz"
+    np.savez_compressed(npz_path, image=frames)
+    return npz_path
 
 
 def _ffmpeg_binary() -> Optional[str]:

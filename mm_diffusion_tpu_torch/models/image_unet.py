@@ -6,6 +6,11 @@ The module tree is the original's (``input_blocks.<i>.<j>``,
 upsampler checkpoints load unchanged.  Differences from the MM-UNet, as in
 the original: the time embedding is ``4 * model_channels`` wide, and an
 up/down ResBlock resamples between its norm-SiLU and its first conv.
+
+Training mode: dropout is active under ``model.train()``; with
+``cfg.use_checkpoint`` each ResBlock whose input holds at least
+``remat_min_tokens()`` pixels (H*W) recomputes its activations in the
+backward whenever gradients are taken, as the MM-UNet's do.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Any, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import TokenSelfAttention
 from .layers import (
@@ -27,7 +33,7 @@ from .layers import (
     image_upsample,
     zero_module,
 )
-from .mm_unet import DTYPES
+from .mm_unet import DTYPES, remat_min_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +52,7 @@ class ImageUNetConfig:
     num_heads_upsample: int = -1
     use_scale_shift_norm: bool = False
     resblock_updown: bool = False
+    use_checkpoint: bool = False  # recompute the large ResBlocks in the backward
     dtype: str = "bfloat16"
 
     @property
@@ -216,10 +223,19 @@ class ImageUNet(nn.Module):
             GroupNorm32(out_ch), nn.SiLU(), zero_module(Conv2d(out_ch, cfg.out_channels, 3, padding=1))
         )
 
-    @staticmethod
-    def _run(blocks, h, emb):
+    def _remat(self, h) -> bool:
+        if not (self.cfg.use_checkpoint and torch.is_grad_enabled()):
+            return False
+        return h.shape[2] * h.shape[3] >= remat_min_tokens()
+
+    def _run(self, blocks, h, emb):
         for m in blocks:
-            h = m(h, emb) if isinstance(m, ImageResBlock) else m(h)
+            if not isinstance(m, ImageResBlock):
+                h = m(h)
+            elif self._remat(h):
+                h = checkpoint(m, h, emb, use_reentrant=False)
+            else:
+                h = m(h, emb)
         return h
 
     def unet_forward(self, h, timesteps, label=None):

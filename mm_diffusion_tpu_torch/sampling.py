@@ -1,6 +1,7 @@
 """Sampling pipelines: the base joint audio-video sampler, the zero-shot
 conditional (audio->video, video->audio) sampler, the 64->256 frame
-super-resolution sampler, and the chain of base and SR (counterpart of
+super-resolution sampler, the single-modal (video or audio) sampler, and
+the chain of base and SR (counterpart of
 ``mm_diffusion_tpu/sampling.py``).
 
 Randomness is explicit: a device ``torch.Generator`` for the noise, and a
@@ -209,6 +210,52 @@ def build_sr_sampler(
         return _ancestral(sample_fn, sr_diffusion, model_fn, x_T, generator, clip_denoised)
 
     return sr
+
+
+def build_single_sampler(
+    model,
+    diffusion: GaussianDiffusion,
+    sample_fn: str = "ddim",
+    steps: int = 50,
+    clip_denoised: bool = True,
+) -> Callable[..., torch.Tensor]:
+    """Unconditional sampler of a single-modal video or audio U-Net: 'ddim'
+    / 'ddpm' over ``diffusion``, or 'dpm_solver' / 'dpm_solver++'
+    (multistep order 2, time-uniform steps).  Returns ``sample(n,
+    generator=None, x_T=None) -> [n, ...]`` (the config's sample shape)."""
+    if sample_fn not in SAMPLE_FNS:
+        raise ValueError(f"sample_fn {sample_fn!r} not in {SAMPLE_FNS}")
+    shape = tuple(model.cfg.sample_shape)
+    learn_sigma = model.cfg.out_channels == 2 * shape[-1]
+    device = _device(model)
+
+    def raw(x, t_model, strip_sigma: bool):
+        out = model(x, t_model)
+        return out[..., : out.shape[-1] // 2] if strip_sigma and learn_sigma else out
+
+    if sample_fn.startswith("dpm_solver"):
+        ns = noise_schedule_from_diffusion(diffusion)
+        plus = sample_fn == "dpm_solver++"
+        solver = DPMSolver(
+            _solver_model(lambda x, t: raw(x, t, strip_sigma=True), ns, device),
+            ns, predict_x0=plus, thresholding=plus,
+        )
+
+        def run(x, generator):
+            return solver.sample(x, steps=steps, order=2, method="multistep",
+                                 skip_type="time_uniform")
+
+    else:
+
+        def run(x, generator):
+            model_fn = lambda xx, tt: raw(xx, tt, strip_sigma=False)  # noqa: E731
+            return _ancestral(sample_fn, diffusion, model_fn, x, generator, clip_denoised)
+
+    @torch.inference_mode()
+    def sample(n: int, generator: Optional[torch.Generator] = None, x_T=None):
+        return run(_randn((n,) + shape, generator, device) if x_T is None else x_T, generator)
+
+    return sample
 
 
 def shared_clip_noise(

@@ -8,9 +8,10 @@ condition and the video is generated by the replacement method
 differentiates every step through the MM-UNet.  With ``--sr_model_path``
 (``random`` or a ``.pt`` state_dict) the generated frames are
 super-resolved, all frames of a clip sharing one noise image.  Each sample
-and its ground truth are written side by side.  ``--data_dir synthetic``
-is the procedural AV dataset; a dataset directory is not ported yet.  The
-default device is ``cuda``; without a CUDA device the script stops unless
+and its ground truth are written side by side.  The ground truth comes
+from ``--data_dir``: ``synthetic`` (the procedural AV dataset) or a folder
+of videos with their audio (``data/video.py``; needs OpenCV).  The default
+device is ``cuda``; without a CUDA device the script stops unless
 ``--device cpu`` is given.
 
     python -m mm_diffusion_tpu_torch.scripts.audio2video_sample_sr \\
@@ -30,13 +31,11 @@ import torch
 from .. import configs
 from ..configs import add_dict_to_argparser, args_to_dict
 from ..data import media
-from ..data.synthetic import load_synthetic_data
+from ..data.video import load_data
 from ..sampling import build_conditional_sampler, build_sr_sampler, shared_clip_noise
 from ..utils import logger
 from ..utils.timing import sync
 from .multimodal_sample_sr import load_weights, resolve_device
-
-NOT_PORTED = "not ported yet; see ROADMAP.md (data)"
 
 
 def create_argparser() -> argparse.ArgumentParser:
@@ -68,8 +67,6 @@ def run_conditional(args, condition_key: str, save_prefix: str) -> Dict[str, Any
     (numpy) and each batch's timings: the conditional stage's wall seconds
     (``base_s``) with each step's (``step_s``), and the SR stage's
     (``sr_s``), each measured to a device synchronisation."""
-    if args.data_dir != "synthetic":
-        raise NotImplementedError(f"a dataset directory (data/video.py) is {NOT_PORTED}; use synthetic")
     device = resolve_device(args.device)
     logger.configure(args.output_dir)
     log = logger.get_current()
@@ -106,8 +103,11 @@ def run_conditional(args, condition_key: str, save_prefix: str) -> Dict[str, Any
         sr = build_sr_sampler(sr_model, sr_diffusion, sample_fn=args.sr_sample_fn,
                               steps=args.sr_sample_steps)
 
-    data = load_synthetic_data(args.batch_size, video_size=cfg.video_size,
-                               audio_size=cfg.audio_size, seed=args.seed)
+    data = load_data(
+        data_dir=args.data_dir, batch_size=args.batch_size, video_size=cfg.video_size,
+        audio_size=cfg.audio_size, video_fps=args.video_fps, audio_fps=args.audio_fps,
+        num_workers=0, shard=0, num_shards=1, seed=args.seed,
+    )
     frames = cfg.video_size[0]
     paths, timings, samples = [], [], {}
     idx = 0

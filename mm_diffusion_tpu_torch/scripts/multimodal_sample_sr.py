@@ -28,7 +28,7 @@ from ..sampling import build_base_sampler, build_sr_sampler, sample_base_and_sr
 from ..utils import logger
 from ..weights import load_reference_checkpoint
 
-NOT_PORTED = "not ported yet; see ROADMAP.md (conditional samplers and CLIs)"
+NOT_PORTED = "not ported yet; see ROADMAP.md §1 (multi-GPU; evaluation)"
 
 # The flagship configuration: the model and sampler flags of the reference
 # launch script (ssh_scripts/multimodal_sample_sr.sh), batch 1, one clip.
@@ -89,7 +89,7 @@ def main(argv=None) -> Dict[str, Any]:
     (numpy) and the stage wall times of each batch."""
     args = create_argparser().parse_args(argv)
     if args.n_sample_data > 1:
-        raise NotImplementedError(f"--n_sample_data > 1 (multi-device sampling) is {NOT_PORTED}")
+        raise NotImplementedError(f"--n_sample_data > 1 (multi-device sampling, multi-GPU) is {NOT_PORTED}")
     if args.save_type == "npz":
         raise NotImplementedError(f"--save_type npz (needs evaluation/) is {NOT_PORTED}")
     if args.run_eval:

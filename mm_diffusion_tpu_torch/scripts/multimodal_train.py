@@ -2,10 +2,12 @@
 (PyTorch port of ``mm_diffusion_tpu/scripts/multimodal_train.py``, same
 flags, plus ``--device``).
 
-``--data_dir synthetic`` trains on the procedural AV dataset.  The default
-device is ``cuda``; without a CUDA device the script stops unless
-``--device cpu`` is given.  Re-running with the same ``--output_dir``
-resumes from its latest checkpoint.
+``--data_dir synthetic`` trains on the procedural AV dataset, a directory
+on its videos with their audio (``data/video.py``; needs OpenCV).
+``--use_db True`` streams the logged scalars and previews to wandb when it
+is installed.  The default device is ``cuda``; without a CUDA device the
+script stops unless ``--device cpu`` is given.  Re-running with the same
+``--output_dir`` resumes from its latest checkpoint.
 
     python -m mm_diffusion_tpu_torch.scripts.multimodal_train \\
         --data_dir synthetic --output_dir /tmp/run --num_channels 128 \\
@@ -19,13 +21,13 @@ import argparse
 
 from .. import configs
 from ..configs import add_dict_to_argparser, args_to_dict, create_gaussian_diffusion
-from ..data.synthetic import load_synthetic_data
+from ..data.video import data_shard, load_data
 from ..models.mm_unet import MultimodalUNet
 from ..train import TrainLoop
 from ..utils import logger
 from .multimodal_sample_sr import resolve_device
 
-NOT_PORTED = "not ported yet; see ROADMAP.md"
+NOT_PORTED = "not ported yet; see ROADMAP.md §1 (multi-GPU)"
 
 
 def create_argparser() -> argparse.ArgumentParser:
@@ -66,12 +68,8 @@ def main(argv=None) -> TrainLoop:
     """Run the CLI; returns the finished :class:`TrainLoop` (its state and
     its log rows in ``history``)."""
     args = create_argparser().parse_args(argv)
-    if args.data_dir != "synthetic":
-        raise NotImplementedError(f"a dataset directory (data/video.py) is {NOT_PORTED}; use synthetic")
     if args.n_fsdp > 1:
         raise NotImplementedError(f"--n_fsdp > 1 (sharded training, parallel/) is {NOT_PORTED}")
-    if args.use_db:
-        raise NotImplementedError(f"--use_db (wandb streaming) is {NOT_PORTED}")
     device = resolve_device(args.device)
     logger.configure(args.output_dir)
     log = logger.get_current()
@@ -91,8 +89,18 @@ def main(argv=None) -> TrainLoop:
     )
 
     log.log("creating data loader...")
-    data = load_synthetic_data(
-        args.batch_size, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=args.seed
+    shard, num_shards = data_shard()
+    data = load_data(
+        data_dir=args.data_dir,
+        batch_size=args.batch_size,
+        video_size=cfg.video_size,
+        audio_size=cfg.audio_size,
+        video_fps=args.video_fps,
+        audio_fps=args.audio_fps,
+        num_workers=args.num_workers,
+        shard=shard,
+        num_shards=num_shards,
+        seed=args.seed,
     )
     accum = 1 if args.microbatch <= 0 else max(1, args.batch_size // args.microbatch)
     loop = TrainLoop(
@@ -111,6 +119,7 @@ def main(argv=None) -> TrainLoop:
         accum_steps=accum,
         seed=args.seed,
         sample_fn=args.sample_fn,
+        use_db=args.use_db,
         device=device,
     )
     log.log(f"training on {device}...")

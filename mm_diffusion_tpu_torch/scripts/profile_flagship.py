@@ -1,10 +1,12 @@
 """Where the device time goes in one base evaluation and one SR step of the
 flagship sampler (random non-zero weights, batch 1, bf16), in one step of
 zero-shot audio->video sampling by the gradient method (the same base
-model: a forward and an input-only backward), and in one step of the
+model: a forward and an input-only backward), in one step of the
 flagship training (the bench config: batch 4, remat, bf16 compute, fp32
-AdamW and EMA), by kernel kind, with torch.profiler.  Needs one CUDA
-device.
+AdamW and EMA), and in one train step of the SR U-Net (the sampler's SR
+config) and of the single-modal video and audio U-Nets (the single-modal
+CLI's defaults), each at batch 4 with use_checkpoint, by kernel kind, with
+torch.profiler.  Needs one CUDA device.
 
     python -m mm_diffusion_tpu_torch.scripts.profile_flagship
 
@@ -97,11 +99,23 @@ def report(stage: str, wall_ms: float, kernels) -> None:
         print(f"     {us / 1e3:8.3f} ms  {name}")
 
 
+def _train_step_closure(model, diffusion, batch, dev: torch.device, seed: int, **step_kw):
+    """One train step of ``model`` on the numpy ``batch`` as a closure
+    (AdamW and one EMA rate, uniform timesteps)."""
+    from ..train import create_train_state, make_optimizer, make_train_step
+
+    model = model.to(dev).train()
+    state = create_train_state(model, make_optimizer(model, 1e-4), (0.9999,))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    step = make_train_step(diffusion.to(dev), **step_kw)
+    gens = torch.Generator().manual_seed(seed), torch.Generator(device=dev).manual_seed(seed)
+    return lambda: step(state, batch, *gens)
+
+
 def train_step_call(dev: torch.device, seed: int):
     """One bench-config train step as a closure (the CLI's default
     initialisation, synthetic data, uniform timesteps)."""
     from ..data.synthetic import load_synthetic_data
-    from ..train import create_train_state, make_optimizer, make_train_step
     from .multimodal_train import create_argparser as train_argparser
 
     flags = vars(train_argparser().parse_args(
@@ -109,14 +123,36 @@ def train_step_call(dev: torch.device, seed: int):
         "--use_checkpoint True --batch_size 4".split()
     ))
     cfg = configs.create_model_config(**flags)
-    model = MultimodalUNet(cfg).to(dev).train()
-    diffusion = configs.create_gaussian_diffusion(steps=1000).to(dev)
-    state = create_train_state(model, make_optimizer(model, 1e-4), (0.9999,))
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(load_synthetic_data(
-        4, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=seed)).items()}
-    step = make_train_step(diffusion, shift=torch.Generator().manual_seed(seed))
-    gens = torch.Generator().manual_seed(seed), torch.Generator(device=dev).manual_seed(seed)
-    return lambda: step(state, batch, *gens)
+    batch = next(load_synthetic_data(4, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=seed))
+    return _train_step_closure(MultimodalUNet(cfg), configs.create_gaussian_diffusion(steps=1000), batch,
+                               dev, seed, shift=torch.Generator().manual_seed(seed))
+
+
+def sr_train_step_call(dev: torch.device, seed: int):
+    """One SR U-Net train step (the sampler's SR flags, use_checkpoint,
+    synthetic pairs 256 <- 64) as a closure."""
+    from ..train import ImageSRTask
+    from .image_sr_train import synthetic_sr_data
+
+    flags = vars(create_argparser().parse_args(LAUNCH_SCRIPT_ARGS))
+    model = ImageSuperResModel(configs.create_image_sr_config(**{**flags, "use_checkpoint": True}))
+    return _train_step_closure(model, configs.create_gaussian_diffusion(steps=1000, learn_sigma=True),
+                               next(synthetic_sr_data(4, 256, 64, seed)), dev, seed,
+                               adapter=ImageSRTask().adapter(None))
+
+
+def single_train_step_call(modality: str, dev: torch.device, seed: int):
+    """One single-modal train step (the CLI's defaults, use_checkpoint,
+    synthetic data) as a closure."""
+    from ..data.synthetic import load_synthetic_data
+    from ..models.single_unet import SingleModalUNet
+    from ..train import SingleModalTask
+    from .single_modal_train import create_single_config, single_model_defaults
+
+    cfg = create_single_config(**{**single_model_defaults(), "modality": modality, "use_checkpoint": True})
+    av = next(load_synthetic_data(4, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=seed))
+    return _train_step_closure(SingleModalUNet(cfg), configs.create_gaussian_diffusion(steps=1000),
+                               {"x": av[modality]}, dev, seed, adapter=SingleModalTask().adapter(None))
 
 
 def a2v_step_call(base, dev: torch.device, seed: int):
@@ -157,6 +193,15 @@ def main(argv=None) -> None:
     report("train step, bench config, batch 4 (remat, bf16)",
            *profile_call(train_step_call(dev, args.seed), grad=True))
     print(f"   peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for stage, call in (("SR U-Net train step, batch 4 (use_checkpoint, bf16)", sr_train_step_call),
+                        ("single-modal video train step, batch 4 (use_checkpoint, bf16)",
+                         lambda d, s: single_train_step_call("video", d, s)),
+                        ("single-modal audio train step, batch 4 (use_checkpoint, bf16)",
+                         lambda d, s: single_train_step_call("audio", d, s))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        report(stage, *profile_call(call(dev, args.seed), grad=True))
+        print(f"   peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.empty_cache()
     flags = vars(create_argparser().parse_args(LAUNCH_SCRIPT_ARGS))
     base = randomize_(MultimodalUNet(configs.create_model_config(**flags)), args.seed)

@@ -1,8 +1,9 @@
-"""Training: schedule samplers, the train state and step, checkpoints, the
-loop and its tasks (counterpart of ``mm_diffusion_tpu/train``)."""
+"""Training: schedule samplers, the train state and step, BertAdam,
+checkpoints, the loop and its tasks (counterpart of ``mm_diffusion_tpu/train``)."""
 
 from .checkpoint import latest_checkpoint_step, restore_checkpoint, save_checkpoint
 from .loop import TrainLoop, parse_ema_rates
+from .optimization import SCHEDULES, BertAdam
 from .resample import LossSecondMomentResampler, UniformSampler, create_named_schedule_sampler
 from .state import (
     AdamW,
@@ -12,12 +13,16 @@ from .state import (
     make_train_step,
     quartile_metrics,
 )
-from .tasks import MultimodalTask
+from .tasks import ImageSRTask, MultimodalTask, SingleModalTask
 
 __all__ = [
     "AdamW",
+    "BertAdam",
+    "ImageSRTask",
     "LossSecondMomentResampler",
     "MultimodalTask",
+    "SCHEDULES",
+    "SingleModalTask",
     "TrainLoop",
     "TrainState",
     "UniformSampler",

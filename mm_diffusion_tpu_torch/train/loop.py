@@ -1,6 +1,8 @@
 """The training loop (counterpart of ``mm_diffusion_tpu/train/loop.py``) on
 one device: resume, the train step, logging and save intervals, EMA-weight
-previews.
+previews.  What depends on the model -- the batch adapter of the train step
+and the preview -- is the task's (``train/tasks.py``): the MM-UNet by
+default, the SR U-Net, or a single-modal U-Net.
 
 The data feed runs one batch ahead: a thread stages the next numpy batch in
 pinned host memory and copies it to the card with ``non_blocking=True`` on
@@ -20,6 +22,7 @@ from typing import Dict, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..data.video import data_shard
 from ..diffusion.gaussian import GaussianDiffusion
 from ..utils import logger as kvlogger
 from .checkpoint import latest_checkpoint_step, restore_checkpoint, save_checkpoint
@@ -102,12 +105,12 @@ class _DevicePrefetcher:
 
 
 class TrainLoop:
-    """Multimodal training loop.  ``data`` yields numpy batches
-    ``{"video": [B,F,H,W,C], "audio": [B,L,C]}`` in [-1, 1]; ``model`` is
-    moved to ``device`` and trained in place.  ``close()`` stops the data
-    feed's thread."""
-
-    preview_samples = 4
+    """Training loop.  ``data`` yields numpy batches in [-1, 1] of the
+    task's layout (``MultimodalTask``: ``{"video": [B,F,H,W,C], "audio":
+    [B,L,C]}``); ``model`` is moved to ``device`` and trained in place.
+    ``use_db`` streams the logged scalars and each preview's media to
+    wandb when it is installed (project and run name from ``output_dir``).
+    ``close()`` stops the data feed's thread."""
 
     def __init__(
         self,
@@ -128,9 +131,12 @@ class TrainLoop:
         seed: int = 0,
         sample_fn: str = "dpm_solver",
         save_preview: bool = True,
+        preview_samples: int = 4,
+        task=None,
+        use_db: bool = False,
         device="cuda",
     ):
-        self.task = MultimodalTask()
+        self.task = task if task is not None else MultimodalTask()
         self.device = torch.device(device)
         self.model = model.to(self.device).train()
         self.diffusion = diffusion.to(self.device)
@@ -140,8 +146,16 @@ class TrainLoop:
         self.output_dir = output_dir
         self.sample_fn_name = sample_fn
         self.save_preview = save_preview
+        self.preview_samples = preview_samples
+        self.last_batch = None  # the last step's device batch, for the SR preview
         self.history = []  # every dumped log row
         self._prefetch = None
+        if use_db and data_shard()[0] == 0:
+            out_abs = os.path.abspath(output_dir)
+            kvlogger.get_current().enable_wandb(
+                project=os.path.basename(os.path.dirname(out_abs)) or "mm_diffusion_tpu",
+                name=os.path.basename(out_abs),
+            )
 
         optimizer = make_optimizer(self.model, lr, weight_decay, lr_anneal_steps)
         sampler = create_named_schedule_sampler(schedule_sampler, diffusion.num_timesteps)
@@ -155,7 +169,9 @@ class TrainLoop:
             kvlogger.log(f"resuming from {resume_dir} step {self.resumed_from}")
             restore_checkpoint(resume_dir, self.state, self.resumed_from)
         self._seed(seed, self.state.step)
-        self._train_step = make_train_step(self.diffusion, accum_steps, shift=self.shift_generator)
+        self._train_step = make_train_step(
+            self.diffusion, accum_steps, adapter=self.task.adapter(self)
+        )
 
     def _seed(self, seed: int, step: int) -> None:
         """Generators of the timesteps and shifts (host), the noise (device)
@@ -186,6 +202,7 @@ class TrainLoop:
             while max_steps is None or step < max_steps:
                 with log.profile_kv("data"):
                     batch = next(self._prefetch)
+                self.last_batch = batch
                 pending.append(self._train_step(
                     self.state, batch, t_generator=self.t_generator,
                     noise_generator=self.noise_generator,
@@ -217,8 +234,13 @@ class TrainLoop:
         step = save_checkpoint(self.ckpt_dir, self.state)
         kvlogger.log(f"saved checkpoint step {step} -> {self.ckpt_dir}")
 
-    def sample_preview(self, step: int) -> str:
-        return self.task.preview(self, step)
+    def sample_preview(self, step: int) -> Optional[str]:
+        """The task's EMA-weight preview; its primary media file is streamed
+        to wandb when ``use_db`` is on."""
+        path = self.task.preview(self, step)
+        if path:
+            kvlogger.get_current().log_media(path, step=step)
+        return path
 
     def close(self) -> None:
         if self._prefetch is not None:

@@ -15,7 +15,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -159,6 +159,19 @@ def mm_model_fn(model: nn.Module, shift: Shift):
     return model_fn
 
 
+Adapter = Callable[[nn.Module, State], Tuple[State, Callable]]
+
+
+def multimodal_adapter(shift: Shift = None) -> Adapter:
+    """The default adapter: a joint ``{"video", "audio"}`` batch is the
+    diffusion target of the MM-UNet, run at RS-MMA shift ``shift``."""
+
+    def adapt(model: nn.Module, batch: State):
+        return batch, mm_model_fn(model, shift)
+
+    return adapt
+
+
 def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A host tensor onto ``device`` without waiting for the card (pinned,
     non-blocking copy)."""
@@ -167,18 +180,32 @@ def _to_device(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x.pin_memory().to(device, non_blocking=True)
 
 
-def make_train_step(diffusion: GaussianDiffusion, accum_steps: int = 1, shift: Shift = None):
-    """Build ``train_step(state, batch, ...) -> metrics`` for the MM-UNet.
+def _first_leaf(x: State) -> torch.Tensor:
+    return next(iter(x.values())) if isinstance(x, dict) else x
 
-    ``batch`` is ``{"video": [B,F,H,W,C], "audio": [B,L,C]}`` on the model's
-    device.  Each call draws timesteps from the state's sampler (host
-    generator ``t_generator``) and noise from ``noise_generator`` (on the
-    batch's device), unless ``t`` / ``noise`` are given; ``shift`` is the
-    model's RS-MMA shift argument (a host generator in training).  The
-    gradient of the importance-weighted mean loss is averaged over
-    ``accum_steps`` microbatches, then one AdamW step, the EMA update and
-    the sampler update follow.  Metrics stay device tensors (no sync).
+
+def make_train_step(
+    diffusion: GaussianDiffusion,
+    accum_steps: int = 1,
+    shift: Shift = None,
+    adapter: Optional[Adapter] = None,
+):
+    """Build ``train_step(state, batch, ...) -> metrics``.
+
+    ``adapter(model, batch) -> (x_start, model_fn)`` maps a batch (a dict
+    of tensors on the model's device) to the diffusion target (a tensor or
+    a dict of tensors) and the model as the diffusion's ``model_fn(x,
+    t_model)``; the default is :func:`multimodal_adapter` at ``shift`` (the
+    MM-UNet's RS-MMA shift argument, a host generator in training).  Each
+    call draws timesteps from the state's sampler (host generator
+    ``t_generator``) and noise of the target's shape from
+    ``noise_generator`` (on the batch's device), unless ``t`` / ``noise``
+    are given.  The gradient of the importance-weighted mean loss is
+    averaged over ``accum_steps`` microbatches, then one AdamW step, the
+    EMA update and the sampler update follow.  Metrics stay device tensors
+    (no sync).
     """
+    adapter = adapter or multimodal_adapter(shift)
 
     def train_step(
         state: TrainState,
@@ -188,8 +215,10 @@ def make_train_step(diffusion: GaussianDiffusion, accum_steps: int = 1, shift: S
         t: Optional[torch.Tensor] = None,
         noise: Optional[State] = None,
     ) -> Dict[str, torch.Tensor]:
-        model, device = state.model, batch["video"].device
-        b = batch["video"].shape[0]
+        model = state.model
+        x_all, _ = adapter(model, batch)
+        leaf = _first_leaf(x_all)
+        b, device = leaf.shape[0], leaf.device
         if b % accum_steps:
             raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
         if t is None:
@@ -199,17 +228,16 @@ def make_train_step(diffusion: GaussianDiffusion, accum_steps: int = 1, shift: S
         t_host = t
         t, weights = _to_device(t, device), _to_device(weights, device)
         if noise is None:
-            noise = tree_randn_like(batch, noise_generator)
-        model_fn = mm_model_fn(model, shift)
+            noise = tree_randn_like(x_all, noise_generator)
 
         state.optimizer.zero_grad()
         micro = b // accum_steps
         losses, flat = [], []
         for i in range(accum_steps):
             sl = slice(i * micro, (i + 1) * micro)
+            x_start, model_fn = adapter(model, {k: v[sl] for k, v in batch.items()})
             terms = diffusion.training_losses(
-                model_fn, tree_map(lambda x: x[sl], batch), t[sl],
-                noise=tree_map(lambda x: x[sl], noise),
+                model_fn, x_start, t[sl], noise=tree_map(lambda x: x[sl], noise),
             )
             loss = (terms["loss"] * weights[sl]).mean()
             (loss / accum_steps).backward()

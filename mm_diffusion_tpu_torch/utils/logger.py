@@ -1,12 +1,13 @@
 """Key-value metric logger (the port's own copy of
-``mm_diffusion_tpu/utils/logger.py``, standard library only; the wandb and
-TensorBoard sinks are not ported).
+``mm_diffusion_tpu/utils/logger.py``: the standard library, with
+TensorBoard's writer and wandb imported only when asked for).
 
 Functional re-design of the vendored OpenAI-baselines logger the reference
 carries (`mm_diffusion/logger.py`, 496 LoC of global-state KV machinery).
 Provides the same capabilities — logkv / logkv_mean accumulation, dumping to
-human-readable stdout + JSONL + CSV, per-process log files, and `profile_kv`
-wall-clock scopes — as one small class with no globals required (a module
+human-readable stdout + JSONL + CSV (+ TensorBoard), per-process log files,
+`profile_kv` wall-clock scopes, and optional wandb streaming of scalars and
+preview media — as one small class with no globals required (a module
 default instance keeps the reference's convenience API).
 """
 
@@ -27,6 +28,7 @@ class KVLogger:
         log_dir: Optional[str] = None,
         suffix: str = "",
         stdout: bool = True,
+        tensorboard: bool = False,
     ):
         self._sums: Dict[str, float] = defaultdict(float)
         self._counts: Dict[str, int] = defaultdict(int)
@@ -36,10 +38,20 @@ class KVLogger:
         self._jsonl = None
         self._csv_path = None
         self._csv_keys = None
+        self._tb = None
+        self._tb_step = 0
+        self._wandb = None  # set by enable_wandb when the package imports
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._jsonl = open(os.path.join(log_dir, f"progress{suffix}.jsonl"), "a")
             self._csv_path = os.path.join(log_dir, f"progress{suffix}.csv")
+            if tensorboard:
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+                except ImportError:  # the TensorBoard package is optional
+                    self._tb = None
+                else:
+                    self._tb = SummaryWriter(os.path.join(log_dir, "tb"))
 
     def logkv(self, key: str, val):
         self._vals[key] = float(val)
@@ -77,6 +89,16 @@ class KVLogger:
             self._jsonl.flush()
         if self._csv_path and kvs:
             self._dump_csv(kvs)
+        if self._tb is not None and kvs:
+            step = int(kvs.get("step", self._tb_step))
+            self._tb_step = step + 1
+            for k, v in kvs.items():
+                self._tb.add_scalar(k, v, step)
+            self._tb.flush()
+        if self._wandb is not None and kvs:
+            # the scalars of each log interval, at the logged step
+            step = kvs.get("step")
+            self._wandb.log(kvs, step=None if step is None else int(step))
         self._vals.clear()
         self._sums.clear()
         self._counts.clear()
@@ -111,6 +133,42 @@ class KVLogger:
         if self.stdout:
             print(*args, flush=True)
 
+    # -- optional wandb dashboard streaming (the reference's use_db flag) --
+
+    def enable_wandb(self, project: str, name: Optional[str] = None, config=None) -> bool:
+        """Attach a wandb run as an extra sink.  The package is optional: a
+        missing install degrades to the JSONL/CSV/TensorBoard sinks with a
+        notice instead of failing."""
+        try:
+            import wandb
+        except ImportError:
+            self.log(
+                "use_db requested but wandb is not installed — "
+                "dashboard streaming disabled (JSONL/CSV/previews still on disk)"
+            )
+            return False
+        wandb.init(project=project, name=name, config=config,
+                   job_type="training", reinit=True)
+        self._wandb = wandb
+        return True
+
+    def log_media(self, path: str, key: str = "sample", step: Optional[int] = None) -> bool:
+        """Stream a preview media file (video, image or audio by extension).
+        No-op unless enable_wandb succeeded and the file exists."""
+        if self._wandb is None or not os.path.exists(path):
+            return False
+        lower = path.lower()
+        if lower.endswith((".gif", ".mp4")):
+            obj = self._wandb.Video(path)
+        elif lower.endswith((".jpg", ".jpeg", ".png")):
+            obj = self._wandb.Image(path)
+        elif lower.endswith(".wav"):
+            obj = self._wandb.Audio(path)
+        else:
+            return False
+        self._wandb.log({key: obj}, step=step)
+        return True
+
     @contextlib.contextmanager
     def profile_kv(self, name: str):
         """Wall-clock scope accumulated as wait_<name>
@@ -136,9 +194,10 @@ class KVLogger:
 _default = KVLogger()
 
 
-def configure(log_dir: Optional[str] = None, suffix: str = "", stdout: bool = True):
+def configure(log_dir: Optional[str] = None, suffix: str = "", stdout: bool = True,
+              tensorboard: bool = False):
     global _default
-    _default = KVLogger(log_dir, suffix, stdout)
+    _default = KVLogger(log_dir, suffix, stdout, tensorboard)
     return _default
 
 

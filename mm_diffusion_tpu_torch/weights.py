@@ -2,12 +2,14 @@
 package's parameter trees into this port's ``state_dict``.
 
 The port keeps the original PyTorch module tree, so a published checkpoint
-loads with ``load_state_dict`` and no converter.  The two ``*_from_jax``
-functions are the exact inverses of the JAX package's importers
+loads with ``load_state_dict`` and no converter.  ``state_dict_from_jax``
+and ``image_state_dict_from_jax`` are the exact inverses of the JAX package's importers
 (``mm_diffusion_tpu/train/torch_import.py``: ``convert_mm_unet_state_dict``
 and ``convert_image_unet_state_dict``); :func:`jax_params_from_state_dict`
-maps the MM-UNet the other way.  They take and give nested dicts of numpy
-arrays, so this module needs no JAX.
+maps the MM-UNet the other way, and ``single_state_dict_from_jax`` /
+``single_jax_params_from_state_dict`` map the single-modal U-Net both ways.
+They take and give nested dicts of numpy arrays, so this module needs no
+JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 
 from .models.image_unet import ImageUNetConfig, _RB, build_image_plan
 from .models.mm_unet import CrossAttnSpec, MMUNetConfig, ResBlockSpec, build_plan
+from .models.single_unet import SingleBlockSpec, SingleUNetConfig, build_single_plan
 
 Params = Dict[str, Any]
 
@@ -187,12 +190,9 @@ def mm_unet_entries(cfg: MMUNetConfig) -> List[Entry]:
     return entries
 
 
-def state_dict_from_jax(params: Params, cfg: MMUNetConfig) -> Dict[str, torch.Tensor]:
-    """The JAX MultimodalUNet's params (numpy leaves) -> this port's
-    ``MultimodalUNet`` state_dict (the original's key names).  A gradient
-    tree of the JAX params maps the same way onto the port's ``.grad``s."""
+def _state_dict_from_entries(params: Params, entries: List[Entry]) -> Dict[str, torch.Tensor]:
     out = _Out()
-    for key, path, layout in mm_unet_entries(cfg):
+    for key, path, layout in entries:
         leaf = params
         for name in path:
             leaf = leaf[name]
@@ -200,12 +200,9 @@ def state_dict_from_jax(params: Params, cfg: MMUNetConfig) -> Dict[str, torch.Te
     return out.sd
 
 
-def jax_params_from_state_dict(sd: Dict[str, Any], cfg: MMUNetConfig) -> Params:
-    """The inverse of :func:`state_dict_from_jax`: a port ``state_dict`` (or
-    a dict of its parameters' gradients, same keys) -> the JAX
-    MultimodalUNet's nested param dict of fp32 numpy arrays."""
+def _params_from_entries(sd: Dict[str, Any], entries: List[Entry]) -> Params:
     params: Params = {}
-    for key, path, layout in mm_unet_entries(cfg):
+    for key, path, layout in entries:
         w = sd[key]
         w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
         node = params
@@ -213,6 +210,84 @@ def jax_params_from_state_dict(sd: Dict[str, Any], cfg: MMUNetConfig) -> Params:
             node = node.setdefault(name, {})
         node[path[-1]] = np.ascontiguousarray(_LAYOUTS[layout][1](w.astype(np.float32)))
     return params
+
+
+def state_dict_from_jax(params: Params, cfg: MMUNetConfig) -> Dict[str, torch.Tensor]:
+    """The JAX MultimodalUNet's params (numpy leaves) -> this port's
+    ``MultimodalUNet`` state_dict (the original's key names).  A gradient
+    tree of the JAX params maps the same way onto the port's ``.grad``s."""
+    return _state_dict_from_entries(params, mm_unet_entries(cfg))
+
+
+def jax_params_from_state_dict(sd: Dict[str, Any], cfg: MMUNetConfig) -> Params:
+    """The inverse of :func:`state_dict_from_jax`: a port ``state_dict`` (or
+    a dict of its parameters' gradients, same keys) -> the JAX
+    MultimodalUNet's nested param dict of fp32 numpy arrays."""
+    return _params_from_entries(sd, mm_unet_entries(cfg))
+
+
+# -- the single-modal U-Net: one stream of the MM-UNet's entries ---------------
+
+
+def _e_single_resblock(prefix: str, path: Tuple[str, ...], spec: SingleBlockSpec,
+                       cfg: SingleUNetConfig) -> List[Entry]:
+    p = lambda *names: path + names  # noqa: E731
+    if cfg.modality == "video":
+        conv = lambda key, fp, k: _e_video_conv(key, fp, cfg.video_type if k == 3 else "3d")  # noqa: E731
+    else:
+        conv = lambda key, fp, k: _e_audio_conv(key, fp)  # noqa: E731
+    entries = (
+        _e_norm(f"{prefix}.in_layers.0.GroupNorm", p("norm_in"))
+        + conv(f"{prefix}.in_layers.2", p("conv_in"), 3)
+        + _e_linear(f"{prefix}.emb_layers.1", p("emb_proj"))
+        + _e_norm(f"{prefix}.out_layers.0.GroupNorm", p("norm_out"))
+        + conv(f"{prefix}.out_layers.3", p("conv_out"), 1)
+    )
+    if spec.out_ch != spec.in_ch:
+        entries += conv(f"{prefix}.skip_connection", p("skip"), 1)
+    if spec.attention and cfg.modality == "video":
+        entries += _e_token_attention(f"{prefix}.spatial_attention_block", p("attn", "spatial"))
+        entries += _e_token_attention(f"{prefix}.temporal_attention_block", p("attn", "temporal"))
+    elif spec.attention:
+        entries += _e_token_attention(f"{prefix}.attention_block", p("attn"))
+    return entries
+
+
+def single_unet_entries(cfg: SingleUNetConfig) -> List[Entry]:
+    """Every SingleModalUNet parameter as ``(state_dict key, JAX param
+    path, layout)``."""
+    encoder, middle, decoder = build_single_plan(cfg)
+    video = cfg.modality == "video"
+
+    def conv3(key, path, conv_type):
+        return _e_video_conv(key, path, conv_type) if video else _e_audio_conv(key, path)
+
+    entries = _e_linear("time_embed.0", ("time_embed", "Dense_0"))
+    entries += _e_linear("time_embed.2", ("time_embed", "Dense_1"))
+    for flax_name, blocks, torch_name in (("enc", encoder, "input_blocks"), ("mid", [middle], "middle_blocks"),
+                                          ("dec", decoder, "output_blocks")):
+        for i, specs in enumerate(blocks):
+            for j, spec in enumerate(specs):
+                tp = f"middle_blocks.{j}" if flax_name == "mid" else f"{torch_name}.{i}.{j}"
+                fp = f"{flax_name}_{i}_{j}"
+                if spec == "initial":
+                    entries += conv3(tp, (fp + "_conv",), "2d+1d")
+                elif isinstance(spec, SingleBlockSpec):
+                    entries += _e_single_resblock(tp, (fp + "_res",), spec, cfg)
+    entries += _e_norm("out.0.GroupNorm", ("out_norm",))
+    entries += conv3("out.2", ("out_conv",), "3d")
+    return entries
+
+
+def single_state_dict_from_jax(params: Params, cfg: SingleUNetConfig) -> Dict[str, torch.Tensor]:
+    """The JAX SingleModalUNet's params (or a gradient tree of them, numpy
+    leaves) -> this port's ``SingleModalUNet`` state_dict."""
+    return _state_dict_from_entries(params, single_unet_entries(cfg))
+
+
+def single_jax_params_from_state_dict(sd: Dict[str, Any], cfg: SingleUNetConfig) -> Params:
+    """The inverse of :func:`single_state_dict_from_jax`."""
+    return _params_from_entries(sd, single_unet_entries(cfg))
 
 
 def _thirds_to_legacy(w, heads):

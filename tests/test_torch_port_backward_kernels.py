@@ -9,7 +9,10 @@ training shapes with N >= 2 (rows past a clip's last frame are the next
 clip's), at frames of 25, 100 and 400 rows that cross 64-row tile
 boundaries (lw = 1, F - 1 with the largest shifts, F), at head dims 32, 48,
 96 and 128, with the frames packed per tile chosen by grid size, and two
-runs bitwise equal at every training shape.
+runs bitwise equal at every training shape.  The forward (K1) and the
+backward (K4/K5) also at the SR U-Net's training shapes (the per-head qkv
+order, 6 and 12 heads) and the single-modal audio U-Net's (T = 6400, 1600
+and 400 at head dims 64, 96, 128).
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 ``cuda`` and skips without a CUDA device.  On a GPU machine:
@@ -20,7 +23,12 @@ CUDA kernels have no CPU or interpret mode, so every test here is marked
 import pytest
 import torch
 
-from chip_smoke import TRAIN_BANDED_SHAPES, TRAIN_SELF_SHAPES
+from chip_smoke import (
+    AUDIO_TRAIN_SELF_SHAPES,
+    SR_TRAIN_SELF_SHAPES,
+    TRAIN_BANDED_SHAPES,
+    TRAIN_SELF_SHAPES,
+)
 from mm_diffusion_tpu_torch.ops import block_attention as ba
 
 pytestmark = pytest.mark.cuda
@@ -50,6 +58,29 @@ def test_self_attention_backward_kernel(cuda, label, n, t, c, heads, layout):
     out, lse = ba.self_attention_cuda(qkv, heads, layout)
     dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout)
     _close(dqkv, ba.self_attention_backward_reference(qkv, dout, heads, layout))
+
+
+SLICE_SHAPES = SR_TRAIN_SELF_SHAPES + AUDIO_TRAIN_SELF_SHAPES
+
+
+@pytest.mark.parametrize("label,n,t,c,heads,layout", SLICE_SHAPES, ids=[s[0] for s in SLICE_SHAPES])
+def test_self_attention_kernels_at_sr_and_audio_training_shapes(cuda, label, n, t, c, heads, layout):
+    """K1's out and lse, and K4/K5's gradient, at the SR U-Net's and the
+    single-modal audio U-Net's training shapes, against the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
+    dout = torch.randn((n, t, c), generator=g, device=cuda, dtype=torch.bfloat16)
+    out, lse = ba.self_attention_cuda(qkv, heads, layout)
+    err, ok = ba.FORWARD_TOL.check(out, ba.self_attention_reference(qkv, heads, layout))
+    assert ok, f"forward max |error| {err}"
+    q, k, _ = ba.split_packed_qkv(qkv.float(), heads, layout)
+    lse_ref = torch.logsumexp(torch.einsum("nqhd,nkhd->nhqk", q, k) / q.shape[-1] ** 0.5, dim=-1)
+    err, ok = ba.LSE_TOL.check(lse, lse_ref)
+    assert ok, f"lse max |error| {err}"
+    del q, k, lse_ref
+    dqkv = ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout)
+    _close(dqkv, ba.self_attention_backward_reference(qkv, dout, heads, layout))
+    assert torch.equal(dqkv, ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout))
 
 
 @pytest.mark.parametrize("layout", ["thirds", "per_head"])

@@ -207,7 +207,9 @@ def test_video2audio_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("main", [a2v_cli.main, v2a_cli.main])
 def test_conditional_clis_refuse_a_dataset_directory(tmp_path, main):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A dataset directory is read (tests/test_torch_port_data.py samples
+    from one); one that holds no video is refused."""
+    with pytest.raises(FileNotFoundError, match="no video files"):
         main(CLI_ARGS + ["--output_dir", str(tmp_path), "--data_dir", str(tmp_path)])
 
 

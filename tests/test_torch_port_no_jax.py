@@ -1,6 +1,7 @@
 """The PyTorch port never imports JAX nor anything of the JAX package: every
-module imports, a tiny forward of both models, a tiny training loss and
-backward, one tiny step of the conditional sampler's gradient method, the
+module imports, a tiny forward of both models and of the single-modal video
+and audio U-Nets, a tiny training loss and backward, one tiny SR train
+step, one tiny step of the conditional sampler's gradient method, the
 flash MHA and spike-kernel entry points and the A/B tools run, in a fresh
 interpreter where jax / flax / optax cannot be
 imported, and no module of the JAX package gets loaded -- not even one that
@@ -72,6 +73,24 @@ assert step_grad.shape == x_T["video"].shape and bool(step_grad.abs().max() > 0)
 assert bool(torch.isfinite(step_loss)) and bool(torch.isfinite(step_grad).all())
 assert all(bool(torch.isfinite(v).all()) for v in prev.values())
 
+from mm_diffusion_tpu_torch.models.single_unet import SingleModalUNet, SingleUNetConfig
+for kw in (dict(modality="video", video_size=(2, 3, 8, 8)), dict(modality="audio", audio_size=(1, 256))):
+    single = randomize_(SingleModalUNet(SingleUNetConfig(model_channels=16, num_res_blocks=1,
+        attention_resolutions=(2,), channel_mult=(1, 2), num_heads=2, out_channels=3 if
+        kw["modality"] == "video" else 1, dtype="float32", **kw)), 2).eval()
+    with torch.no_grad():
+        y = single(torch.randn((1,) + single.cfg.sample_shape), torch.tensor([5]))
+    assert y.shape == (1,) + single.cfg.sample_shape and bool(torch.isfinite(y).all())
+
+from mm_diffusion_tpu_torch.scripts.image_sr_train import synthetic_sr_data
+from mm_diffusion_tpu_torch.train import ImageSRTask, create_train_state, make_optimizer, make_train_step
+sr.train()
+sr_state = create_train_state(sr, make_optimizer(sr, 1e-4), num_timesteps=100)
+sr_batch = {k: torch.from_numpy(v) for k, v in next(synthetic_sr_data(2, 64, 16)).items()}
+sr_diffusion = configs.create_gaussian_diffusion(steps=100, learn_sigma=True)
+sr_metrics = make_train_step(sr_diffusion, adapter=ImageSRTask().adapter(None))(sr_state, sr_batch)
+assert bool(torch.isfinite(sr_metrics["loss"])) and sr_state.step == 1
+
 from mm_diffusion_tpu_torch.ops import block_attention, fused_attention, gemm_conv
 x = torch.randn(1, 8, 2, 64, requires_grad=True)
 fused_attention.flash_mha(x, x, x).sum().backward()
@@ -97,9 +116,10 @@ print("JAXPKG", ",".join(jax_pkg))
 """
 
 ALLOWED_FROM_JAX_PACKAGE: set = set()
-# The conditional CLIs, the flash MHA and spike-kernel modules and the A/B
-# tools: imported (the tools also run, plain versions, small shapes) by the
-# probe above, and scanned below.
+# The conditional CLIs, the flash MHA and spike-kernel modules, the A/B
+# tools, the data loaders, the single-modal model, BertAdam and the SR and
+# single-modal train CLIs: imported (the tools also run, plain versions,
+# small shapes) by the probe above, and scanned below.
 NEW_MODULES = {
     "mm_diffusion_tpu_torch.scripts.audio2video_sample_sr",
     "mm_diffusion_tpu_torch.scripts.video2audio_sample",
@@ -109,6 +129,12 @@ NEW_MODULES = {
     "mm_diffusion_tpu_torch.tools.bench_attn_variants",
     "mm_diffusion_tpu_torch.tools.bench_skip_conv",
     "mm_diffusion_tpu_torch.tools.conv_chw_spike",
+    "mm_diffusion_tpu_torch.data.video",
+    "mm_diffusion_tpu_torch.data.image",
+    "mm_diffusion_tpu_torch.models.single_unet",
+    "mm_diffusion_tpu_torch.train.optimization",
+    "mm_diffusion_tpu_torch.scripts.image_sr_train",
+    "mm_diffusion_tpu_torch.scripts.single_modal_train",
 }
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+mm_diffusion_tpu(\.|\s|$)", re.M)
