@@ -118,6 +118,19 @@ Phases, each printed as it runs; any failure exits non-zero:
      higher; 9.3 scripts/single_modal_train.py for video (16x64x64) and
      audio, batch 4, use_checkpoint: the median step after two warm-up
      steps, the peak memory and K1/K4/K5's launches of each run.
+  10. multi-GPU (parallel/) on the one card, through torchrun: 10.1 DDP
+     and 10.2 FSDP2 (--n_fsdp 2) at the flagship training config, 2 ranks
+     x batch 2 on gloo over CUDA tensors (NCCL refuses two ranks on one
+     device), held to the one-rank batch-4 step at phase 6.1's limits
+     (loss and gradient norm, gradient rel L2), with K1-K7 launched on
+     every rank, the step ms, peak memory and parameter + optimizer + EMA
+     bytes per rank, and the collectives' share of the step (DDP's step
+     without its all-reduce, no_sync, against it); FSDP2's state must be
+     about half of DDP's; 10.3 the train CLI under torchrun on NCCL (one
+     rank) with a resume, and the sampling CLI with --n_sample_data 2 on
+     two gloo ranks, whose samples must equal the one-rank run's within
+     the one-rank spread (the ranks' rows computed at batch 1 in one
+     process against the batch-2 run).
 
 The last three lines of standard output are the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
@@ -148,6 +161,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()  # the script's own clock, printed with each phase
 
 # Each kernel is held to its plain version by the limit its ops module
 # states (FORWARD_TOL, LSE_TOL, BACKWARD_TOL and VARIANT_TOL in
@@ -327,7 +341,7 @@ def check(cond: bool, msg: str) -> None:
 
 
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - START:.0f} s)", flush=True)
 
 
 def time_ms(fn) -> float:
@@ -1112,15 +1126,7 @@ def training(tmp: str):
           f"peak device memory {peak_gib:.2f} GiB (max_memory_allocated); CLI wall {wall:.1f} s")
     print(f"launches over the run: {launches}; banded forward by window {banded_fwd}; "
           f"self backward by T {self_bwd}; banded backward by window {banded_bwd}")
-    counts = {
-        "self_attention": launches["self_attention"],
-        "banded_attention[lw=1]": banded_fwd.get(1, 0),
-        "banded_attention[lw>1]": sum(v for k, v in banded_fwd.items() if k > 1),
-        "self_attention_bwd[T<=512]": sum(v for k, v in self_bwd.items() if k < K5_MIN_T),
-        "self_attention_bwd[T>512]": sum(v for k, v in self_bwd.items() if k >= K5_MIN_T),
-        "banded_attention_bwd[lw=1]": banded_bwd.get(1, 0),
-        "banded_attention_bwd[lw>1]": sum(v for k, v in banded_bwd.items() if k > 1),
-    }
+    counts = path_counts()
     for name, n in counts.items():
         check(n > 0, f"{name} never launched in the training run")
     del loop
@@ -2009,9 +2015,324 @@ def single_training(tmp: str):
         torch.cuda.empty_cache()
     return launches
 
+# Phase 10: multi-GPU training and sampling (parallel/) on the one card.
+# NCCL refuses two ranks on one device, so 10.1 and 10.2 run two ranks on
+# gloo over CUDA tensors (the worker joins torchrun's group on gloo itself):
+# the flagship training config (TRAIN_FLAGS: remat, bf16) at full width,
+# 2 ranks x batch 2 with injected timesteps and noise, held to the one-rank
+# batch-4 step on the same card at phase 6.1's limits.  10.3 runs the
+# train CLI through torchrun on NCCL (one rank) with a resume, and the
+# sampling CLI with --n_sample_data 2 on two gloo ranks.  Cuts: PARALLEL_STEPS
+# timed steps per rank; 10.3's sampler at SAMPLE_STEPS_10 / SR_STEPS_10,
+# and ddpm (per-step noise at both stages) on DDPM_RESPACING_10 steps.
+PARALLEL_T = (50, 321, 600, 999)  # the global batch's timesteps
+PARALLEL_SHIFT = 5  # the RS-MMA shift at every shifting site, as phase 6.1's
+PARALLEL_STEPS = 3  # steps timed per rank after the checked one
+PARALLEL_WORLD = 2
+TORCHRUN_TRAIN_STEPS = 5  # the median of steps 3-5 is printed
+SAMPLE_STEPS_10, SR_STEPS_10 = 10, 5
+DDPM_RESPACING_10 = ("--sample_fn", "ddpm", "--timestep_respacing", "4", "--sr_sample_fn", "ddpm",
+                     "--sr_timestep_respacing", "3")
+# The collectives' share of a step is taken by difference: DDP's step
+# without its gradient all-reduce (no_sync) against the step; FSDP2's step
+# against that same step without collectives.  torch.profiler cannot give
+# it: gloo runs its collectives on threads of its own, and their events
+# read 0-1.2 ms a step on the H100 (torch 2.11).
+
+
+def path_counts():
+    """K1-K7's launches since the counters were last set to 0, by kernel
+    (the training run's names of phase 6)."""
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    self_bwd, banded_bwd = dict(ba.SELF_BWD_LENGTHS), dict(ba.BANDED_BWD_WINDOWS)
+    banded_fwd = dict(ba.BANDED_WINDOWS)
+    return {
+        "self_attention": ba.LAUNCHES["self_attention"],
+        "banded_attention[lw=1]": banded_fwd.get(1, 0),
+        "banded_attention[lw>1]": sum(v for k, v in banded_fwd.items() if k > 1),
+        "self_attention_bwd[T<=512]": sum(v for k, v in self_bwd.items() if k < K5_MIN_T),
+        "self_attention_bwd[T>512]": sum(v for k, v in self_bwd.items() if k >= K5_MIN_T),
+        "banded_attention_bwd[lw=1]": banded_bwd.get(1, 0),
+        "banded_attention_bwd[lw>1]": sum(v for k, v in banded_bwd.items() if k > 1),
+    }
+
+
+def parallel_step_run(mode: str, work: str):
+    """One rank's run of phases 10.1 (``mode`` "ddp") / 10.2 ("fsdp"), or
+    the one-rank batch-4 reference ("one", no process group): the checked
+    step with injected draws, then PARALLEL_STEPS timed steps (under DDP
+    also PARALLEL_STEPS without the gradient all-reduce).  Writes
+    ``<work>/<mode>_rank<r>.pt``."""
+    import statistics
+
+    import torch
+
+    from mm_diffusion_tpu_torch import configs
+    from mm_diffusion_tpu_torch.configs import args_to_dict
+    from mm_diffusion_tpu_torch.data.synthetic import load_synthetic_data
+    from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.parallel import ParallelModel, make_mesh, process_data_shard, rank_rows, setup_dist
+    from mm_diffusion_tpu_torch.parallel.mesh import full_tensor, local
+    from mm_diffusion_tpu_torch.scripts import multimodal_train
+    from mm_diffusion_tpu_torch.train import create_train_state, make_optimizer, make_train_step
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = setup_dist("cuda") if mode != "one" else torch.device("cuda")
+    rank, world = process_data_shard()
+    mesh = None if mode == "one" else make_mesh(n_fsdp=world if mode == "fsdp" else 1, device_type="cuda")
+    args = multimodal_train.create_argparser().parse_args(TRAIN_FLAGS)
+    cfg = configs.create_model_config(**args_to_dict(args, configs.model_and_diffusion_defaults()))
+    model = randomize_(MultimodalUNet(cfg), seed=71).to(device).train()
+    parallel = ParallelModel(model, mesh)
+    state = create_train_state(model, make_optimizer(model, args.lr), (0.9999,), parallel=parallel)
+    diffusion = configs.create_gaussian_diffusion(steps=1000).to(device)
+    step = make_train_step(diffusion, shift=PARALLEL_SHIFT)
+    rows = len(PARALLEL_T)
+    batch = {k: torch.from_numpy(v) for k, v in next(
+        load_synthetic_data(rows, video_size=cfg.video_size, audio_size=cfg.audio_size, seed=3)).items()}
+    rng = torch.Generator().manual_seed(4)
+    noise = {k: torch.randn(v.shape, generator=rng).to(device) for k, v in batch.items()}
+    local_batch = {k: rank_rows(v, rank, world).to(device) for k, v in batch.items()}
+    t = torch.tensor(PARALLEL_T)
+
+    torch.cuda.reset_peak_memory_stats()
+    ba.reset_launch_counts()
+    metrics = step(state, local_batch, t=t, noise=noise)
+    torch.cuda.synchronize()
+    counts = path_counts()
+    grad = torch.cat([full_tensor(p.grad).reshape(-1).float().cpu() for p in model.parameters()])
+    opt_state = [v for st in state.optimizer.opt.state.values() for v in st.values() if v.dim() > 0]
+    held = list(model.parameters()) + opt_state + list(state.ema["0.9999"].values())
+    state_bytes = sum(local(x).numel() * x.element_size() for x in held)
+    ms = []
+    for _ in range(PARALLEL_STEPS):
+        t0 = time.perf_counter()
+        step(state, local_batch, t=t, noise=noise)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    nosync_ms = None
+    if parallel.kind == "ddp":  # the same steps without the gradient all-reduce (DDP's no_sync)
+        nosync = []
+        for _ in range(PARALLEL_STEPS):
+            t0 = time.perf_counter()
+            with parallel.module.no_sync():
+                step(state, local_batch, t=t, noise=noise)
+            torch.cuda.synchronize()
+            nosync.append(1e3 * (time.perf_counter() - t0))
+        nosync_ms = statistics.median(nosync)
+    out = {
+        "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "counts": counts,
+        "nosync_ms": nosync_ms,
+        "kind": parallel.kind, "step_ms": statistics.median(ms), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "state_bytes": state_bytes, "grad": grad if rank == 0 else None,
+    }
+    torch.save(out, os.path.join(work, f"{mode}_rank{rank}.pt"))
+    return out
+
+
+def run_command(cmd, timeout=600, label=""):
+    """Run ``cmd`` from the checkout; fail the phase on a non-zero exit (its
+    output's end printed), kill it at ``timeout``."""
+    import subprocess
+
+    print("command:", " ".join(cmd))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(out[-6000:])
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}")
+    return out, wall
+
+
+def torchrun(nproc: int, *args):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+            *args]
+
+
+def parallel_training(tmp: str):
+    """Phases 10.1 and 10.2; returns {mode: [per-rank outputs]}."""
+    import gc
+
+    import torch
+
+    work = os.path.join(tmp, "parallel")
+    os.makedirs(work, exist_ok=True)
+    ref = parallel_step_run("one", work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"one rank, batch 4: loss {ref['loss']:.6f} grad_norm {ref['grad_norm']:.6e} step "
+          f"{ref['step_ms']:.1f} ms, peak {ref['peak_gib']:.2f} GiB, parameter + optimizer + EMA "
+          f"{ref['state_bytes'] / 2**30:.3f} GiB; launches {ref['counts']}")
+    results = {}
+    for mode, label in (("ddp", "10.1 DDP"), ("fsdp", "10.2 FSDP2 (--n_fsdp 2)")):
+        phase(f"{label} on the card: {PARALLEL_WORLD} ranks x batch 2 on gloo over CUDA tensors, the flagship "
+              f"train config (remat, bf16) vs the one-rank batch-4 step")
+        _, wall = run_command(
+            torchrun(PARALLEL_WORLD, os.path.abspath(__file__), "--parallel-worker", mode, work), label=label)
+        outs = [torch.load(os.path.join(work, f"{mode}_rank{r}.pt"), weights_only=False)
+                for r in range(PARALLEL_WORLD)]
+        for r, o in enumerate(outs):
+            loss_gap = abs(o["loss"] - ref["loss"]) / abs(ref["loss"])
+            norm_gap = abs(o["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+            if o["nosync_ms"] is not None:
+                print(f"rank {r}: {o['nosync_ms']:.1f} ms per step without the gradient all-reduce (no_sync): "
+                      f"the all-reduce takes {1 - o['nosync_ms'] / o['step_ms']:.3f} of the step")
+            print(f"rank {r} ({o['kind']}): loss {o['loss']:.6f} (gap {loss_gap:.3e}), grad_norm "
+                  f"{o['grad_norm']:.6e} (gap {norm_gap:.3e}); step {o['step_ms']:.1f} ms (median of "
+                  f"{PARALLEL_STEPS}); peak {o['peak_gib']:.2f} GiB; parameter + optimizer + EMA "
+                  f"{o['state_bytes'] / 2**30:.3f} GiB; "
+                  f"launches {o['counts']}")
+            check(o["kind"] == mode, f"rank {r} ran {o['kind']}, not {mode}")
+            check(loss_gap <= LOSS_REL_TOL, f"{label} rank {r}: loss vs one rank")
+            check(norm_gap <= LOSS_REL_TOL, f"{label} rank {r}: gradient norm vs one rank")
+            for name, n in o["counts"].items():
+                check(n > 0, f"{label} rank {r}: {name} never launched")
+        e = rel_l2(outs[0]["grad"].double(), ref["grad"].double())
+        print(f"gradient ({ref['grad'].numel()} values) rel L2 vs one rank {e:.3e} (tolerance "
+              f"{GRAD_REL_L2_TOL}); launch wall {wall:.1f} s")
+        check(e <= GRAD_REL_L2_TOL, f"{label}: gradient vs one rank")
+        results[mode] = outs
+    ddp_bytes = results["ddp"][0]["state_bytes"]
+    for r, o in enumerate(results["fsdp"]):
+        share = o["state_bytes"] / ddp_bytes
+        nosync = results["ddp"][r]["nosync_ms"]
+        print(f"FSDP2 rank {r}: parameter + optimizer + EMA {o['state_bytes'] / 2**30:.3f} GiB, "
+              f"{share:.3f} of DDP's {ddp_bytes / 2**30:.3f} GiB; against DDP's step without collectives "
+              f"({nosync:.1f} ms) the all-gathers and reduce-scatters take {1 - nosync / o['step_ms']:.3f} "
+              f"of the step")
+        check(share < 0.6, f"FSDP2 rank {r} holds {share:.3f} of DDP's state, not about half")
+    return results
+
+
+def parallel_sample_rows(argv):
+    """The two ranks' rows of 10.3's sampling, computed in this process
+    rank by rank (batch 1 each, as the ranks run them)."""
+    import numpy as np
+    import torch
+
+    from mm_diffusion_tpu_torch.sampling import sample_base_and_sr
+    from mm_diffusion_tpu_torch.scripts import multimodal_sample_sr as cli
+
+    args = cli.create_argparser().parse_args(argv)
+    rows = []
+    for r in range(PARALLEL_WORLD):
+        base, sr, gen, step_gen, f, size = cli.build_pipeline(args, torch.device("cuda"))
+        out = sample_base_and_sr(base, sr, args.batch_size, size, f, generator=gen, rank=r,
+                                 world=PARALLEL_WORLD, step_generator=step_gen)
+        rows.append({k: v.float().cpu().numpy() for k, v in out.items()})
+        del base, sr
+    return {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+
+
+def parallel_clis(tmp: str):
+    """Phase 10.3: the train CLI through torchrun on NCCL (one rank), a
+    resume, and the sampling CLI with --n_sample_data 2 on two gloo ranks
+    against the one-rank run."""
+    import json as json_
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from mm_diffusion_tpu_torch.scripts import multimodal_sample_sr as cli
+
+    phase(f"10.3 CLIs through torchrun: multimodal_train.py (1 rank, NCCL), {TORCHRUN_TRAIN_STEPS} steps and a "
+          f"resume; multimodal_sample_sr.py --n_sample_data {PARALLEL_WORLD} on {PARALLEL_WORLD} gloo ranks")
+    out_dir = os.path.join(tmp, "torchrun_train")
+    train = ["-m", "mm_diffusion_tpu_torch.scripts.multimodal_train", *TRAIN_FLAGS, "--output_dir", out_dir,
+             "--device", "cuda", "--log_interval", "1", "--save_interval", "1000000"]
+    for steps in (TORCHRUN_TRAIN_STEPS, TORCHRUN_TRAIN_STEPS + 1):
+        out, wall = run_command(torchrun(1, *train, "--max_steps", str(steps)), label="torchrun train CLI")
+        print(f"torchrun train CLI to step {steps}: wall {wall:.1f} s; "
+              f"{[line for line in out.splitlines() if 'training on' in line or 'resuming' in line]}")
+    rows = [json_.loads(line) for line in open(os.path.join(out_dir, "progress.jsonl"))]
+    for r in rows:
+        print(f"step {int(r['step'])} loss {r['loss']:.5f} grad_norm {r['grad_norm']:.4e} step_ms {r['step_ms']:.1f}")
+    print(f"median step {statistics.median(r['step_ms'] for r in rows[2:TORCHRUN_TRAIN_STEPS]):.1f} ms over "
+          f"steps 3-{TORCHRUN_TRAIN_STEPS} (one rank on NCCL, batch 4)")
+    check([int(r["step"]) for r in rows] == list(range(1, TORCHRUN_TRAIN_STEPS + 2)), "torchrun train steps")
+    check(all(math.isfinite(r["loss"]) for r in rows), "non-finite loss in the torchrun train run")
+    ckpts = sorted(os.listdir(os.path.join(out_dir, "checkpoints")))
+    check(ckpts == [f"step_{s:08d}.pt" for s in (TORCHRUN_TRAIN_STEPS, TORCHRUN_TRAIN_STEPS + 1)],
+          f"checkpoints {ckpts}")
+
+    solver = cli.LAUNCH_SCRIPT_ARGS + [
+        "--sample_steps", str(SAMPLE_STEPS_10), "--sr_sample_steps", str(SR_STEPS_10),
+        "--batch_size", str(PARALLEL_WORLD), "--sample_num", str(PARALLEL_WORLD), "--device", "cuda"]
+    for name, argv in (("dpm_solver + ddim", solver), ("ddpm", solver + list(DDPM_RESPACING_10))):
+        one_run = cli.main(argv + ["--output_dir", os.path.join(tmp, "sample_one")])
+        one = one_run["samples"]
+        rows_ref = parallel_sample_rows(argv)
+        work = os.path.join(tmp, "sample_ranks")
+        os.makedirs(work, exist_ok=True)
+        _, wall = run_command(
+            torchrun(PARALLEL_WORLD, os.path.abspath(__file__), "--parallel-worker", "sample", work,
+                     *argv, "--n_sample_data", str(PARALLEL_WORLD), "--output_dir", work),
+            label=f"torchrun sampling CLI ({name})")
+        ranks = torch.load(os.path.join(work, "sample_rank0.pt"), weights_only=False)
+        names = lambda paths: sorted(os.path.basename(p) for p in paths)  # noqa: E731
+        check(names(ranks["paths"]) == names(one_run["paths"]) != [],
+              f"{name}: the two-rank run wrote {names(ranks['paths'])}, the one-rank run {names(one_run['paths'])}")
+        for k, v in one.items():
+            spread = float(np.abs(rows_ref[k] - v).max())
+            gap = float(np.abs(ranks["samples"][k] - v).max())
+            same = float(np.abs(ranks["samples"][k] - rows_ref[k]).max())
+            print(f"{name}: {k} {v.shape}: two ranks vs one rank max |diff| {gap:.3e}; the one-rank spread (the "
+                  f"ranks' rows at batch 1 in one process vs batch 2) {spread:.3e}; two ranks vs those rows "
+                  f"{same:.3e}")
+            check(ranks["samples"][k].shape == v.shape and bool(np.isfinite(ranks["samples"][k]).all()),
+                  f"{name}: {k}: shape or non-finite values")
+            check(gap <= spread + 1e-3, f"{name}: {k}: two ranks differ from one rank by more than its spread")
+            check(same <= 1e-3, f"{name}: {k}: two ranks differ from their rows computed in one process")
+        print(f"{name}: two-rank sampling wall {wall:.1f} s; files {names(ranks['paths'])}")
+
+
+def parallel_worker(mode: str, work: str, argv) -> None:
+    """A rank of 10.1/10.2 (``ddp`` / ``fsdp``) or of 10.3's sampling run
+    (``sample``), under torchrun.  NCCL refuses two ranks on one card, so
+    the worker joins torchrun's group on gloo and puts its rank on the one
+    card before the port's code runs (``setup_dist`` then finds the group
+    and joins nothing; the device mesh keeps the card set here)."""
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method="env://")
+    torch.cuda.set_device(0)
+    try:
+        if mode in ("ddp", "fsdp"):
+            parallel_step_run(mode, work)
+            return
+        from mm_diffusion_tpu_torch.parallel import process_data_shard
+        from mm_diffusion_tpu_torch.scripts import multimodal_sample_sr as cli
+
+        result = cli.main(argv)
+        rank, _ = process_data_shard()
+        torch.save({"samples": result["samples"], "paths": result["paths"]},
+                   os.path.join(work, f"sample_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    # one rank of phase 10, started by the script itself through torchrun
+    parser.add_argument("--parallel-worker", nargs=2, metavar=("MODE", "DIR"), help=argparse.SUPPRESS)
+    opts, rest = parser.parse_known_args()
+    if rest and not opts.parallel_worker:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     try:
         import torch
     except ImportError:
@@ -2024,6 +2345,9 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if opts.parallel_worker:
+        parallel_worker(*opts.parallel_worker, rest)
+        return 0
     try:
         smi = toolchain()
         build()
@@ -2046,6 +2370,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             sr_launches = sr_training(tmp)
             single_launches = single_training(tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            parallel_training(tmp)
+            parallel_clis(tmp)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -14,7 +14,7 @@ the same files, seed and shard give the same batches as the JAX package's).
   the same basename.  A clip with NO audio source is a **hard error**,
   never silent zeros.
 * **sharding**: ``[shard::num_shards]`` slicing per process, keyed by the
-  ``torch.distributed`` rank when a process group is initialised.
+  rank when a process group is initialised (``parallel.process_data_shard``).
 * **prefetch**: worker threads own disjoint slices of the clip index and
   decode single items in parallel into a queue (cv2 releases the GIL); the
   consumer assembles batches and raises a dead worker's error.
@@ -56,16 +56,6 @@ def require_cv2():
             "use --data_dir synthetic"
         ) from e
     return cv2
-
-
-def data_shard() -> Tuple[int, int]:
-    """(shard, num_shards) of this process: the ``torch.distributed`` rank
-    and world size when a process group is initialised, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 def list_video_files(data_dir: str) -> List[str]:
@@ -420,18 +410,19 @@ def load_data(
     """Infinite generator of numpy batches ``{"video": [B,F,H,W,C], "audio":
     [B,L,C]}``.  ``data_dir="synthetic"`` is the procedural dataset (no
     media decode).  A worker's error (no audio source) is raised to the
-    consumer while the other workers still produce."""
+    consumer while the other workers still produce.  ``shard`` /
+    ``num_shards`` default to the process's rank and world size."""
+    if shard is None or num_shards is None:
+        from ..parallel.mesh import process_data_shard
+
+        shard, num_shards = process_data_shard()
     if data_dir == "synthetic":
         from .synthetic import load_synthetic_data
 
         yield from load_synthetic_data(
-            batch_size, video_size, audio_size, seed=seed,
-            shard=shard or 0, num_shards=num_shards or 1,
+            batch_size, video_size, audio_size, seed=seed, shard=shard, num_shards=num_shards,
         )
         return
-
-    if shard is None or num_shards is None:
-        shard, num_shards = data_shard()
 
     ds = MultimodalVideoDataset(
         data_dir, video_size, audio_size, video_fps, audio_fps,

@@ -6,12 +6,16 @@ linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use, in ``build/kernels/<hash>/`` at the
 root of the checkout, keyed by a hash of the sources, so a fresh checkout
 builds everything from its own sources and a rebuilt source never loads a
-stale library.  Nothing here runs at import time.
+stale library.  Processes that start together (the ranks of a
+``torchrun`` launch) build once: the first takes a lock on the build
+directory and compiles, the others wait for it and load its library.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -117,13 +121,24 @@ def _run_all(cmds):
 
 def build() -> tuple[Path, float, str]:
     """Compile the library unless an up-to-date one exists.  Returns its
-    path, the seconds spent compiling and nvcc's output."""
+    path, the seconds spent compiling and nvcc's output.  One process
+    compiles at a time (an ``flock`` on ``build.lock``, released by the
+    kernel if the process dies); one that waited finds the library."""
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "nvcc.log"
     if lib_path.exists():
         return lib_path, 0.0, log_path.read_text() if log_path.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib_path.exists():
+            return lib_path, 0.0, log_path.read_text() if log_path.exists() else ""
+        return _compile(out_dir, lib_path, log_path)
+
+
+def _compile(out_dir: Path, lib_path: Path, log_path: Path) -> tuple[Path, float, str]:
+    """Every source by its own nvcc, side by side, then one link."""
     nvcc = find_nvcc()
     tag = f"{os.getpid()}.tmp"
     sources = [s for s in SOURCES if s.endswith(".cu")]

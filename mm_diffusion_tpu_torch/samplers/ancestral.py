@@ -55,14 +55,16 @@ def p_sample_loop(
     denoised_fn=None,
     cond_fn=None,
     return_trajectory: bool = False,
+    noise_fn: Optional[Callable[[State], State]] = None,
 ) -> State:
     """Ancestral sampling from ``x_T`` down to ``t = 0``.  With
     ``return_trajectory`` also each step's sample, stacked on a leading axis
-    in the order t = T-1 .. 0: ``(x_0, trajectory)``."""
+    in the order t = T-1 .. 0: ``(x_0, trajectory)``.  ``noise_fn(x)``,
+    when given, draws each step's noise (else ``generator`` does)."""
     return _loop(
         lambda d, x, t: d.p_sample(
             model_fn, x, t, clip_denoised, generator=generator, denoised_fn=denoised_fn,
-            cond_fn=cond_fn,
+            cond_fn=cond_fn, noise=None if noise_fn is None else noise_fn(x),
         ),
         diffusion, x_T, return_trajectory,
     )

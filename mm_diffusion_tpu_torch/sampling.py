@@ -16,7 +16,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from .diffusion.gaussian import GaussianDiffusion
+from .diffusion.gaussian import GaussianDiffusion, tree_map
+from .parallel.mesh import rank_rows
 from .samplers import (
     DPMSolver,
     conditional_p_sample_loop,
@@ -25,6 +26,7 @@ from .samplers import (
     noise_schedule_from_diffusion,
     p_sample_loop,
 )
+from .utils.seeds import derive_seed
 from .utils.timing import sync
 
 SAMPLE_FNS = ("dpm_solver", "dpm_solver++", "ddpm", "ddim")
@@ -38,9 +40,27 @@ def _randn(shape, generator, device):
     return torch.randn(shape, generator=generator, device=device)
 
 
-def _ancestral(sample_fn, diffusion, model_fn, x_T, generator, clip_denoised):
+def rows_noise(generator, rank: int, world: int):
+    """The per-step noise of rank ``rank``'s rows of a batch split evenly
+    over ``world`` ranks: drawn for the whole batch from ``generator``
+    (alike on every rank), then sliced (``rank_rows``), so that the ranks'
+    rows together draw what one process draws.  None for one rank (the
+    loop's own draw, the same numbers)."""
+    if world == 1:
+        return None
+
+    def draw(x):
+        return tree_map(lambda v: rank_rows(torch.randn(
+            (world * v.shape[0],) + v.shape[1:], dtype=v.dtype, device=v.device, generator=generator
+        ), rank, world), x)
+
+    return draw
+
+
+def _ancestral(sample_fn, diffusion, model_fn, x_T, generator, clip_denoised, rows=(0, 1)):
     if sample_fn == "ddpm":
-        return p_sample_loop(diffusion, model_fn, x_T, generator, clip_denoised)
+        return p_sample_loop(diffusion, model_fn, x_T, generator, clip_denoised,
+                             noise_fn=rows_noise(generator, *rows))
     return ddim_sample_loop(diffusion, model_fn, x_T, clip_denoised, generator=generator)
 
 
@@ -84,8 +104,12 @@ def build_base_sampler(
 
     ``sample_fn``: 'dpm_solver' (singlestep order 3, logSNR steps),
     'dpm_solver++' (multistep order 2 with thresholding), 'ddpm', 'ddim'.
-    Returns ``sample(n, generator=None, x_T=None) -> {"video": [n,F,H,W,3],
-    "audio": [n,L,1]}``.
+    Returns ``sample(n, generator=None, x_T=None, rows=(0, 1)) ->
+    {"video": [n,F,H,W,3], "audio": [n,L,1]}``; ``sample.noise(n,
+    generator)`` draws its ``x_T``.  ``rows = (rank, world)``: the ``n``
+    rows are rank ``rank``'s of a batch split over ``world`` ranks, whose
+    per-step draws (ddpm's) are made for the whole batch
+    (:func:`rows_noise`).
     """
     if sample_fn not in SAMPLE_FNS:
         raise ValueError(f"sample_fn {sample_fn!r} not in {SAMPLE_FNS}")
@@ -108,7 +132,7 @@ def build_base_sampler(
             ns, predict_x0=plus, thresholding=plus,
         )
 
-        def run(x, generator):
+        def run(x, generator, rows):
             return solver.sample(
                 x, steps=steps, order=2 if plus else 3,
                 method="multistep" if plus else "singlestep", skip_type="logSNR",
@@ -116,14 +140,15 @@ def build_base_sampler(
 
     else:
 
-        def run(x, generator):
+        def run(x, generator, rows):
             model_fn = lambda xx, tt: raw(xx, tt, strip_sigma=False)  # noqa: E731
-            return _ancestral(sample_fn, diffusion, model_fn, x, generator, clip_denoised)
+            return _ancestral(sample_fn, diffusion, model_fn, x, generator, clip_denoised, rows)
 
     @torch.inference_mode()
-    def sample(n: int, generator: Optional[torch.Generator] = None, x_T=None):
-        return run(noise(n, generator) if x_T is None else x_T, generator)
+    def sample(n: int, generator: Optional[torch.Generator] = None, x_T=None, rows=(0, 1)):
+        return run(noise(n, generator) if x_T is None else x_T, generator, rows)
 
+    sample.noise = noise
     return sample
 
 
@@ -276,27 +301,48 @@ def sample_base_and_sr(
     x_T=None,
     sr_x_T: Optional[torch.Tensor] = None,
     timings: Optional[Dict[str, float]] = None,
+    rank: int = 0,
+    world: int = 1,
+    step_generator: Optional[torch.Generator] = None,
 ):
     """Base joint sample, then SR clip by clip, all frames of a clip sharing
-    one noise image.  ``x_T`` / ``sr_x_T`` ([n, F, S, S, 3]) inject the
-    noise; ``timings``, when given, receives the wall seconds of the two
-    stages (measured to a device synchronisation)."""
+    one noise image.
+
+    ``n`` is the global batch.  Its noise -- ``x_T``, then the SR noise
+    image of every clip -- is drawn from ``generator`` first, or injected
+    (``x_T``; ``sr_x_T`` [n, F, S, S, 3]), and rank ``rank`` of ``world``
+    samples its rows of it (``rank_rows``) and returns those, so that the
+    ranks' rows together are the one-process sample at the same seed.
+    The samplers' own draws (ddpm's per-step noise) come from
+    ``step_generator`` (``generator`` by default), alike on every rank:
+    the base stage draws them for the global batch (:func:`rows_noise`);
+    the SR stage gives each clip a generator of its own, seeded from one
+    draw of ``step_generator`` and the clip's row in the global batch.
+    ``timings``, when given, receives the wall seconds of the two stages
+    (measured to a device synchronisation)."""
+    if x_T is None:
+        x_T = base_sampler.noise(n, generator)
+    if sr_x_T is None:
+        sr_x_T = shared_clip_noise(n, frames, sr_size, generator, x_T["video"].device)
+        sr_x_T = sr_x_T.reshape(n, frames, sr_size, sr_size, 3)
+    x_T = tree_map(lambda x: rank_rows(x, rank, world), x_T)
+    sr_x_T = rank_rows(sr_x_T, rank, world)
+    step_generator = step_generator or generator
+    local_n = sr_x_T.shape[0]
     t0 = time.perf_counter()
-    out = base_sampler(n, generator=generator, x_T=x_T)
+    out = base_sampler(local_n, generator=step_generator, x_T=x_T, rows=(rank, world))
     video = out["video"]
     if timings is not None:
         sync(video.device)
         timings["base_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
-    clips = []
-    for b in range(n):
-        noise = (
-            sr_x_T[b]
-            if sr_x_T is not None
-            else shared_clip_noise(1, frames, sr_size, generator, video.device)
-        )
-        clips.append(sr_sampler(video[b], x_T=noise, generator=generator))
-    sr_video = torch.stack(clips).reshape(n, frames, sr_size, sr_size, 3)
+    clip_seed = int(torch.randint(2**62, (1,), generator=step_generator, device=video.device))
+    clips = [
+        sr_sampler(video[b], x_T=sr_x_T[b], generator=torch.Generator(device=video.device).manual_seed(
+            derive_seed(clip_seed, rank * local_n + b)))
+        for b in range(local_n)
+    ]
+    sr_video = torch.stack(clips).reshape(local_n, frames, sr_size, sr_size, 3)
     if timings is not None:
         sync(sr_video.device)
         timings["sr_s"] = time.perf_counter() - t1

@@ -32,10 +32,11 @@ from .. import configs
 from ..configs import add_dict_to_argparser, args_to_dict
 from ..data import media
 from ..data.video import load_data
+from ..parallel.bootstrap import refuse_launcher, resolve_device
 from ..sampling import build_conditional_sampler, build_sr_sampler, shared_clip_noise
 from ..utils import logger
 from ..utils.timing import sync
-from .multimodal_sample_sr import load_weights, resolve_device
+from .multimodal_sample_sr import load_weights
 
 
 def create_argparser() -> argparse.ArgumentParser:
@@ -67,6 +68,7 @@ def run_conditional(args, condition_key: str, save_prefix: str) -> Dict[str, Any
     (numpy) and each batch's timings: the conditional stage's wall seconds
     (``base_s``) with each step's (``step_s``), and the SR stage's
     (``sr_s``), each measured to a device synchronisation."""
+    refuse_launcher("the conditional sampler")
     device = resolve_device(args.device)
     logger.configure(args.output_dir)
     log = logger.get_current()

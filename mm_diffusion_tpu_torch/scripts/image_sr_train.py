@@ -1,6 +1,7 @@
-"""Train / finetune the 64->256 image super-resolution U-Net (PyTorch port of
-``mm_diffusion_tpu/scripts/image_sr_train.py``, same flags, plus
-``--device``).
+"""Train / finetune the 64->256 image super-resolution U-Net on one GPU, or
+data-parallel (DDP) on several under ``torchrun``, ``--batch_size`` per
+process (PyTorch port of ``mm_diffusion_tpu/scripts/image_sr_train.py``,
+same flags, plus ``--device``).
 
 The SR U-Net denoises the high-resolution image conditioned on the
 low-resolution one, on the same TrainLoop as the multimodal trainer
@@ -32,11 +33,10 @@ import torch.nn.functional as F
 
 from .. import configs
 from ..configs import add_dict_to_argparser, args_to_dict
-from ..data.video import data_shard
+from ..parallel import device_info, make_mesh, process_data_shard, setup_dist
 from ..train import ImageSRTask, TrainLoop
 from ..utils import logger
 from ..weights import load_reference_checkpoint
-from .multimodal_sample_sr import resolve_device
 
 
 def bicubic_resize(images: np.ndarray, size: int) -> np.ndarray:
@@ -48,16 +48,19 @@ def bicubic_resize(images: np.ndarray, size: int) -> np.ndarray:
     return y.permute(0, 2, 3, 1).contiguous().numpy()
 
 
-def synthetic_sr_data(batch_size: int, large: int, small: int, seed: int = 0
-                      ) -> Iterator[Dict[str, np.ndarray]]:
+def synthetic_sr_data(batch_size: int, large: int, small: int, seed: int = 0,
+                      shard: int = 0, num_shards: int = 1) -> Iterator[Dict[str, np.ndarray]]:
     """Procedural (hr, lr) image pairs in [-1,1], channels-last: the JAX
-    package's HR images, the LR images by :func:`bicubic_resize`."""
+    package's HR images, the LR images by :func:`bicubic_resize`.  Shard
+    ``shard`` of ``num_shards`` yields its rows of the one-shard stream's
+    batches of ``num_shards * batch_size`` images."""
     rng = np.random.RandomState(seed)
     ys, xs = np.mgrid[0:large, 0:large].astype(np.float32) / large
     while True:
+        draws = [(rng.uniform(2, 12), rng.uniform(2, 12), rng.uniform(0, 6.28))
+                 for _ in range(batch_size * num_shards)]
         hrs = []
-        for _ in range(batch_size):
-            f1, f2, ph = rng.uniform(2, 12), rng.uniform(2, 12), rng.uniform(0, 6.28)
+        for f1, f2, ph in draws[shard * batch_size:(shard + 1) * batch_size]:
             img = np.stack(
                 [
                     np.sin(f1 * xs * 6.28 + ph + k) * np.cos(f2 * ys * 6.28 + k)
@@ -97,7 +100,8 @@ def create_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> TrainLoop:
     """Run the CLI; returns the finished :class:`TrainLoop`."""
     args = create_argparser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = setup_dist(args.device)
+    mesh = make_mesh(device_type=device.type)
     logger.configure(args.output_dir)
     log = logger.get_current()
 
@@ -105,12 +109,12 @@ def main(argv=None) -> TrainLoop:
     model, diffusion = configs.image_sr_create_model_and_diffusion(**sr_kwargs)
     large, small = args.large_size, args.small_size
 
+    shard, num_shards = process_data_shard()
     if args.data_dir == "synthetic":
-        data = synthetic_sr_data(args.batch_size, large, small, args.seed)
+        data = synthetic_sr_data(args.batch_size, large, small, args.seed, shard, num_shards)
     else:
         from ..data.image import load_sr_data
 
-        shard, num_shards = data_shard()
         data = load_sr_data(
             data_dir=args.data_dir, batch_size=args.batch_size, large_size=large,
             small_size=small, degrade=args.degrade, shard=shard, num_shards=num_shards,
@@ -141,8 +145,9 @@ def main(argv=None) -> TrainLoop:
         task=ImageSRTask(),
         use_db=args.use_db,
         device=device,
+        mesh=mesh,
     )
-    log.log(f"training on {device}...")
+    log.log(f"training on {device} ({device_info()})...")
     try:
         loop.run_loop(max_steps=args.max_steps or None)
     finally:

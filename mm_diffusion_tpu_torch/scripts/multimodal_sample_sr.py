@@ -3,7 +3,12 @@ super-resolution (PyTorch port of ``mm_diffusion_tpu/scripts/
 multimodal_sample_sr.py``, same flags, plus ``--device``).
 
 ``--multimodal_model_path`` / ``--sr_model_path`` take ``random`` (seeded
-default initialisation) or an original PyTorch ``.pt`` state_dict.  The
+default initialisation) or an original PyTorch ``.pt`` state_dict.
+
+On several GPUs: ``torchrun --nproc_per_node N ... --n_sample_data N``.
+``--batch_size`` is the global batch, split over the N processes; rank 0
+gathers the samples and writes the same files as a one-process run at the
+same seed.  The
 default device is ``cuda``; without a CUDA device the script stops unless
 ``--device cpu`` is given.
 
@@ -24,11 +29,13 @@ from .. import configs
 from ..configs import add_dict_to_argparser, args_to_dict
 from ..data import media
 from ..models.mm_unet import MultimodalUNet
+from ..parallel import all_gather_rows, process_data_shard, setup_dist
 from ..sampling import build_base_sampler, build_sr_sampler, sample_base_and_sr
 from ..utils import logger
+from ..utils.seeds import derive_seed
 from ..weights import load_reference_checkpoint
 
-NOT_PORTED = "not ported yet; see ROADMAP.md §1 (multi-GPU; evaluation)"
+NOT_PORTED = "not ported yet; see ROADMAP.md §1 (evaluation)"
 
 # The flagship configuration: the model and sampler flags of the reference
 # launch script (ssh_scripts/multimodal_sample_sr.sh), batch 1, one clip.
@@ -72,32 +79,18 @@ def create_argparser() -> argparse.ArgumentParser:
     return parser
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is available (pass --device cpu to run on the CPU)")
-    return device
-
-
 def load_weights(model: torch.nn.Module, path: str) -> None:
     if path != "random":
         load_reference_checkpoint(model, path)
 
 
-def main(argv=None) -> Dict[str, Any]:
-    """Run the CLI; returns the written paths, the last batch's samples
-    (numpy) and the stage wall times of each batch."""
-    args = create_argparser().parse_args(argv)
-    if args.n_sample_data > 1:
-        raise NotImplementedError(f"--n_sample_data > 1 (multi-device sampling, multi-GPU) is {NOT_PORTED}")
-    if args.save_type == "npz":
-        raise NotImplementedError(f"--save_type npz (needs evaluation/) is {NOT_PORTED}")
-    if args.run_eval:
-        raise NotImplementedError(f"--run_eval (evaluation/) is {NOT_PORTED}")
-    device = resolve_device(args.device)
-    logger.configure(args.output_dir)
+def build_pipeline(args, device: torch.device):
+    """The CLI's samplers and generators on ``device``: ``(base, sr,
+    generator, step_generator, frames, sr_size)``.  The models' weights
+    (``random``: seeded by ``--seed``) and the three generators -- the
+    global batch's noise, the samplers' per-step draws (ddpm's) and the
+    RS-MMA shifts' host generator -- are alike on every rank."""
     log = logger.get_current()
-
     torch.manual_seed(args.seed)  # seeds the "random" initialisation
     model_kwargs = args_to_dict(args, configs.model_and_diffusion_defaults().keys())
     cfg = configs.create_model_config(**model_kwargs)
@@ -127,8 +120,9 @@ def main(argv=None) -> Dict[str, Any]:
 
     f = cfg.video_size[0]
     sr_size = sr_model.cfg.image_size
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    shift_generator = torch.Generator().manual_seed(args.seed)  # host draws
+    generator = torch.Generator(device=device).manual_seed(args.seed)  # the global batch's noise
+    step_generator = torch.Generator(device=device).manual_seed(derive_seed(args.seed, 1))
+    shift_generator = torch.Generator().manual_seed(args.seed)  # host draws, alike on every rank
     base = build_base_sampler(
         model, diffusion, sample_fn=args.sample_fn, steps=args.sample_steps,
         shift_generator=shift_generator,
@@ -136,6 +130,32 @@ def main(argv=None) -> Dict[str, Any]:
     sr = build_sr_sampler(
         sr_model, sr_diffusion, sample_fn=args.sr_sample_fn, steps=args.sr_sample_steps
     )
+    return base, sr, generator, step_generator, f, sr_size
+
+
+def main(argv=None) -> Dict[str, Any]:
+    """Run the CLI; returns the written paths (rank 0's; none on the other
+    ranks), the last batch's samples (numpy; the whole batch, gathered
+    on every rank) and the stage wall times of each batch."""
+    args = create_argparser().parse_args(argv)
+    if args.save_type == "npz":
+        raise NotImplementedError(f"--save_type npz (needs evaluation/) is {NOT_PORTED}")
+    if args.run_eval:
+        raise NotImplementedError(f"--run_eval (evaluation/) is {NOT_PORTED}")
+    device = setup_dist(args.device)
+    rank, world = process_data_shard()
+    if args.n_sample_data != world:
+        raise ValueError(
+            f"--n_sample_data {args.n_sample_data} needs as many processes, this run has {world}: "
+            f"torchrun --nproc_per_node {args.n_sample_data} -m mm_diffusion_tpu_torch.scripts."
+            f"multimodal_sample_sr --n_sample_data {args.n_sample_data} ..."
+        )
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} must divide over --n_sample_data {world}")
+    logger.configure(args.output_dir)
+    log = logger.get_current()
+
+    base, sr, generator, step_generator, f, sr_size = build_pipeline(args, device)
 
     n_batches = (args.sample_num + args.batch_size - 1) // args.batch_size
     paths, timings, out = [], [], {}
@@ -144,23 +164,27 @@ def main(argv=None) -> Dict[str, Any]:
         t = {}
         t0 = time.perf_counter()
         out = sample_base_and_sr(
-            base, sr, args.batch_size, sr_size, f, generator=generator, timings=t
+            base, sr, args.batch_size, sr_size, f, generator=generator, timings=t,
+            rank=rank, world=world, step_generator=step_generator,
         )
+        if world > 1:
+            out = {k: all_gather_rows(v) for k, v in out.items()}
         out = {k: v.float().cpu().numpy() for k, v in out.items()}
         t["batch_s"] = time.perf_counter() - t0
         timings.append(t)
-        for i in range(args.batch_size):
-            base_path = os.path.join(args.output_dir, f"sample_{idx:05d}")
-            paths.extend(
-                media.save_multimodal(
-                    out["sr_video"][i], out["audio"][i], base_path,
-                    fps=args.video_fps, audio_rate=args.audio_fps,
+        if rank == 0:  # the other ranks' rows are gathered here
+            for i in range(args.batch_size):
+                base_path = os.path.join(args.output_dir, f"sample_{idx + i:05d}")
+                paths.extend(
+                    media.save_multimodal(
+                        out["sr_video"][i], out["audio"][i], base_path,
+                        fps=args.video_fps, audio_rate=args.audio_fps,
+                    )
                 )
-            )
-            paths.append(
-                media.save_video(out["video"][i], base_path + "_base64.mp4", fps=args.video_fps)
-            )
-            idx += 1
+                paths.append(
+                    media.save_video(out["video"][i], base_path + "_base64.mp4", fps=args.video_fps)
+                )
+        idx += args.batch_size
         log.log(f"batch {b + 1}/{n_batches} written ({idx} samples): {t}")
     return {"paths": [p for p in paths if p], "samples": out, "timings": timings}
 

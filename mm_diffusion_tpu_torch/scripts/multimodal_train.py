@@ -1,6 +1,11 @@
-"""Train the multimodal (joint audio-video) diffusion model on one GPU
-(PyTorch port of ``mm_diffusion_tpu/scripts/multimodal_train.py``, same
-flags, plus ``--device``).
+"""Train the multimodal (joint audio-video) diffusion model on one GPU, or
+on several under ``torchrun`` (PyTorch port of ``mm_diffusion_tpu/
+scripts/multimodal_train.py``, same flags, plus ``--device``).
+
+Under ``torchrun --nproc_per_node N`` each process trains on its own card
+(DDP; ``--n_fsdp F`` shards the state over F of them with FSDP2, N
+divisible by F), ``--batch_size`` is the batch of each process, and rank
+0 logs and writes the checkpoints and previews.
 
 ``--data_dir synthetic`` trains on the procedural AV dataset, a directory
 on its videos with their audio (``data/video.py``; needs OpenCV).
@@ -21,13 +26,11 @@ import argparse
 
 from .. import configs
 from ..configs import add_dict_to_argparser, args_to_dict, create_gaussian_diffusion
-from ..data.video import data_shard, load_data
+from ..data.video import load_data
 from ..models.mm_unet import MultimodalUNet
+from ..parallel import device_info, make_mesh, process_data_shard, setup_dist
 from ..train import TrainLoop
 from ..utils import logger
-from .multimodal_sample_sr import resolve_device
-
-NOT_PORTED = "not ported yet; see ROADMAP.md §1 (multi-GPU)"
 
 
 def create_argparser() -> argparse.ArgumentParser:
@@ -44,7 +47,7 @@ def create_argparser() -> argparse.ArgumentParser:
         microbatch=-1,
         ema_rate="0.9999",
         log_interval=100,
-        devices=None,  # unused: one device, chosen by --device
+        devices=None,  # unused: one device per process, chosen by --device and the launcher
         save_interval=10000,
         output_dir="./output",
         resume_checkpoint="",
@@ -68,9 +71,8 @@ def main(argv=None) -> TrainLoop:
     """Run the CLI; returns the finished :class:`TrainLoop` (its state and
     its log rows in ``history``)."""
     args = create_argparser().parse_args(argv)
-    if args.n_fsdp > 1:
-        raise NotImplementedError(f"--n_fsdp > 1 (sharded training, parallel/) is {NOT_PORTED}")
-    device = resolve_device(args.device)
+    device = setup_dist(args.device)
+    mesh = make_mesh(n_fsdp=args.n_fsdp, device_type=device.type)
     logger.configure(args.output_dir)
     log = logger.get_current()
 
@@ -89,7 +91,7 @@ def main(argv=None) -> TrainLoop:
     )
 
     log.log("creating data loader...")
-    shard, num_shards = data_shard()
+    shard, num_shards = process_data_shard()
     data = load_data(
         data_dir=args.data_dir,
         batch_size=args.batch_size,
@@ -121,8 +123,10 @@ def main(argv=None) -> TrainLoop:
         sample_fn=args.sample_fn,
         use_db=args.use_db,
         device=device,
+        mesh=mesh,
+        fsdp_min_size=args.fsdp_min_size,
     )
-    log.log(f"training on {device}...")
+    log.log(f"training on {device} ({device_info()})...")
     try:
         loop.run_loop(max_steps=args.max_steps or None)
     finally:

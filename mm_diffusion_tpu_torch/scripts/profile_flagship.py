@@ -29,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from .. import configs
 from ..models.image_unet import ImageSuperResModel
 from ..models.mm_unet import MultimodalUNet
+from ..parallel.bootstrap import refuse_launcher
 from ..weights import randomize_
 from .multimodal_sample_sr import LAUNCH_SCRIPT_ARGS, create_argparser
 
@@ -185,6 +186,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
+    refuse_launcher("profile_flagship")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_flagship needs a CUDA device")
     dev = torch.device("cuda")

@@ -1,6 +1,8 @@
 """Train a single-modality (plain video or plain audio) diffusion model on
-one GPU (PyTorch port of ``mm_diffusion_tpu/scripts/single_modal_train.py``,
-same flags, plus ``--device``).
+one GPU, or on several under ``torchrun`` as ``multimodal_train.py`` does
+(DDP, or FSDP2 with ``--n_fsdp``; ``--batch_size`` per process) (PyTorch
+port of ``mm_diffusion_tpu/scripts/single_modal_train.py``, same flags,
+plus ``--device``).
 
 A :class:`~mm_diffusion_tpu_torch.models.single_unet.SingleModalUNet` on the
 video or the audio stream of the datasets the multimodal trainer reads
@@ -24,13 +26,11 @@ from typing import Dict, Iterator
 import numpy as np
 
 from ..configs import add_dict_to_argparser, args_to_dict, create_gaussian_diffusion
-from ..data.video import data_shard, load_data
+from ..data.video import load_data
 from ..models.single_unet import SingleModalUNet, SingleUNetConfig
+from ..parallel import device_info, make_mesh, process_data_shard, setup_dist
 from ..train import SingleModalTask, TrainLoop
 from ..utils import logger
-from .multimodal_sample_sr import resolve_device
-
-NOT_PORTED = "not ported yet; see ROADMAP.md §1 (multi-GPU)"
 
 
 def single_model_defaults():
@@ -141,9 +141,8 @@ def single_stream(data, modality: str) -> Iterator[Dict[str, np.ndarray]]:
 def main(argv=None) -> TrainLoop:
     """Run the CLI; returns the finished :class:`TrainLoop`."""
     args = create_argparser().parse_args(argv)
-    if args.n_fsdp > 1:
-        raise NotImplementedError(f"--n_fsdp > 1 (sharded training) is {NOT_PORTED}")
-    device = resolve_device(args.device)
+    device = setup_dist(args.device)
+    mesh = make_mesh(n_fsdp=args.n_fsdp, device_type=device.type)
     logger.configure(args.output_dir)
     log = logger.get_current()
 
@@ -162,7 +161,7 @@ def main(argv=None) -> TrainLoop:
     )
 
     log.log("creating data loader...")
-    shard, num_shards = data_shard()
+    shard, num_shards = process_data_shard()
     data = single_stream(
         load_data(
             data_dir=args.data_dir,
@@ -198,8 +197,10 @@ def main(argv=None) -> TrainLoop:
         task=SingleModalTask(sample_fn=args.sample_fn, preview_steps=args.preview_steps),
         use_db=args.use_db,
         device=device,
+        mesh=mesh,
+        fsdp_min_size=args.fsdp_min_size,
     )
-    log.log(f"training on {device}...")
+    log.log(f"training on {device} ({device_info()})...")
     try:
         loop.run_loop(max_steps=args.max_steps or None)
     finally:

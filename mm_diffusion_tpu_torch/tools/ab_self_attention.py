@@ -266,6 +266,9 @@ def main(argv=None) -> int:
     ap.add_argument("--replays", type=int, default=10)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    from ..parallel.bootstrap import refuse_launcher
+
+    refuse_launcher("ab_self_attention")
     kernels = args.kernels.split(",")
     known = {"attention", "flash", "gemm", "variants"}
     if not set(kernels) <= known:

@@ -7,6 +7,10 @@ the schedule sampler.  The resume contract is the JAX package's: point at a
 run directory and the latest step is found.  A file is written under a
 temporary name and renamed, so a save cut short never shadows the last
 complete one.
+
+On a mesh the file is the same: every rank gathers the whole state from
+the shards, rank 0 writes it, and a restore loads each tensor into every
+rank's own part, so a checkpoint of one world size resumes in any other.
 """
 
 from __future__ import annotations
@@ -27,12 +31,16 @@ def checkpoint_path(ckpt_dir: str, step: int) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState) -> int:
-    """Save the full train state; returns its step."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = checkpoint_path(ckpt_dir, state.step)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(state.state_dict(), tmp)
-    os.replace(tmp, path)
+    """Save the full train state; returns its step.  On a mesh every rank
+    calls it: all gather, rank 0 writes, the others wait for the file."""
+    whole = state.state_dict()
+    if state.parallel.rank == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = checkpoint_path(ckpt_dir, state.step)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(whole, tmp)
+        os.replace(tmp, path)
+    state.parallel.barrier()
     return state.step
 
 

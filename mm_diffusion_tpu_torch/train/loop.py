@@ -1,8 +1,12 @@
 """The training loop (counterpart of ``mm_diffusion_tpu/train/loop.py``) on
-one device: resume, the train step, logging and save intervals, EMA-weight
-previews.  What depends on the model -- the batch adapter of the train step
-and the preview -- is the task's (``train/tasks.py``): the MM-UNet by
-default, the SR U-Net, or a single-modal U-Net.
+one device, or one device per rank of a ``(data, fsdp)`` mesh
+(``parallel/``: DDP, or FSDP2 with ``n_fsdp > 1``): resume, the train
+step, logging and save intervals, EMA-weight previews.  On a mesh every
+rank runs the step on its own batch; rank 0 alone logs, writes the
+checkpoints (gathered from every rank's shards) and samples the previews,
+while the others wait.  What depends on the model -- the batch adapter
+of the train step and the preview -- is the task's (``train/tasks.py``):
+the MM-UNet by default, the SR U-Net, or a single-modal U-Net.
 
 The data feed runs one batch ahead: a thread stages the next numpy batch in
 pinned host memory and copies it to the card with ``non_blocking=True`` on
@@ -22,9 +26,10 @@ from typing import Dict, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from ..data.video import data_shard
 from ..diffusion.gaussian import GaussianDiffusion
+from ..parallel.mesh import ParallelModel
 from ..utils import logger as kvlogger
+from ..utils.seeds import derive_seed
 from .checkpoint import latest_checkpoint_step, restore_checkpoint, save_checkpoint
 from .resample import create_named_schedule_sampler
 from .state import create_train_state, make_optimizer, make_train_step
@@ -110,7 +115,10 @@ class TrainLoop:
     [B,L,C]}``); ``model`` is moved to ``device`` and trained in place.
     ``use_db`` streams the logged scalars and each preview's media to
     wandb when it is installed (project and run name from ``output_dir``).
-    ``close()`` stops the data feed's thread."""
+    ``mesh`` (``parallel.make_mesh``) trains on every rank of it, ``data``
+    then being this rank's batches; ``fsdp_min_size`` is the FSDP
+    placement rule's threshold.  ``close()`` stops the data feed's
+    thread."""
 
     def __init__(
         self,
@@ -135,6 +143,8 @@ class TrainLoop:
         task=None,
         use_db: bool = False,
         device="cuda",
+        mesh=None,
+        fsdp_min_size: int = 2**18,
     ):
         self.task = task if task is not None else MultimodalTask()
         self.device = torch.device(device)
@@ -150,7 +160,9 @@ class TrainLoop:
         self.last_batch = None  # the last step's device batch, for the SR preview
         self.history = []  # every dumped log row
         self._prefetch = None
-        if use_db and data_shard()[0] == 0:
+        self.parallel = ParallelModel(self.model, mesh, fsdp_min_size)
+        self.is_main = self.parallel.rank == 0
+        if use_db and self.is_main:
             out_abs = os.path.abspath(output_dir)
             kvlogger.get_current().enable_wandb(
                 project=os.path.basename(os.path.dirname(out_abs)) or "mm_diffusion_tpu",
@@ -160,28 +172,34 @@ class TrainLoop:
         optimizer = make_optimizer(self.model, lr, weight_decay, lr_anneal_steps)
         sampler = create_named_schedule_sampler(schedule_sampler, diffusion.num_timesteps)
         self.state = create_train_state(
-            self.model, optimizer, parse_ema_rates(ema_rate), sampler=sampler
+            self.model, optimizer, parse_ema_rates(ema_rate), sampler=sampler, parallel=self.parallel
         )
         self.ckpt_dir = os.path.join(output_dir, "checkpoints")
         resume_dir = resume_checkpoint or self.ckpt_dir
-        self.resumed_from = latest_checkpoint_step(resume_dir)
+        self.resumed_from = self.parallel.from_rank0(lambda: latest_checkpoint_step(resume_dir))
         if self.resumed_from is not None:
             kvlogger.log(f"resuming from {resume_dir} step {self.resumed_from}")
             restore_checkpoint(resume_dir, self.state, self.resumed_from)
-        self._seed(seed, self.state.step)
+        self.seed = seed
+        self.t_generator = torch.Generator()
+        self.shift_generator = torch.Generator()
+        self.noise_generator = torch.Generator(device=self.device)
+        self._seed(self.state.step)
         self._train_step = make_train_step(
             self.diffusion, accum_steps, adapter=self.task.adapter(self)
         )
 
-    def _seed(self, seed: int, step: int) -> None:
-        """Generators of the timesteps and shifts (host), the noise (device)
-        and dropout (torch's default generators), keyed by seed and step so
-        that a resumed run does not repeat the draws of step 0."""
-        base = seed * 1_000_003 + step
-        torch.manual_seed(base)
-        self.t_generator = torch.Generator().manual_seed(base + 1)
-        self.shift_generator = torch.Generator().manual_seed(base + 2)
-        self.noise_generator = torch.Generator(device=self.device).manual_seed(base + 3)
+    def _seed(self, step: int) -> None:
+        """Seed the generators of the timesteps and shifts (host), the noise
+        (device) and dropout (torch's default generators) for ``step``, from
+        the run's seed and the step alone: a resumed run draws what an
+        uninterrupted one does.  The first three are alike on every rank
+        (they draw for the global batch); dropout's key holds the rank too,
+        so that no rank repeats another's masks at any step."""
+        torch.manual_seed(derive_seed(self.seed, step, 0, self.parallel.rank))
+        self.t_generator.manual_seed(derive_seed(self.seed, step, 1))
+        self.shift_generator.manual_seed(derive_seed(self.seed, step, 2))
+        self.noise_generator.manual_seed(derive_seed(self.seed, step, 3))
 
     def run_loop(self, max_steps: Optional[int] = None) -> None:
         """Train until ``max_steps`` (counted from step 0, so a resumed run
@@ -203,6 +221,7 @@ class TrainLoop:
                 with log.profile_kv("data"):
                     batch = next(self._prefetch)
                 self.last_batch = batch
+                self._seed(step)
                 pending.append(self._train_step(
                     self.state, batch, t_generator=self.t_generator,
                     noise_generator=self.noise_generator,
@@ -224,19 +243,22 @@ class TrainLoop:
                             self.sample_preview(step)
                         except Exception as e:  # a preview must never stop training
                             log.log(f"preview sampling failed: {e}")
+                        self.parallel.barrier()
         finally:
             flush()
-        if latest_checkpoint_step(self.ckpt_dir) != self.state.step:
+        if self.parallel.from_rank0(lambda: latest_checkpoint_step(self.ckpt_dir)) != self.state.step:
             self.save()
 
     # ------------------------------------------------------------------
     def save(self) -> None:
+        """Save a checkpoint (every rank gathers, rank 0 writes)."""
         step = save_checkpoint(self.ckpt_dir, self.state)
         kvlogger.log(f"saved checkpoint step {step} -> {self.ckpt_dir}")
 
     def sample_preview(self, step: int) -> Optional[str]:
-        """The task's EMA-weight preview; its primary media file is streamed
-        to wandb when ``use_db`` is on."""
+        """The task's EMA-weight preview (on rank 0; the other ranks help
+        gather the EMA weights and return None); its primary media file is
+        streamed to wandb when ``use_db`` is on."""
         path = self.task.preview(self, step)
         if path:
             kvlogger.get_current().log_media(path, step=step)

@@ -8,12 +8,14 @@ varies between models:
   model_fn)``;
 * ``preview(loop, step)`` -- EMA-weight sampling and a media dump at save
   intervals; returns the primary media path (streamed to wandb under
-  ``use_db``).
+  ``use_db``).  On a mesh every rank calls it to gather the EMA weights;
+  rank 0 alone samples (the others return None).  A preview draws from
+  generators of its own, keyed by the step, so that the training draws,
+  alike on every rank, stay so.
 """
 
 from __future__ import annotations
 
-import copy
 import os
 
 import numpy as np
@@ -22,20 +24,38 @@ import torch.nn.functional as F
 
 from ..configs import create_gaussian_diffusion
 from ..data import media
+from ..parallel.mesh import full_tensor
 from ..sampling import build_base_sampler, build_single_sampler, build_sr_sampler
 from ..utils import logger as kvlogger
+from ..utils.seeds import derive_seed
 from .state import ema_params, multimodal_adapter
 
 
-def ema_model(loop) -> torch.nn.Module:
-    """A copy of the loop's model in eval mode holding the first EMA rate's
-    weights."""
-    model = copy.deepcopy(loop.state.model).eval()
+def ema_model(loop):
+    """On rank 0, a plain copy of the loop's model in eval mode holding the
+    first EMA rate's weights (gathered from the shards under FSDP: every
+    rank calls it); None on the other ranks."""
+    whole = {name: full_tensor(x) for name, x in ema_params(loop.state).items()}
+    if not loop.is_main:
+        return None
+    trained = loop.state.model
+    with torch.device("meta"):  # no initialisation, no draw from torch's generator
+        model = loop.state.parallel.model_class(trained.cfg)
+    model.to_empty(device=loop.device)
     with torch.no_grad():
-        params = dict(model.named_parameters())
-        for name, x in ema_params(loop.state).items():
-            params[name].copy_(x)
-    return model
+        for name, x in model.named_parameters():
+            x.copy_(whole[name])
+        for name, x in model.named_buffers():
+            x.copy_(trained.get_buffer(name))
+    return model.eval()
+
+
+def preview_generators(loop, step: int):
+    """(noise generator on the loop's device, host shift generator) of the
+    preview at ``step``, keyed on the run's seed and the step (streams 4
+    and 5; the loop's own generators take 0-3)."""
+    return (torch.Generator(device=loop.device).manual_seed(derive_seed(loop.seed, step, 4)),
+            torch.Generator().manual_seed(derive_seed(loop.seed, step, 5)))
 
 
 class MultimodalTask:
@@ -49,11 +69,14 @@ class MultimodalTask:
         write a grid video plus one audio-video pair per clip under
         ``<output_dir>/previews``; returns the grid's path."""
         model = ema_model(loop)
+        if model is None:
+            return None
+        noise_gen, shift_gen = preview_generators(loop, step)
         sample = build_base_sampler(
             model, loop.diffusion, sample_fn=loop.sample_fn_name, steps=20,
-            shift_generator=loop.shift_generator,
+            shift_generator=shift_gen,
         )
-        out = sample(loop.preview_samples, generator=loop.noise_generator)
+        out = sample(loop.preview_samples, generator=noise_gen)
         vids = out["video"].float().cpu().numpy()
         auds = out["audio"].float().cpu().numpy()
         del model
@@ -88,6 +111,8 @@ class ImageSRTask:
         if batch is None:
             return None
         model = ema_model(loop)
+        if model is None:
+            return None
         diffusion = create_gaussian_diffusion(
             steps=loop.diffusion.num_timesteps,
             learn_sigma=model.cfg.out_channels == 6,
@@ -95,7 +120,7 @@ class ImageSRTask:
         ).to(loop.device)
         sampler = build_sr_sampler(model, diffusion, "ddim", steps=self.preview_steps)
         low, hr = batch["low_res"][:4], batch["high_res"][:4]
-        sample = sampler(low, generator=loop.noise_generator).float().cpu().numpy()
+        sample = sampler(low, generator=preview_generators(loop, step)[0]).float().cpu().numpy()
         del model
         large = hr.shape[1]
         bic = F.interpolate(low.float().permute(0, 3, 1, 2), size=(large, large), mode="bicubic",
@@ -125,9 +150,11 @@ class SingleModalTask:
 
     def preview(self, loop, step: int) -> str:
         model = ema_model(loop)
+        if model is None:
+            return None
         sample = build_single_sampler(model, loop.diffusion, sample_fn=self.sample_fn,
                                       steps=self.preview_steps)
-        out = sample(loop.preview_samples, generator=loop.noise_generator).float().cpu().numpy()
+        out = sample(loop.preview_samples, generator=preview_generators(loop, step)[0]).float().cpu().numpy()
         modality = model.cfg.modality
         del model
         base = os.path.join(loop.output_dir, "previews", f"step_{step:06d}")

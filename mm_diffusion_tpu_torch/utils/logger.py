@@ -1,6 +1,7 @@
 """Key-value metric logger (the port's own copy of
 ``mm_diffusion_tpu/utils/logger.py``: the standard library, with
-TensorBoard's writer and wandb imported only when asked for).
+TensorBoard's writer and wandb imported only when asked for; on several
+ranks only rank 0 logs).
 
 Functional re-design of the vendored OpenAI-baselines logger the reference
 carries (`mm_diffusion/logger.py`, 496 LoC of global-state KV machinery).
@@ -196,8 +197,15 @@ _default = KVLogger()
 
 def configure(log_dir: Optional[str] = None, suffix: str = "", stdout: bool = True,
               tensorboard: bool = False):
+    """The default logger's sinks.  On a rank other than 0 of a process
+    group it gets none: only rank 0 prints and writes files."""
     global _default
-    _default = KVLogger(log_dir, suffix, stdout, tensorboard)
+    from ..parallel.mesh import process_data_shard
+
+    if process_data_shard()[0] != 0:
+        _default = KVLogger(None, suffix, stdout=False)
+    else:
+        _default = KVLogger(log_dir, suffix, stdout, tensorboard)
     return _default
 
 

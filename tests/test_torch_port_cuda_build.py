@@ -1,0 +1,62 @@
+"""The kernel build's lock, on the CPU with a stand-in for nvcc: two
+processes that build at once (the ranks of a torchrun launch) compile
+the sources once; the second waits and finds the first's library."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+from mm_diffusion_tpu_torch.ops import cuda_build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+FAKE_NVCC = textwrap.dedent("""\
+    #!/bin/sh
+    # stands in for nvcc: counts its calls, sleeps, writes an empty output
+    echo call >> "$NVCC_CALLS"
+    out=""
+    while [ $# -gt 0 ]; do
+      if [ "$1" = "-o" ]; then out="$2"; fi
+      shift
+    done
+    sleep 1
+    : > "$out"
+""")
+
+BUILD = textwrap.dedent("""\
+    import pathlib, sys
+    from mm_diffusion_tpu_torch.ops import cuda_build
+    cuda_build.BUILD_ROOT = pathlib.Path(sys.argv[1])
+    path, seconds, _ = cuda_build.build()
+    print(path.name, "compiled" if seconds > 0 else "found")
+""")
+
+
+def test_concurrent_builds_compile_once(tmp_path):
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    calls = tmp_path / "calls"
+    env = dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}", NVCC_CALLS=str(calls),
+               PYTHONPATH=REPO)
+    procs = [
+        subprocess.Popen([sys.executable, "-c", BUILD, str(tmp_path / "kernels")], env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for _ in range(2)
+    ]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert sorted(o.split()[-1] for o in outs) == ["compiled", "found"]
+    sources = [s for s in cuda_build.SOURCES if s.endswith(".cu")]
+    assert len(calls.read_text().split()) == len(sources) + 1  # each source once, one link
+    (built,) = (tmp_path / "kernels").iterdir()
+    assert (built / cuda_build.LIB_NAME).exists() and (built / "build.lock").exists()

@@ -143,14 +143,18 @@ def test_synthetic_data_matches_jax():
 
 def test_shard_comes_from_torch_distributed(video_dir, monkeypatch):
     """Without a process group the shard is (0, 1); with one, the rank and
-    world size -- the batches of JAX's loader at that shard."""
-    assert pvideo.data_shard() == (0, 1)
+    world size -- the batches of JAX's loader at that shard.  The loader
+    asks the parallel layer (``parallel.process_data_shard``, the one
+    helper; ``data/video.py`` keeps no copy of it)."""
+    from mm_diffusion_tpu_torch.parallel import process_data_shard
+
+    assert process_data_shard() == (0, 1) and not hasattr(pvideo, "data_shard")
     import torch.distributed as dist
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_rank", lambda: 1)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    assert pvideo.data_shard() == (1, 2)
+    assert process_data_shard() == (1, 2)
     kw = dict(LOADER, data_dir=video_dir, batch_size=2, num_workers=0, seed=4)
     _equal_batches(next(pvideo.load_data(**kw)), next(jvideo.load_data(**kw, shard=1, num_shards=2)))
 

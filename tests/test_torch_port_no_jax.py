@@ -2,7 +2,8 @@
 module imports, a tiny forward of both models and of the single-modal video
 and audio U-Nets, a tiny training loss and backward, one tiny SR train
 step, one tiny step of the conditional sampler's gradient method, the
-flash MHA and spike-kernel entry points and the A/B tools run, in a fresh
+flash MHA and spike-kernel entry points, the A/B tools and the parallel
+layer's one-process path run, in a fresh
 interpreter where jax / flax / optax cannot be
 imported, and no module of the JAX package gets loaded -- not even one that
 does not import JAX.  No port module and not chip_smoke.py has an import of
@@ -91,6 +92,11 @@ sr_diffusion = configs.create_gaussian_diffusion(steps=100, learn_sigma=True)
 sr_metrics = make_train_step(sr_diffusion, adapter=ImageSRTask().adapter(None))(sr_state, sr_batch)
 assert bool(torch.isfinite(sr_metrics["loss"])) and sr_state.step == 1
 
+from mm_diffusion_tpu_torch.parallel import ParallelModel, make_mesh, param_spec, rank_rows, setup_dist
+assert setup_dist("cpu") == torch.device("cpu") and make_mesh(device_type="cpu") is None
+assert ParallelModel(sr).kind == "single" and param_spec((64, 32, 3, 3), 2, 16) == 0
+assert rank_rows(torch.arange(4), 1, 2).tolist() == [2, 3]
+
 from mm_diffusion_tpu_torch.ops import block_attention, fused_attention, gemm_conv
 x = torch.randn(1, 8, 2, 64, requires_grad=True)
 fused_attention.flash_mha(x, x, x).sum().backward()
@@ -117,9 +123,10 @@ print("JAXPKG", ",".join(jax_pkg))
 
 ALLOWED_FROM_JAX_PACKAGE: set = set()
 # The conditional CLIs, the flash MHA and spike-kernel modules, the A/B
-# tools, the data loaders, the single-modal model, BertAdam and the SR and
-# single-modal train CLIs: imported (the tools also run, plain versions,
-# small shapes) by the probe above, and scanned below.
+# tools, the data loaders, the single-modal model, BertAdam, the SR and
+# single-modal train CLIs and the parallel layer: imported (the tools also
+# run, plain versions, small shapes; the parallel layer's one-process
+# path) by the probe above, and scanned below.
 NEW_MODULES = {
     "mm_diffusion_tpu_torch.scripts.audio2video_sample_sr",
     "mm_diffusion_tpu_torch.scripts.video2audio_sample",
@@ -135,6 +142,9 @@ NEW_MODULES = {
     "mm_diffusion_tpu_torch.train.optimization",
     "mm_diffusion_tpu_torch.scripts.image_sr_train",
     "mm_diffusion_tpu_torch.scripts.single_modal_train",
+    "mm_diffusion_tpu_torch.parallel.bootstrap",
+    "mm_diffusion_tpu_torch.parallel.mesh",
+    "mm_diffusion_tpu_torch.utils.seeds",
 }
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+mm_diffusion_tpu(\.|\s|$)", re.M)

@@ -244,9 +244,14 @@ def test_cli_writes_samples_on_cpu(tmp_path):
     assert {"base_s", "sr_s"} <= set(result["timings"][0])
 
 
-@pytest.mark.parametrize("flag,value", [("--save_type", "npz"), ("--n_sample_data", "2")])
-def test_cli_refuses_unported_options(tmp_path, flag, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("flag,value,error,match", [
+    ("--save_type", "npz", NotImplementedError, "ROADMAP"),
+    # --n_sample_data 2 samples on 2 processes (tests/test_torch_port_parallel_cli.py);
+    # a run of one process refuses it with the launch line to use
+    ("--n_sample_data", "2", ValueError, "torchrun --nproc_per_node 2"),
+])
+def test_cli_refuses_unported_options(tmp_path, flag, value, error, match):
+    with pytest.raises(error, match=match):
         cli.main(CLI_ARGS + ["--output_dir", str(tmp_path), flag, value])
 
 

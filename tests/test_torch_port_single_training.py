@@ -163,7 +163,8 @@ def test_single_cli_on_cpu_resumes(modality, tmp_path):
     assert latest_checkpoint_step(f"{out}/checkpoints") == 2
     again = cli.main(argv + ["--max_steps", "3"])
     assert again.resumed_from == 2 and again.state.step == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --n_fsdp 2 shards over 2 processes; without a launcher the mesh cannot be built
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
         cli.main(argv + ["--n_fsdp", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):

@@ -434,7 +434,9 @@ def test_train_cli_on_cpu(tmp_path):
     assert latest_checkpoint_step(f"{out}/checkpoints") == 2
     again = multimodal_train.main(argv + ["--max_steps", "3"])
     assert again.resumed_from == 2 and again.state.step == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --n_fsdp 2 shards over 2 processes (tests/test_torch_port_parallel_cli.py);
+    # without a launcher the mesh cannot be built
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
         multimodal_train.main(argv + ["--n_fsdp", "2"])
     # a dataset directory is read (tests/test_torch_port_data.py trains on
     # one); a directory without videos is refused when the first batch is drawn
