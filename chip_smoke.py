@@ -131,6 +131,22 @@ Phases, each printed as it runs; any failure exits non-zero:
      two gloo ranks, whose samples must equal the one-rank run's within
      the one-rank spread (the ranks' rows computed at batch 1 in one
      process against the batch-2 run).
+  11. evaluation (evaluation/ and the eval CLIs) at the published
+     architectures with seeded random weights, fp32 with TF32 off: 11.1
+     I3D, the AudioCLIP audio tower, CLIP visual and text, C3D and the
+     GraphDef executor (a small graph written with the port's proto
+     writers) on the card against the same module on the CPU at the
+     published shapes (relative L2), each one's device ms per batch of
+     EVAL_BATCH clips or images (CUDA-graph replays), rate and peak memory,
+     and the torch resize on the card against the CPU (at most 1 in uint8);
+     11.2 the sampling CLI with --save_type npz --run_eval --ref_path
+     (LAUNCH_SCRIPT_ARGS at batch 2, 4 clips, phase 10.3's NFE cut,
+     EVAL_NUM_11 clips per side): the npz's keys, shapes and dtypes, finite
+     metrics on the fallback route, the stage times and K1-K3's launches;
+     11.3 scripts/eval.py (I3D and full-AudioCLIP checkpoints, --compute_is:
+     protocol "reference"), image_eval.py (--clip_checkpoint) and
+     video_is.py (C3D at the published widths) on random-weight checkpoints
+     in the original key layouts: finite metrics, wall seconds, peak memory.
 
 The last three lines of standard output are the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
@@ -146,8 +162,10 @@ batch-1 shapes; K1, K4 and K5 carry ``sr_train_launches``,
 ``single_video_train_launches`` and ``single_audio_train_launches``, their
 launches in phases 9.2 and 9.3's training runs, and ``sr_train_ms`` /
 ``audio_train_ms`` with their ``*_bound_ms``, phase 3b's per-call numbers
-summed over the SR and audio training shapes), the card's ``nvidia-smi``
-name and power limit, and ``{"ok": true, "device": {...}}``.
+summed over the SR and audio training shapes; K1-K3 carry
+``eval_cli_launches``, their launches in phase 11.2's sampling run with the
+evaluation), the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2326,6 +2344,367 @@ def parallel_worker(mode: str, work: str, argv) -> None:
 
 
 
+# Phase 11: evaluation (evaluation/, the eval CLIs, --save_type npz and
+# --run_eval) at the published architectures with seeded random weights.
+# 11.1 holds each network on the card (fp32, TF32 off) against the same
+# module on the CPU; 11.2 runs the sampling CLI with the evaluation; 11.3
+# the eval CLIs on random-weight checkpoints in the original key layouts.
+# Cuts: 11.2's sampler as phase 10.3's (10 NFE, ddim5), and EVAL_NUM_11
+# clips per side where the CLIs evaluate 2048 (the loader repeats the 4
+# sampled clips; 2048 would spend minutes in host-side numpy).
+EVAL_REL_L2_TOL = 1e-4
+EVAL_BATCH = 8  # clips (images for the image networks) per timed batch
+EVAL_NUM_11 = 16
+EVAL_SAMPLE_ARGS = ["--batch_size", "2", "--sample_num", "4", "--sample_steps", str(SAMPLE_STEPS_10),
+                    "--sr_sample_steps", str(SR_STEPS_10), "--device", "cuda"]
+# the weights' scale: N(0, gain / fan_in).  He's 2 where the signal would
+# fade through depth; smaller where a larger one drives the sigmoid gates
+# and the attention pools' softmax into saturation, where fp32's rounding
+# on two devices decides the output
+EVAL_GAINS = {"i3d": 2.0, "audio": 0.5, "clip_visual": 1.0, "clip_text": 1.0}
+
+
+def eval_random_(model, seed: int, gain: float):
+    """Seeded random weights for an evaluation network: weights ~ N(0,
+    gain / fan_in), norm scales ~ 1 + N(0, 0.1^2), biases ~ N(0, 0.1^2),
+    BN running means ~ N(0, 0.1^2) and variances ~ U(0.5, 1); the FBSP
+    filterbank's spline order ~ U(0, 0.5), bandwidth ~ U(0.1, 1), centres
+    kept (the trained tower's ranges)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, generator=g)
+            if name == "fbsp.fc":
+                continue
+            if name == "fbsp.m":
+                p.copy_(torch.rand(p.shape, generator=g) * 0.5)
+            elif name == "fbsp.fb":
+                p.copy_(torch.rand(p.shape, generator=g) * 0.9 + 0.1)
+            elif p.dim() > 1:
+                p.copy_(noise * math.sqrt(gain / p[0].numel()))
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * noise)
+            else:
+                p.copy_(0.1 * noise)
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(torch.randn(b.shape, generator=g) * 0.1)
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=g) * 0.5 + 0.5)
+    return model.eval()
+
+
+def c3d_published_params(seed: int):
+    """Random C3D weights at the published widths, in chainer's layout."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    convs = {"conv1a": (3, 64), "conv2a": (64, 128), "conv3a": (128, 256), "conv3b": (256, 256),
+             "conv4a": (256, 512), "conv4b": (512, 512), "conv5a": (512, 512), "conv5b": (512, 512)}
+    params = {}
+    for name, (cin, cout) in convs.items():
+        params[name] = {"W": (rng.standard_normal((cout, cin, 3, 3, 3), np.float32) * math.sqrt(2 / (27 * cin))),
+                        "b": rng.standard_normal(cout, np.float32) * 0.1}
+    for name, (cin, cout) in {"fc6": (8192, 4096), "fc7": (4096, 4096), "fc8": (4096, 101)}.items():
+        params[name] = {"W": rng.standard_normal((cout, cin), np.float32) * math.sqrt(2 / cin),
+                        "b": rng.standard_normal(cout, np.float32) * 0.1}
+    return params
+
+
+def eval_graph_bytes(seed: int) -> bytes:
+    """A small frozen GraphDef, written with the port's proto writers
+    (evaluation/tf_bundle.py): Conv2D (SAME, stride 2), BiasAdd, Relu,
+    AvgPool SAME, MaxPool SAME, ResizeBilinear, Reshape (a -1 target),
+    MatMul, Softmax.  Feed ``x:0`` [N, 37, 45, 3], fetch ``out:0``
+    [N, 10]."""
+    import numpy as np
+
+    from mm_diffusion_tpu_torch.evaluation.tf_bundle import _proto_field_bytes, _proto_field_varint
+
+    rng = np.random.default_rng(seed)
+    fb, fv = _proto_field_bytes, _proto_field_varint
+
+    def tensor(arr):
+        dtype = {np.dtype("float32"): 1, np.dtype("int32"): 3}[arr.dtype]
+        shape = b"".join(fb(2, fv(1, d)) for d in arr.shape)
+        return fb(8, fv(1, dtype) + fb(2, shape) + fb(4, arr.tobytes()))
+
+    def ints(values):
+        return fb(1, b"".join(fv(3, v) for v in values))
+
+    def node(name, op, inputs=(), **attrs):
+        out = fb(1, name.encode()) + fb(2, op.encode()) + b"".join(fb(3, i.encode()) for i in inputs)
+        for key, value in attrs.items():
+            out += fb(5, fb(1, key.encode()) + fb(2, value))
+        return fb(1, out)
+
+    f32 = fv(6, 1)
+    pool = dict(ksize=ints([1, 3, 3, 1]), padding=fb(2, b"SAME"), T=f32)
+    nodes = [
+        node("x", "Placeholder", dtype=f32),
+        node("w1", "Const", value=tensor((rng.standard_normal((3, 3, 3, 16)) * 0.3).astype(np.float32)), dtype=f32),
+        node("conv", "Conv2D", ("x", "w1"), strides=ints([1, 2, 2, 1]), padding=fb(2, b"SAME"), T=f32),
+        node("b1", "Const", value=tensor(rng.standard_normal(16).astype(np.float32)), dtype=f32),
+        node("bias", "BiasAdd", ("conv", "b1"), T=f32),
+        node("relu", "Relu", ("bias",), T=f32),
+        node("avg", "AvgPool", ("relu",), strides=ints([1, 1, 1, 1]), **pool),
+        node("max", "MaxPool", ("avg",), strides=ints([1, 2, 2, 1]), **pool),
+        node("size", "Const", value=tensor(np.array([12, 12], np.int32)), dtype=fv(6, 3)),
+        node("resize", "ResizeBilinear", ("max", "size"), T=f32, align_corners=fv(5, 0)),
+        node("shape", "Const", value=tensor(np.array([-1, 12 * 12 * 16], np.int32)), dtype=fv(6, 3)),
+        node("flat", "Reshape", ("resize", "shape"), T=f32),
+        node("w2", "Const", value=tensor((rng.standard_normal((12 * 12 * 16, 10)) * 0.02).astype(np.float32)),
+             dtype=f32),
+        node("mm", "MatMul", ("flat", "w2"), T=f32),
+        node("out", "Softmax", ("mm",), T=f32),
+    ]
+    return b"".join(nodes)
+
+
+def eval_network_cases():
+    """(name, module, checked input, timed input of EVAL_BATCH clips or
+    images) for each evaluation network, at the published shapes, CPU
+    tensors."""
+    import numpy as np
+    import torch
+
+    from mm_diffusion_tpu_torch.evaluation import audioclip, c3d, clip_model, graphdef, i3d
+
+    g = torch.Generator().manual_seed(5)
+
+    class GraphNet:  # the executor behind the modules' interface: .to(device), call
+        def __init__(self, blob, device="cpu"):
+            self.blob, self.executor = blob, graphdef.GraphDefExecutor(blob, device=device)
+
+        def to(self, device):
+            return GraphNet(self.blob, device)
+
+        def __call__(self, x):
+            return self.executor.run(["out:0"], {"x:0": x})[0]
+
+        def checked(self, x):
+            return self.executor.run(["out:0", "mm:0"], {"x:0": x})
+
+    tokens = torch.randint(1, 49407, (EVAL_BATCH, 77), generator=g)
+    tokens[:, 20] = 49407  # the end-of-text token, the highest id
+    return [
+        ("i3d", eval_random_(i3d.InceptionI3d(), 61, EVAL_GAINS["i3d"]),
+         torch.rand((2, 16, 224, 224, 3), generator=g) * 2 - 1,
+         torch.rand((EVAL_BATCH, 16, 224, 224, 3), generator=g) * 2 - 1),
+        ("audioclip_audio", eval_random_(audioclip.ESResNeXtFBSP(), 62, EVAL_GAINS["audio"]),
+         torch.rand((2, 1, 70560), generator=g) * 2 - 1, torch.rand((EVAL_BATCH, 1, 70560), generator=g) * 2 - 1),
+        ("clip_visual", eval_random_(clip_model.CLIPVisualResNet(), 63, EVAL_GAINS["clip_visual"]),
+         torch.randn((16, 224, 224, 3), generator=g), torch.randn((EVAL_BATCH * 16, 224, 224, 3), generator=g)),
+        ("clip_text", eval_random_(clip_model.CLIPTextEncoder(), 64, EVAL_GAINS["clip_text"]), tokens[:2], tokens),
+        ("c3d", c3d.C3D(c3d_published_params(65)), torch.randn((2, 16, 112, 112, 3), generator=g) * 50,
+         torch.randn((EVAL_BATCH, 16, 112, 112, 3), generator=g) * 50),
+        ("graphdef", GraphNet(eval_graph_bytes(6)), torch.from_numpy(np.random.default_rng(7).uniform(0, 255, (2, 37, 45, 3)).astype(
+            np.float32)), torch.rand((EVAL_BATCH, 37, 45, 3), generator=g) * 255),
+    ]
+
+
+def eval_networks():
+    """Phase 11.1; returns {network: (ms per batch, peak GiB)}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from mm_diffusion_tpu_torch.evaluation.common import fp32_precision
+    from mm_diffusion_tpu_torch.evaluation.resize import resize_uint8
+
+    phase(f"11.1 evaluation networks on the card (fp32, TF32 off) vs the same modules on the CPU, at the "
+          f"published shapes (rel L2 {EVAL_REL_L2_TOL}); device ms per batch of {EVAL_BATCH}")
+    torch.set_num_threads(os.cpu_count() or 1)
+    dev = torch.device("cuda")
+    out = {}
+    def checked(name, module, x):
+        """The outputs held card vs CPU: C3D's and the graph's logits beside
+        their softmax, which random weights saturate."""
+        if name == "graphdef":
+            return [y.cpu() for y in module.checked(x)]
+        if name != "c3d":
+            return [module(x).cpu()]
+        logits = []
+        hook = module.fc8.register_forward_hook(lambda mod, i, o: logits.append(o.cpu()))
+        out = module(x).cpu()
+        hook.remove()
+        return [out, logits[0]]
+
+    for name, module, x, timed in eval_network_cases():
+        with fp32_precision():
+            t0 = time.perf_counter()
+            refs = checked(name, module, x)
+            cpu_s = time.perf_counter() - t0
+            gpu = module.to(dev)
+            gots = checked(name, gpu, x.to(dev))
+            ref, got = refs[0], gots[0]
+            e = max(rel_l2(g, r) for g, r in zip(gots, refs))
+            timed = timed.to(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            gpu(timed)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            ms = time_ms(lambda: gpu(timed))
+        per = "images" if name in ("clip_visual", "graphdef") else "clips"
+        rate = EVAL_BATCH * 1e3 / ms
+        print(f"{name}: input {tuple(x.shape)} -> {tuple(ref.shape)}, rel L2 card vs CPU {e:.3e}"
+              f"{' (the larger of the output and the logits)' if len(refs) > 1 else ''}, finite "
+              f"{bool(torch.isfinite(got).all())}; batch of {EVAL_BATCH} {per} {tuple(timed.shape)}: {ms:.3f} ms "
+              f"({rate:.1f} {per}/s), peak {peak:.2f} GiB over the inputs; CPU forward {cpu_s:.1f} s")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output on the card")
+        check(e <= EVAL_REL_L2_TOL, f"{name}: card vs CPU rel L2 {e:.3e}")
+        out[name] = (ms, peak)
+        del module, gpu, timed
+        gc.collect()
+        torch.cuda.empty_cache()
+    rng = np.random.RandomState(8)
+    for (h, w), size, mode in (((64, 64), 224, "bilinear"), ((256, 256), 224, "bilinear"),
+                               ((64, 64), 224, "bicubic"), ((256, 256), 224, "bicubic"),
+                               ((64, 64), 128, "bicubic"), ((256, 256), 128, "bicubic")):
+        frames = torch.from_numpy(rng.randint(0, 256, (16, h, w, 3)).astype(np.uint8))
+        diff = (resize_uint8(frames.to(dev), size, size, mode).cpu().int()
+                - resize_uint8(frames, size, size, mode).int()).abs()
+        print(f"resize {mode} {h}->{size}: card vs CPU max |diff| {int(diff.max())} in uint8, share "
+              f"{float((diff > 0).float().mean()):.2e}")
+        check(int(diff.max()) <= 1, f"resize {mode} {h}->{size}: card vs CPU differ by more than 1")
+    return out
+
+
+def write_av_npz(path, seed, n=4):
+    """A synthetic "real" AV batch at the sampler's output sizes: moving
+    smooth patterns in uint8 and 1.6 s of 16 kHz tones with noise."""
+    import numpy as np
+
+    from mm_diffusion_tpu_torch.evaluation.npz_batch import save_av_npz_batch
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:256, :256] / 256.0
+    t = np.arange(16)[:, None, None]
+    videos = np.stack([
+        np.stack([127 + 120 * np.sin(2 * np.pi * (rng.uniform(1, 4) * xx + rng.uniform(1, 4) * yy + 0.1 * t + c))
+                  for c in range(3)], -1) for _ in range(n)]).astype(np.uint8)
+    s = np.arange(25600) / 16000.0
+    audio = np.stack([0.5 * np.sin(2 * np.pi * rng.uniform(200, 2000) * s) + 0.05 * rng.standard_normal(25600)
+                      for _ in range(n)]).astype(np.float32)
+    return save_av_npz_batch(path, videos, audio, 10, 16000)
+
+
+def eval_sampling_cli(tmp: str):
+    """Phase 11.2: the sampling CLI with --save_type npz --run_eval;
+    returns (the npz it wrote, the real npz, K1-K3's launches)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from mm_diffusion_tpu_torch.evaluation import eval_multimodal
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.scripts import multimodal_sample_sr as cli
+
+    phase(f"11.2 sampling CLI with the evaluation: multimodal_sample_sr.py --save_type npz --run_eval, "
+          f"LAUNCH_SCRIPT_ARGS at batch 2, 4 clips, {SAMPLE_STEPS_10} NFE, ddim{SR_STEPS_10} SR; "
+          f"eval on {EVAL_NUM_11} clips per side")
+    real = write_av_npz(os.path.join(tmp, "real"), 9)
+    argv = cli.LAUNCH_SCRIPT_ARGS + EVAL_SAMPLE_ARGS + [
+        "--save_type", "npz", "--run_eval", "True", "--ref_path", real, "--output_dir", os.path.join(tmp, "eval")]
+    print("argv:", " ".join(argv))
+    evals = []
+
+    def timed_eval(*args, **kw):
+        t0 = time.perf_counter()
+        metrics = functools.partial(eval_multimodal, eval_num=EVAL_NUM_11)(*args, **kw)
+        evals.append(time.perf_counter() - t0)
+        return metrics
+
+    cli.eval_multimodal, orig = timed_eval, cli.eval_multimodal
+    ba.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        result = cli.main(argv)
+    finally:
+        cli.eval_multimodal = orig
+    wall = time.perf_counter() - t0
+    counts = {"self_attention": ba.LAUNCHES["self_attention"],
+              "banded_attention[lw=1]": ba.BANDED_WINDOWS.get(1, 0),
+              "banded_attention[lw>1]": sum(v for k, v in ba.BANDED_WINDOWS.items() if k > 1)}
+    (path,) = result["paths"]
+    with np.load(path) as z:
+        layout = {k: (str(z[k].dtype), z[k].shape) for k in z.files}
+    want = {"arr_0": ("uint8", (4, 16, 256, 256, 3)), "audio": ("float32", (4, 25600, 1)),
+            "video_fps": ("float32", ()), "audio_fps": ("int32", ()),
+            "video_base": ("float32", (4, 16, 64, 64, 3))}
+    metrics = result["metrics"]
+    print(f"npz {os.path.basename(path)}: {layout}")
+    print(f"metrics: {metrics}")
+    print(f"stage wall times per batch: {result['timings']}; evaluation {evals[0]:.1f} s; CLI total {wall:.1f} s; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
+    check(layout == want, f"npz layout {layout}")
+    check(metrics["protocol"] == "fallback", f"protocol {metrics['protocol']}")
+    check(all(math.isfinite(metrics[k]) for k in ("fvd", "kvd", "fad")), "non-finite metrics")
+    for name, n in counts.items():
+        check(n > 0, f"{name} never launched in the sampling run")
+    return path, real, counts
+
+
+def eval_clis(tmp: str, sample: str, real: str):
+    """Phase 11.3: scripts/eval.py, image_eval.py and video_is.py on
+    random-weight checkpoints in the original key layouts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from mm_diffusion_tpu_torch.evaluation import audioclip, clip_model, i3d
+    from mm_diffusion_tpu_torch.scripts import eval as eval_cli
+    from mm_diffusion_tpu_torch.scripts import image_eval as image_eval_cli
+    from mm_diffusion_tpu_torch.scripts import video_is as video_is_cli
+
+    phase("11.3 eval CLIs on random-weight checkpoints: eval.py (I3D + full AudioCLIP, --compute_is), "
+          "image_eval.py (--clip_checkpoint), video_is.py (C3D)")
+    ck = {k: os.path.join(tmp, f) for k, f in (("i3d", "i3d.pt"), ("audioclip", "audioclip.pt"),
+                                                ("c3d", "c3d.npz"), ("mean", "mean2.npz"))}
+    torch.save(eval_random_(i3d.InceptionI3d(), 71, EVAL_GAINS["i3d"]).state_dict(), ck["i3d"])
+    tower = eval_random_(audioclip.ESResNeXtFBSP(), 72, EVAL_GAINS["audio"])
+    visual = eval_random_(clip_model.CLIPVisualResNet(), 73, EVAL_GAINS["clip_visual"])
+    torch.save({**{f"audio.{k}": v for k, v in tower.state_dict().items()},
+                **{f"visual.{k}": v for k, v in visual.state_dict().items()},
+                "logit_scale_ai": torch.tensor(math.log(100.0))}, ck["audioclip"])
+    np.savez(ck["c3d"], **{f"{n}/{k}": v for n, p in c3d_published_params(74).items() for k, v in p.items()})
+    np.savez(ck["mean"], mean=np.random.default_rng(75).uniform(0, 255, (3, 16, 128, 171)).astype(np.float32))
+    runs = [
+        ("eval.py", eval_cli.main, ["--ref_dir", real, "--fake_dir", sample, "--i3d_checkpoint", ck["i3d"],
+                                    "--audioclip_checkpoint", ck["audioclip"], "--compute_is",
+                                    "--sample_num", str(EVAL_NUM_11)],
+         ("fvd", "kvd", "fad", "av_clip_score_fake", "av_clip_score_real", "video_is")),
+        ("image_eval.py", image_eval_cli.main, [real, sample, "--clip_checkpoint", ck["audioclip"]],
+         ("fid", "kid", "precision", "recall")),
+        ("video_is.py", video_is_cli.main, [sample, "--c3d_npz", ck["c3d"], "--mean", ck["mean"]], ("video_is",)),
+    ]
+    out = {}
+    for name, main, argv, keys in runs:
+        argv = argv + ["--output_dir", os.path.join(tmp, name), "--device", "cuda"]
+        print(f"{name} argv: {' '.join(argv)}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            metrics = main(argv)
+        if name == "eval.py":
+            check(metrics["protocol"] == "reference", f"eval.py protocol {metrics['protocol']}")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{name}: {metrics}; wall {wall:.1f} s, peak {peak:.2f} GiB")
+        check(all(k in metrics and math.isfinite(metrics[k]) for k in keys), f"{name}: metrics {metrics}")
+        out[name] = (wall, peak)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # one rank of phase 10, started by the script itself through torchrun
@@ -2373,6 +2752,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             parallel_training(tmp)
             parallel_clis(tmp)
+        eval_networks()
+        with tempfile.TemporaryDirectory() as tmp:
+            sample_npz, real_npz, eval_launches = eval_sampling_cli(tmp)
+            eval_clis(tmp, sample_npz, real_npz)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2391,6 +2774,7 @@ def main() -> int:
             "library_ms": summary[name]["library_ms"],
             **({"previous_ms": summary[name]["previous_ms"]} if "previous_ms" in summary[name] else {}),
             **({"a2v_launches": a2v_launches[name]} if name in a2v_launches else {}),
+            **({"eval_cli_launches": eval_launches[name]} if name in eval_launches else {}),
             **({f"a2v_{k}": v for k, v in sampler_bwd[name].items()} if name in sampler_bwd else {}),
             **({"sr_train_launches": sr_launches[name],
                 "single_video_train_launches": single_launches["video"][name],

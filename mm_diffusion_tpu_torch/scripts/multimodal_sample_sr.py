@@ -5,10 +5,16 @@ multimodal_sample_sr.py``, same flags, plus ``--device``).
 ``--multimodal_model_path`` / ``--sr_model_path`` take ``random`` (seeded
 default initialisation) or an original PyTorch ``.pt`` state_dict.
 
+``--save_type npz`` writes one AV batch file instead of per-sample media
+(``evaluation/npz_batch.py``: uint8 ``arr_0`` SR video, ``audio``, the fps
+and the pre-SR ``video_base``); ``--run_eval --ref_path <dir or .npz>``
+then scores the samples with ``evaluation.eval_multimodal`` on the same
+device.
+
 On several GPUs: ``torchrun --nproc_per_node N ... --n_sample_data N``.
 ``--batch_size`` is the global batch, split over the N processes; rank 0
 gathers the samples and writes the same files as a one-process run at the
-same seed.  The
+same seed (and alone evaluates them).  The
 default device is ``cuda``; without a CUDA device the script stops unless
 ``--device cpu`` is given.
 
@@ -23,19 +29,20 @@ import os
 import time
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from .. import configs
 from ..configs import add_dict_to_argparser, args_to_dict
 from ..data import media
+from ..evaluation import eval_multimodal
+from ..evaluation.npz_batch import save_av_npz_batch
 from ..models.mm_unet import MultimodalUNet
 from ..parallel import all_gather_rows, process_data_shard, setup_dist
 from ..sampling import build_base_sampler, build_sr_sampler, sample_base_and_sr
 from ..utils import logger
 from ..utils.seeds import derive_seed
 from ..weights import load_reference_checkpoint
-
-NOT_PORTED = "not ported yet; see ROADMAP.md §1 (evaluation)"
 
 # The flagship configuration: the model and sampler flags of the reference
 # launch script (ssh_scripts/multimodal_sample_sr.sh), batch 1, one clip.
@@ -136,12 +143,9 @@ def build_pipeline(args, device: torch.device):
 def main(argv=None) -> Dict[str, Any]:
     """Run the CLI; returns the written paths (rank 0's; none on the other
     ranks), the last batch's samples (numpy; the whole batch, gathered
-    on every rank) and the stage wall times of each batch."""
+    on every rank), the stage wall times of each batch, and with
+    ``--run_eval`` the metrics (rank 0's)."""
     args = create_argparser().parse_args(argv)
-    if args.save_type == "npz":
-        raise NotImplementedError(f"--save_type npz (needs evaluation/) is {NOT_PORTED}")
-    if args.run_eval:
-        raise NotImplementedError(f"--run_eval (evaluation/) is {NOT_PORTED}")
     device = setup_dist(args.device)
     rank, world = process_data_shard()
     if args.n_sample_data != world:
@@ -159,6 +163,8 @@ def main(argv=None) -> Dict[str, Any]:
 
     n_batches = (args.sample_num + args.batch_size - 1) // args.batch_size
     paths, timings, out = [], [], {}
+    # --save_type npz: the batches are gathered into one batch file
+    npz_accum = {"video": [], "audio": [], "base": []} if args.save_type == "npz" else None
     idx = 0
     for b in range(n_batches):
         t = {}
@@ -172,7 +178,11 @@ def main(argv=None) -> Dict[str, Any]:
         out = {k: v.float().cpu().numpy() for k, v in out.items()}
         t["batch_s"] = time.perf_counter() - t0
         timings.append(t)
-        if rank == 0:  # the other ranks' rows are gathered here
+        if npz_accum is not None:
+            npz_accum["video"].append(out["sr_video"])
+            npz_accum["audio"].append(out["audio"])
+            npz_accum["base"].append(out["video"])
+        elif rank == 0:  # the other ranks' rows are gathered here
             for i in range(args.batch_size):
                 base_path = os.path.join(args.output_dir, f"sample_{idx + i:05d}")
                 paths.extend(
@@ -186,7 +196,23 @@ def main(argv=None) -> Dict[str, Any]:
                 )
         idx += args.batch_size
         log.log(f"batch {b + 1}/{n_batches} written ({idx} samples): {t}")
-    return {"paths": [p for p in paths if p], "samples": out, "timings": timings}
+
+    sample_path, metrics = args.output_dir, None
+    if npz_accum is not None and rank == 0:
+        sample_path = save_av_npz_batch(
+            os.path.join(args.output_dir, f"{args.sample_fn}_samples_{idx}.npz"),
+            np.concatenate(npz_accum["video"]),
+            np.concatenate(npz_accum["audio"]),
+            video_fps=args.video_fps,
+            audio_fps=args.audio_fps,
+            extra_arrays={"video_base": np.concatenate(npz_accum["base"]).astype(np.float32)},
+        )
+        paths.append(sample_path)
+        log.log(f"npz batch written: {sample_path}")
+    if args.run_eval and args.ref_path and rank == 0:
+        metrics = eval_multimodal(args.ref_path, sample_path, device=device)
+        log.log(f"eval: {metrics}")
+    return {"paths": [p for p in paths if p], "samples": out, "timings": timings, "metrics": metrics}
 
 
 if __name__ == "__main__":

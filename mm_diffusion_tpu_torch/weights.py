@@ -397,3 +397,124 @@ def load_reference_checkpoint(model: nn.Module, path: str) -> None:
     if not isinstance(sd, dict) or not all(isinstance(v, torch.Tensor) for v in sd.values()):
         raise ValueError(f"{path} does not hold a state_dict of tensors")
     model.load_state_dict(sd, strict=True)
+
+
+# -- the evaluation networks (JAX -> port) ----------------------------------------
+#
+# Each inverts the JAX package's converter of the original checkpoint
+# (``mm_diffusion_tpu/evaluation/``: ``i3d.convert_torch_i3d``,
+# ``audioclip.convert_audioclip_audio_tower``, ``clip_model.convert_clip_visual``
+# and ``convert_clip_text``): a flax ``{"params", "batch_stats"}`` tree of
+# numpy arrays in, the port module's ``state_dict`` out (BatchNorm's
+# ``num_batches_tracked`` aside, which nothing reads in eval).
+
+
+def _conv3d(k):  # [kT, kH, kW, I, O] -> [O, I, kT, kH, kW]
+    return np.transpose(k, (4, 3, 0, 1, 2))
+
+
+def _batch_norm(out: _Out, prefix: str, p: Params, s: Params):
+    out[f"{prefix}.weight"] = p["bn"]["scale"]
+    out[f"{prefix}.bias"] = p["bn"]["bias"]
+    out[f"{prefix}.running_mean"] = s["bn"]["mean"]
+    out[f"{prefix}.running_var"] = s["bn"]["var"]
+
+
+def i3d_state_dict_from_jax(variables: Params) -> Dict[str, torch.Tensor]:
+    """Flax ``InceptionI3d`` variables -> the port's ``InceptionI3d``."""
+    from .evaluation.i3d import INCEPTION_CFG
+
+    params, stats = variables["params"], variables["batch_stats"]
+    units = [((n,), n) for n in ("Conv3d_1a_7x7", "Conv3d_2b_1x1", "Conv3d_2c_3x3", "logits")]
+    units += [((m, b), f"{m}.{b}") for m in INCEPTION_CFG for b in ("b0", "b1a", "b1b", "b2a", "b2b", "b3b")]
+    out = _Out()
+    for path, prefix in units:
+        p, s = params, stats
+        for key in path:
+            p, s = p[key], s.get(key, {})
+        out[f"{prefix}.conv3d.weight"] = _conv3d(p["conv3d"]["kernel"])
+        if "bias" in p["conv3d"]:
+            out[f"{prefix}.conv3d.bias"] = p["conv3d"]["bias"]
+        if "bn" in p:
+            _batch_norm(out, f"{prefix}.bn", p, s)
+    return out.sd
+
+
+def audioclip_audio_state_dict_from_jax(variables: Params) -> Dict[str, torch.Tensor]:
+    """Flax ``ESResNeXtFBSP`` variables -> the port's tower (the keys of
+    ``AudioCLIP-Full-Training.pt`` without its ``audio.`` prefix)."""
+    from .evaluation.audioclip import LAYERS
+
+    params, stats = variables["params"], variables["batch_stats"]
+    out = _Out()
+    for name in ("m", "fb", "fc"):
+        out[f"fbsp.{name}"] = params[f"fbsp_{name}"]
+    out["conv1.weight"] = _conv2d(params["conv1"]["kernel"])
+    _batch_norm(out, "bn1", params["bn1"], stats["bn1"])
+    for li, blocks in enumerate(LAYERS):
+        for bi in range(blocks):
+            p, s, prefix = params[f"layer{li + 1}_{bi}"], stats[f"layer{li + 1}_{bi}"], f"layer{li + 1}.{bi}"
+            for ci in (1, 2, 3):
+                out[f"{prefix}.conv{ci}.weight"] = _conv2d(p[f"conv{ci}"]["kernel"])
+                _batch_norm(out, f"{prefix}.bn{ci}", p[f"bn{ci}"], s[f"bn{ci}"])
+            if "downsample_conv" in p:
+                out[f"{prefix}.downsample.0.weight"] = _conv2d(p["downsample_conv"]["kernel"])
+                _batch_norm(out, f"{prefix}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+    for ai in range(1, 6):
+        if f"att{ai}" not in params:
+            continue
+        p, s = params[f"att{ai}"], stats[f"att{ai}"]
+        for conv in ("conv_depth", "conv_point"):
+            out[f"att{ai}.{conv}.weight"] = _conv2d(p[conv]["kernel"])
+            out[f"att{ai}.{conv}.bias"] = p[conv]["bias"]
+        _batch_norm(out, f"att{ai}.bn", p["bn"], s["bn"])
+    _linear(out, "fc", params["fc"])
+    return out.sd
+
+
+def clip_visual_state_dict_from_jax(variables: Params, layers=(3, 4, 6, 3),
+                                    prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flax ``CLIPVisualResNet`` variables -> the port's (CLIP's ``visual.*``
+    keys when ``prefix`` is ``"visual."``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out = _Out()
+    for i in (1, 2, 3):
+        out[f"{prefix}conv{i}.weight"] = _conv2d(params[f"conv{i}"]["kernel"])
+        _batch_norm(out, f"{prefix}bn{i}", params[f"bn{i}"], stats[f"bn{i}"])
+    for li, blocks in enumerate(layers):
+        for bi in range(blocks):
+            p, s, tp = params[f"layer{li + 1}_{bi}"], stats[f"layer{li + 1}_{bi}"], f"{prefix}layer{li + 1}.{bi}"
+            for ci in (1, 2, 3):
+                out[f"{tp}.conv{ci}.weight"] = _conv2d(p[f"conv{ci}"]["kernel"])
+                _batch_norm(out, f"{tp}.bn{ci}", p[f"bn{ci}"], s[f"bn{ci}"])
+            if "downsample_conv" in p:
+                out[f"{tp}.downsample.0.weight"] = _conv2d(p["downsample_conv"]["kernel"])
+                _batch_norm(out, f"{tp}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+    pool = params["attnpool"]
+    out[f"{prefix}attnpool.positional_embedding"] = pool["positional_embedding"]
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _linear(out, f"{prefix}attnpool.{proj}", pool[proj])
+    return out.sd
+
+
+def clip_text_state_dict_from_jax(variables: Params, layers: int = 12) -> Dict[str, torch.Tensor]:
+    """Flax ``CLIPTextEncoder`` variables -> the port's (CLIP's top-level
+    text keys)."""
+    params = variables["params"]
+    out = _Out()
+    out["token_embedding.weight"] = params["token_embedding"]["embedding"]
+    out["positional_embedding"] = params["positional_embedding"]
+    out["ln_final.weight"] = params["ln_final"]["scale"]
+    out["ln_final.bias"] = params["ln_final"]["bias"]
+    out["text_projection"] = params["text_projection"]
+    for i in range(layers):
+        p, tp = params[f"resblock_{i}"], f"transformer.resblocks.{i}"
+        for ln in ("ln_1", "ln_2"):
+            out[f"{tp}.{ln}.weight"] = p[ln]["scale"]
+            out[f"{tp}.{ln}.bias"] = p[ln]["bias"]
+        out[f"{tp}.attn.in_proj_weight"] = _dense(p["attn_in"]["kernel"])
+        out[f"{tp}.attn.in_proj_bias"] = p["attn_in"]["bias"]
+        _linear(out, f"{tp}.attn.out_proj", p["attn_out"])
+        _linear(out, f"{tp}.mlp.c_fc", p["c_fc"])
+        _linear(out, f"{tp}.mlp.c_proj", p["c_proj"])
+    return out.sd

@@ -24,7 +24,7 @@ PORT = REPO / "mm_diffusion_tpu_torch"
 
 PROBE = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "tensorflow"):
     sys.modules[name] = None  # any import of them raises ImportError
 
 import torch
@@ -112,8 +112,21 @@ bench_attn_variants.main(["--device", "cpu", "--small", "--replays", "1"])
 bench_skip_conv.main(["--device", "cpu", "--small", "--replays", "1"])
 conv_chw_spike.main(["gemm", "--device", "cpu", "--small", "--replays", "1"])
 
+import os, tempfile
+import numpy as np
+from mm_diffusion_tpu_torch.evaluation import eval_multimodal
+from mm_diffusion_tpu_torch.evaluation.npz_batch import save_av_npz_batch
+work = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+# 44.1 kHz, the protocol's rate: scipy's resampler probes sys.modules["jax"], which the block sets to None
+sets = [save_av_npz_batch(os.path.join(work, name), rng.uniform(-1, 1, (2, 3, 16, 16, 3)),
+                          rng.uniform(-1, 1, (2, 2205)), 10, 44100) for name in ("real", "fake")]
+metrics = eval_multimodal(*sets, eval_num=2, batch_size=2, device="cpu")
+assert metrics["protocol"] == "fallback" and all(np.isfinite(metrics[k]) for k in ("fvd", "kvd", "fad"))
+
 loaded = [m for m, mod in sys.modules.items()
-          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax") and mod is not None]
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "tensorflow")
+          and mod is not None]
 assert not loaded, loaded
 jax_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "mm_diffusion_tpu")
 print("MODULES", len(names))
@@ -145,6 +158,14 @@ NEW_MODULES = {
     "mm_diffusion_tpu_torch.parallel.bootstrap",
     "mm_diffusion_tpu_torch.parallel.mesh",
     "mm_diffusion_tpu_torch.utils.seeds",
+    # the evaluation layer and its CLIs; a tiny eval_multimodal runs on the
+    # fallback route with cv2, PIL and tensorflow blocked too
+    *(f"mm_diffusion_tpu_torch.evaluation.{m}" for m in (
+        "audio_embed", "audioclip", "c3d", "clip_model", "common", "evaluator", "graphdef", "i3d",
+        "image_eval", "inception_score", "metrics", "npz_batch", "resize", "tf_bundle")),
+    "mm_diffusion_tpu_torch.scripts.eval",
+    "mm_diffusion_tpu_torch.scripts.image_eval",
+    "mm_diffusion_tpu_torch.scripts.video_is",
 }
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import)\s+mm_diffusion_tpu(\.|\s|$)", re.M)

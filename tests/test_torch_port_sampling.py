@@ -245,7 +245,7 @@ def test_cli_writes_samples_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,error,match", [
-    ("--save_type", "npz", NotImplementedError, "ROADMAP"),
+    # --save_type npz and --run_eval run (tests/test_torch_port_eval_pipeline.py);
     # --n_sample_data 2 samples on 2 processes (tests/test_torch_port_parallel_cli.py);
     # a run of one process refuses it with the launch line to use
     ("--n_sample_data", "2", ValueError, "torchrun --nproc_per_node 2"),
