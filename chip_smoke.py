@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # all phases, one CUDA device
 
 Phases, each printed as it runs; any failure exits non-zero:
-  1. toolchain: torch / CUDA versions, nvcc, the card's name and power limit;
-     TF32 off for matmuls and convolutions.
+  1. toolchain: torch / CUDA versions, nvcc, the card's name and power limit,
+     OpenCV's version; TF32 off for matmuls and convolutions.
   2. build: the hand-written kernels from ops/csrc with nvcc (sm_90a),
      timed, with each kernel's registers and spills as ptxas reports them.
   3. kernels vs their plain PyTorch versions on the card, in bf16, at every
@@ -147,6 +147,20 @@ Phases, each printed as it runs; any failure exits non-zero:
      protocol "reference"), image_eval.py (--clip_checkpoint) and
      video_is.py (C3D at the published widths) on random-weight checkpoints
      in the original key layouts: finite metrics, wall seconds, peak memory.
+  12. the bench's batch-8 path (mm_diffusion_tpu_torch/bench.py): 12.1 K1-K3
+     at the base MM-UNet's shapes at batch 8 (N = 128 at T = 1024 / 256 /
+     64, N = 8192 / 2048 / 512 at T = 16, N = 8 at T = 400; the banded
+     shapes at N = 8, shifts 0, the middle and the last of the span)
+     against their plain versions, each timed with its bound (K1 beside
+     SDPA's forward); 12.2 one evaluation of the bench's base MM-UNet at
+     batch 8 against eight batch-1 evaluations of its rows (random
+     non-zero weights, one timestep per row, a fixed shift), in bf16 and
+     in fp32, with K1-K3 launched; 12.3 ``python -m
+     mm_diffusion_tpu_torch.bench`` at the full protocol in a subprocess:
+     both headline lines with finite, positive numbers, the train step
+     and the pipeline run, no probe skipped but the real-data one for
+     want of OpenCV, K1-K3 launched in a base evaluation and K4-K7 in a
+     train step.
 
 The last three lines of standard output are the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
@@ -164,13 +178,18 @@ launches in phases 9.2 and 9.3's training runs, and ``sr_train_ms`` /
 ``audio_train_ms`` with their ``*_bound_ms``, phase 3b's per-call numbers
 summed over the SR and audio training shapes; K1-K3 carry
 ``eval_cli_launches``, their launches in phase 11.2's sampling run with the
-evaluation), the card's ``nvidia-smi`` name and power limit, and
+evaluation, and ``b8_ms``, ``b8_bound_ms`` and ``b8_library_ms`` (K1's
+SDPA; null for K2/K3), phase 12.1's per-call numbers summed over the
+batch-8 shapes, and ``bench_eval_launches``, their launches per base
+evaluation in the bench; K1-K7 carry ``bench_train_step_launches``, their
+launches per train step there), the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -289,10 +308,6 @@ REPLACES = {  # the Pallas kernel bodies in the JAX package
     "banded_attention_bwd[lw=1]": "mm_diffusion_tpu/ops/block_attention.py:792",  # K6
     "banded_attention_bwd[lw>1]": "mm_diffusion_tpu/ops/block_attention.py:877",  # K7
 }
-# One self-attention backward kernel serves K4 and K5: its launches are
-# attributed to K5 for the long sequences that the TPU served with the
-# q-chunked kernel (T = 1024 spatial), to K4 otherwise.
-K5_MIN_T = 513
 
 # Phase 7: the kernels of the fused_attention API (K8) and of the A/B tools
 # (S1-S4), at the hot shapes of ops/fused_attention.py's docstring and of the
@@ -464,6 +479,12 @@ def toolchain() -> str:
     print(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
     print(f"nvidia-smi: {smi}")
     print("TF32: matmul off, cudnn off")
+    try:  # the datasets' decoder: the bench's real-data probe needs it
+        import cv2
+
+        print(f"OpenCV: {cv2.__version__}")
+    except ImportError:
+        print("OpenCV: not installed")
     return smi
 
 
@@ -566,7 +587,7 @@ def kernel_parity():
             check(prev_ok, f"self_attention previous design {label}: err {prev_err}, lse {prev_lse_err}")
             prev_ms = time_ms(lambda: ba._self_attention_previous_cuda(qkv, h, layout))
             prev = f" previous design={prev_ms:.4f} ms (err={prev_err:.3e}, x{ms / prev_ms:.2f})"
-            if t >= K5_MIN_T:
+            if t >= ba.K5_MIN_T:
                 check(ms < prev_ms, f"self_attention {label}: {ms} ms, not faster than the previous design")
         print(
             f"self_attention {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {layout:8s} "
@@ -728,7 +749,7 @@ def backward_parity(forward_summary):
             check(prev_ok, f"self_attention_bwd previous design {label}: err {prev_err}")
             prev_ms = time_ms(lambda: ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout))
             prev = f" previous design={prev_ms:.4f} ms (err={prev_err:.3e}, x{ms / prev_ms:.2f})"
-            if t >= K5_MIN_T:
+            if t >= ba.K5_MIN_T:
                 check(ms < prev_ms, f"self_attention_bwd {label}: {ms} ms, not faster than the previous design")
         scale = ref.float().abs().max().item()
         del ref
@@ -743,7 +764,7 @@ def backward_parity(forward_summary):
             f"library bwd={lib_ms:.4f} ms (fwd+bwd {lib_fwd_bwd_ms:.4f} ms) "
             f"bound={bound[0]:.4f} ms ({bound[1]})" + ("" if main else f" [extra case, not summed; {ran}]")
         )
-        name = "self_attention_bwd[T>512]" if t >= K5_MIN_T else "self_attention_bwd[T<=512]"
+        name = "self_attention_bwd[T>512]" if t >= ba.K5_MIN_T else "self_attention_bwd[T<=512]"
         if main:
             record(name, err, ms, plain_ms, bound, lib_ms, prev_ms)
 
@@ -1027,11 +1048,7 @@ def flagship(tmp: str):
     check(launches["self_attention"] > 0, "self-attention kernel never launched")
     check(windows.get(1, 0) > 0, "banded kernel never launched with lw=1")
     check(sum(v for k, v in windows.items() if k > 1) > 0, "banded kernel never launched with lw>1")
-    return {
-        "self_attention": launches["self_attention"],
-        "banded_attention[lw=1]": windows.get(1, 0),
-        "banded_attention[lw>1]": sum(v for k, v in windows.items() if k > 1),
-    }
+    return {k: v for k, v in ba.kernel_launches().items() if "_bwd" not in k}
 
 
 TRAIN_FLAGS = (  # the bench's training config (bench.py), synthetic data
@@ -1144,7 +1161,7 @@ def training(tmp: str):
           f"peak device memory {peak_gib:.2f} GiB (max_memory_allocated); CLI wall {wall:.1f} s")
     print(f"launches over the run: {launches}; banded forward by window {banded_fwd}; "
           f"self backward by T {self_bwd}; banded backward by window {banded_bwd}")
-    counts = path_counts()
+    counts = ba.kernel_launches()
     for name, n in counts.items():
         check(n > 0, f"{name} never launched in the training run")
     del loop
@@ -1579,8 +1596,10 @@ def conditional_flags():
 def bwd_kernel_name(kind, key):
     """The JSON name of a backward launch: self by sequence length (K4 /
     K5), banded by window (K6 / K7)."""
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
     if kind == "self":
-        return "self_attention_bwd[T>512]" if key >= K5_MIN_T else "self_attention_bwd[T<=512]"
+        return "self_attention_bwd[T>512]" if key >= ba.K5_MIN_T else "self_attention_bwd[T<=512]"
     return "banded_attention_bwd[lw=1]" if key == 1 else "banded_attention_bwd[lw>1]"
 
 
@@ -2058,24 +2077,6 @@ DDPM_RESPACING_10 = ("--sample_fn", "ddpm", "--timestep_respacing", "4", "--sr_s
 # read 0-1.2 ms a step on the H100 (torch 2.11).
 
 
-def path_counts():
-    """K1-K7's launches since the counters were last set to 0, by kernel
-    (the training run's names of phase 6)."""
-    from mm_diffusion_tpu_torch.ops import block_attention as ba
-
-    self_bwd, banded_bwd = dict(ba.SELF_BWD_LENGTHS), dict(ba.BANDED_BWD_WINDOWS)
-    banded_fwd = dict(ba.BANDED_WINDOWS)
-    return {
-        "self_attention": ba.LAUNCHES["self_attention"],
-        "banded_attention[lw=1]": banded_fwd.get(1, 0),
-        "banded_attention[lw>1]": sum(v for k, v in banded_fwd.items() if k > 1),
-        "self_attention_bwd[T<=512]": sum(v for k, v in self_bwd.items() if k < K5_MIN_T),
-        "self_attention_bwd[T>512]": sum(v for k, v in self_bwd.items() if k >= K5_MIN_T),
-        "banded_attention_bwd[lw=1]": banded_bwd.get(1, 0),
-        "banded_attention_bwd[lw>1]": sum(v for k, v in banded_bwd.items() if k > 1),
-    }
-
-
 def parallel_step_run(mode: str, work: str):
     """One rank's run of phases 10.1 (``mode`` "ddp") / 10.2 ("fsdp"), or
     the one-rank batch-4 reference ("one", no process group): the checked
@@ -2121,7 +2122,7 @@ def parallel_step_run(mode: str, work: str):
     ba.reset_launch_counts()
     metrics = step(state, local_batch, t=t, noise=noise)
     torch.cuda.synchronize()
-    counts = path_counts()
+    counts = ba.kernel_launches()
     grad = torch.cat([full_tensor(p.grad).reshape(-1).float().cpu() for p in model.parameters()])
     opt_state = [v for st in state.optimizer.opt.state.values() for v in st.values() if v.dim() > 0]
     held = list(model.parameters()) + opt_state + list(state.ema["0.9999"].values())
@@ -2630,9 +2631,7 @@ def eval_sampling_cli(tmp: str):
     finally:
         cli.eval_multimodal = orig
     wall = time.perf_counter() - t0
-    counts = {"self_attention": ba.LAUNCHES["self_attention"],
-              "banded_attention[lw=1]": ba.BANDED_WINDOWS.get(1, 0),
-              "banded_attention[lw>1]": sum(v for k, v in ba.BANDED_WINDOWS.items() if k > 1)}
+    counts = {k: v for k, v in ba.kernel_launches().items() if "_bwd" not in k}
     (path,) = result["paths"]
     with np.load(path) as z:
         layout = {k: (str(z[k].dtype), z[k].shape) for k in z.files}
@@ -2705,6 +2704,214 @@ def eval_clis(tmp: str, sample: str, real: str):
     return out
 
 
+# Phase 12: the bench's batch-8 path (mm_diffusion_tpu_torch/bench.py, its
+# FLAGSHIP protocol): 12.1 K1-K3 at the base MM-UNet's shapes at batch 8
+# (the sampler's N times 8; the SR U-Net's shapes do not depend on the
+# batch), 12.2 one batch-8 evaluation against eight batch-1 evaluations of
+# its rows, 12.3 the bench itself at the full protocol.
+B8 = 8
+B8_SELF_SHAPES = [(label, n * B8, t, c, h, layout) for label, n, t, c, h, layout in SELF_SHAPES
+                  if label.startswith("mm ")]
+B8_BANDED_SHAPES = [(label, B8, f, tq, tk, c, h, lw) for label, f, tq, tk, c, h, lw in BANDED_SHAPES]
+# 12.2: the RS-MMA shift at every shifting site (the last of the window-8
+# span, where its window wraps) and each row's timestep.
+B8_SHIFT = 8
+B8_TIMESTEPS = (0, 130, 260, 390, 520, 650, 780, 999)
+# 12.2's limits: max over rows and both outputs of the relative L2 between
+# the batch-8 and the batch-1 evaluation on the card.  H100 readings:
+# bf16 1.260e-2 (the same in two runs), fp32 with TF32 off 3.265e-4.  The
+# two evaluations first part at the first ResBlock's conv (bf16, 1.4e-4)
+# or the time embedding's linear (fp32, 1.2e-7), where cuDNN and cuBLAS
+# choose their kernels by the batch, and the random-weight network grows
+# that gap layer by layer to its output.  Each limit leaves 3-4x over its
+# reading; a row or offset fault of a kernel at a large N moves a row by O(1).
+B8_ROW_REL_L2_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
+BENCH_TIMEOUT_S = 600
+# the real-data probe's numbers, null where it is skipped for want of OpenCV
+BENCH_REAL_DATA_KEYS = {"train_steps_per_sec_real_data", "train_data_loader_batches_per_sec",
+                        "host_to_device_MBps"}
+
+
+def batch8_kernels(summary):
+    """Phase 12.1: K1-K3 at the batch-8 shapes against their plain versions
+    (FORWARD_TOL / LSE_TOL; the banded shifts 0, the middle and the last of
+    the span), each shape timed with its bound and, for K1, SDPA's forward.
+    Errors go into ``summary``; returns {kernel: {"b8_ms", "b8_bound_ms",
+    "b8_library_ms"}} summed over the kernel's shapes."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    phase(f"12.1 K1-K3 at the bench's batch-{B8} shapes vs plain versions (bf16; out {ba.FORWARD_TOL}, "
+          f"lse {ba.LSE_TOL})")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    sums = {}
+
+    def add(name, err, ms, bound, lib_ms):
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], err)
+        d = sums.setdefault(name, {"b8_ms": 0.0, "b8_bound_ms": 0.0, "b8_library_ms": 0.0})
+        d["b8_ms"] += ms
+        d["b8_bound_ms"] += bound[0]
+        d["b8_library_ms"] = None if lib_ms is None else d["b8_library_ms"] + lib_ms
+
+    for label, n, t, c, h, layout in B8_SELF_SHAPES:
+        qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+        (out, lse), ran = routed_call("self_attention", c // h, lambda: ba.self_attention_cuda(qkv, h, layout))
+        err, lse_err, ok = self_forward_check(qkv, h, layout, out, lse)
+        check(ok, f"self_attention {label} batch {B8}: err {err}, lse {lse_err}")
+        ms = time_ms(lambda: ba.self_attention_cuda(qkv, h, layout))
+        lib_ms = library_attention_ms(packed_views(layout, h), [qkv])
+        bound = bound_ms(*self_attention_work(n, t, c, h))
+        print(f"self_attention {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h} err={err:.3e} lse_err={lse_err:.3e} "
+              f"kernel={ms:.4f} ms library (SDPA fwd)={lib_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]}) "
+              f"[{ran}]")
+        add("self_attention", max(err, lse_err), ms, bound, lib_ms)
+        del qkv, out, lse
+        torch.cuda.empty_cache()
+
+    for label, n, f, tq, tk, c, h, lw in B8_BANDED_SHAPES:
+        q_src = torch.randn((n, f, tq, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+        kv_src = torch.randn((n, f, tk, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+        shifts = sorted({0, (f - lw) // 2, f - lw})
+        worst = 0.0
+        for s in shifts:
+            (out, lse), ran = routed_call(
+                "banded_attention", c // h, lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
+            err, lse_err, ok = banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse)
+            check(ok, f"banded {label} batch {B8} shift {s}: err {err}, lse {lse_err}")
+            worst = max(worst, err, lse_err)
+        s = shifts[-1]
+        ms = time_ms(lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
+        bound = bound_ms(*banded_work(n, f, tq, tk, c, h, lw))
+        print(f"banded_attention {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} lw={lw:2d} "
+              f"shifts={shifts} err={worst:.3e} kernel={ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})")
+        add("banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]", worst, ms, bound, None)
+    for name, v in sums.items():
+        print(f"{name} at batch {B8}, summed: {v}")
+    return sums
+
+
+@contextlib.contextmanager
+def row0_outputs(model):
+    """Record row 0 of every submodule's tensor output, in call order, into
+    the last dict of the yielded list (the caller appends a fresh dict to
+    start another pass); the hooks go on exit."""
+    import torch
+
+    seen = [{}]
+
+    def hook(name):
+        def record(module, args, out):
+            if torch.is_tensor(out):
+                seen[-1].setdefault(name, out[:1].float().clone())
+        return record
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules() if n]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def batch8_eval():
+    """Phase 12.2: the bench's base MM-UNet (random non-zero weights) on the
+    card at batch 8 against eight batch-1 evaluations of the same rows: the
+    same weights, inputs, timesteps and shift; in bf16 (the bench's path)
+    and in fp32 (TF32 off), whose gap is rounding alone."""
+    import dataclasses
+
+    import torch
+
+    from mm_diffusion_tpu_torch.bench import FLAGSHIP
+    from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    phase(f"12.2 the bench's base MM-UNet: one batch-{B8} evaluation vs {B8} batch-1 evaluations of its rows "
+          f"(on the card, shift {B8_SHIFT}; max row rel L2 {B8_ROW_REL_L2_TOL})")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(42)
+    f, c, h, w = FLAGSHIP.base.video_size
+    video = torch.randn((B8, f, h, w, c), generator=g).to(dev)
+    audio = torch.randn((B8, FLAGSHIP.base.audio_size[1], FLAGSHIP.base.audio_size[0]), generator=g).to(dev)
+    t = torch.tensor(B8_TIMESTEPS, device=dev)
+    for dtype, tol in B8_ROW_REL_L2_TOL.items():
+        model = randomize_(MultimodalUNet(dataclasses.replace(FLAGSHIP.base, dtype=dtype)), seed=41)
+        model.to(dev).eval()
+        one = lambda i: model(video[i : i + 1], audio[i : i + 1], t[i : i + 1], shift=B8_SHIFT)  # noqa: E731
+        with torch.inference_mode(), row0_outputs(model) as seen:
+            ba.reset_launch_counts()
+            v8, a8 = model(video, audio, t, shift=B8_SHIFT)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in ba.kernel_launches().items() if "_bwd" not in k}
+            seen.append({})
+            rows = [one(0)]
+        with torch.inference_mode():
+            rows += [one(i) for i in range(1, B8)]
+        parting = [(name, rel_l2(x, seen[1][name])) for name, x in seen[0].items()]
+        first = next(((n, e) for n, e in parting if e > 0), None)
+        print(f"{dtype}: row 0's module outputs, batch {B8} vs batch 1: the first to differ (call order) "
+              f"{first}, the last {parting[-1]}")
+        errs = {key: [rel_l2(full[i : i + 1].float().cpu(), one[k].float().cpu()) for i, one in enumerate(rows)]
+                for k, (key, full) in enumerate((("video", v8), ("audio", a8)))}
+        worst = max(max(e) for e in errs.values())
+        for key, e in errs.items():
+            print(f"{dtype} {key}: per-row rel L2 batch {B8} vs batch 1: " + " ".join(f"{x:.3e}" for x in e))
+        print(f"{dtype}: max {worst:.3e} (tolerance {tol}); launches of the batch-{B8} evaluation {launches}")
+        check(all(torch.isfinite(x).all() for x in (v8, a8)), f"{dtype}: non-finite batch-{B8} output")
+        check(worst <= tol, f"{dtype}: batch-{B8} evaluation vs batch 1: {worst}")
+        for name, n in launches.items():
+            check(n > 0, f"{dtype}: {name} never launched in the batch-{B8} evaluation")
+        del model, v8, a8, rows
+        torch.cuda.empty_cache()
+
+
+def bench_run():
+    """Phase 12.3: ``python -m mm_diffusion_tpu_torch.bench`` at the full
+    protocol in a subprocess: both headline lines parse with finite,
+    positive numbers, the train step and the pipeline ran, no probe skipped
+    but the real-data one for want of OpenCV (its numbers null then, and
+    only then), and K1-K3 launched in a base evaluation and K4-K7 in a
+    train step.  Returns the launches."""
+    phase("12.3 python -m mm_diffusion_tpu_torch.bench (the FLAGSHIP protocol: base batch 8 at 20 NFE, "
+          "SR 16 frames at 256^2 ddim25, train step batch 4, the pipeline)")
+    out, wall = run_command([sys.executable, "-m", "mm_diffusion_tpu_torch.bench"], timeout=BENCH_TIMEOUT_S,
+                            label="bench")
+    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    heads = [x for x in lines if "metric" in x]
+    (launch_line,) = [x for x in lines if "launches" in x]
+    check(len(heads) == 2 and heads[0]["detail"]["stage"] != "final" and heads[1]["detail"]["stage"] == "final",
+          f"bench headline lines: {[x.get('detail', {}).get('stage') for x in heads]}")
+    for line in heads:
+        print(json.dumps(line))
+    d = heads[1]["detail"]
+    for key in ("pipeline_pairs_per_sec", "train_step_ms_b4_remat", "train_examples_per_sec",
+                "pipeline_base_s", "pipeline_sr_s"):
+        check(d.get(key) is not None, f"bench: {key} is null")
+    skipped = d["skipped_probes"] or {}
+    check(set(skipped) <= {"train_real_data"} and all("OpenCV" in r and not r.startswith("error:")
+                                                        for r in skipped.values()),
+          f"bench skipped probes: {skipped}")
+    nullable = BENCH_REAL_DATA_KEYS if skipped else set()
+    for line in heads:
+        numbers = {"value": line["value"], "vs_baseline": line["vs_baseline"],
+                   **{k: v for k, v in line["detail"].items() if k not in nullable | {"skipped_probes"}
+                      and (v is None or isinstance(v, (int, float)) and not isinstance(v, bool))}}
+        bad = {k: v for k, v in numbers.items() if v is None or not (math.isfinite(v) and v > 0)}
+        check(not bad, f"bench ({line['detail']['stage']}): not finite and positive: {bad}")
+    launches = launch_line["launches"]
+    print(f"launches per base evaluation (batch {launch_line['batch']}): {launches['base_eval']}; per train "
+          f"step (batch {launch_line['train_batch']}): {launches['train_step']}; bench wall {wall:.1f} s")
+    check(launches["train_step"] is not None, "bench: no train-step launches")
+    for name in ("self_attention", "banded_attention[lw=1]", "banded_attention[lw>1]"):
+        check(launches["base_eval"][name] > 0, f"bench: {name} never launched in a base evaluation")
+    for name, n in launches["train_step"].items():
+        check(n > 0, f"bench: {name} never launched in a train step")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # one rank of phase 10, started by the script itself through torchrun
@@ -2756,6 +2963,9 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             sample_npz, real_npz, eval_launches = eval_sampling_cli(tmp)
             eval_clis(tmp, sample_npz, real_npz)
+        b8_cases = batch8_kernels(summary)
+        batch8_eval()
+        bench_launches = bench_run()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2780,6 +2990,11 @@ def main() -> int:
                 "single_video_train_launches": single_launches["video"][name],
                 "single_audio_train_launches": single_launches["audio"][name]} if name in sr_launches else {}),
             **slice_cases.get(name, {}),
+            **b8_cases.get(name, {}),
+            **({"bench_eval_launches": bench_launches["base_eval"][name]}
+               if name in bench_launches["base_eval"] else {}),
+            **({"bench_train_step_launches": bench_launches["train_step"][name]}
+               if name in bench_launches["train_step"] else {}),
         }
         for name in REPLACES
     ]

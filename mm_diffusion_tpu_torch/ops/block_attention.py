@@ -132,6 +132,27 @@ def reset_launch_counts() -> None:
         counter.clear()
 
 
+# One self-attention backward kernel serves K4 and K5: its launches count as
+# K5's at the lengths that the TPU served with the q-chunked kernel (T = 1024
+# spatial), as K4's below.
+K5_MIN_T = 513
+
+
+def kernel_launches() -> dict:
+    """K1-K7's launches since :func:`reset_launch_counts`, by the TPU kernel
+    each replaces: the banded forward (K2 / K3) and backward (K7 / K6) by
+    window, the self-attention backward (K5 / K4) by sequence length."""
+    return {
+        "self_attention": LAUNCHES["self_attention"],
+        "banded_attention[lw=1]": BANDED_WINDOWS.get(1, 0),
+        "banded_attention[lw>1]": sum(v for k, v in BANDED_WINDOWS.items() if k > 1),
+        "self_attention_bwd[T<=512]": sum(v for k, v in SELF_BWD_LENGTHS.items() if k < K5_MIN_T),
+        "self_attention_bwd[T>512]": sum(v for k, v in SELF_BWD_LENGTHS.items() if k >= K5_MIN_T),
+        "banded_attention_bwd[lw=1]": BANDED_BWD_WINDOWS.get(1, 0),
+        "banded_attention_bwd[lw>1]": sum(v for k, v in BANDED_BWD_WINDOWS.items() if k > 1),
+    }
+
+
 def kernel_head_dim(d: int, built: Tuple[int, ...] = HEAD_DIMS) -> int:
     """The built head dim that head dim ``d`` runs on: the smallest of
     ``built`` at or above ``d``.  ``d`` must be a multiple of 8 in
