@@ -1,0 +1,3 @@
+"""Share of the training trace with the device idle."""
+
+from benchmark.metrics.common import device_idle as read  # noqa: F401
