@@ -7,10 +7,14 @@ the chain of base and SR (counterpart of
 Randomness is explicit: a device ``torch.Generator`` for the noise, and a
 CPU generator from which the MM-UNet draws each RS-MMA window shift on the
 host, so no draw waits on the device.
+
+Each call of a base or SR sampler is span ``sample.call`` and each model
+evaluation in it span ``sample.nfe`` (``utils/tracing.py``; off by default).
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -26,10 +30,12 @@ from .samplers import (
     noise_schedule_from_diffusion,
     p_sample_loop,
 )
+from .utils import tracing
 from .utils.seeds import derive_seed
 from .utils.timing import sync
 
 SAMPLE_FNS = ("dpm_solver", "dpm_solver++", "ddpm", "ddim")
+_CALLS = itertools.count()  # the id of each base or SR sampler call's span
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -70,7 +76,8 @@ def mm_raw_model(model, shift_generator: Optional[torch.Generator] = None):
     learn_sigma = model.cfg.video_out_channels == 6
 
     def raw(x, t_model, strip_sigma: bool):
-        v, a = model(x["video"], x["audio"], t_model, shift=shift_generator)
+        with tracing.span("sample.nfe"):
+            v, a = model(x["video"], x["audio"], t_model, shift=shift_generator)
         if strip_sigma and learn_sigma:
             v, a = v[..., : v.shape[-1] // 2], a[..., : a.shape[-1] // 2]
         return {"video": v, "audio": a}
@@ -146,7 +153,8 @@ def build_base_sampler(
 
     @torch.inference_mode()
     def sample(n: int, generator: Optional[torch.Generator] = None, x_T=None, rows=(0, 1)):
-        return run(noise(n, generator) if x_T is None else x_T, generator, rows)
+        with tracing.span("sample.call", next(_CALLS)):
+            return run(noise(n, generator) if x_T is None else x_T, generator, rows)
 
     sample.noise = noise
     return sample
@@ -216,11 +224,16 @@ def build_sr_sampler(
     device = _device(sr_model)
 
     def raw(x, t_model, low_res, strip_sigma: bool):
-        out = sr_model(x, t_model, low_res)
+        with tracing.span("sample.nfe"):
+            out = sr_model(x, t_model, low_res)
         return out[..., : out.shape[-1] // 2] if strip_sigma and learn_sigma else out
 
     @torch.inference_mode()
     def sr(low_res, x_T=None, generator: Optional[torch.Generator] = None):
+        with tracing.span("sample.call", next(_CALLS)):
+            return _sr(low_res, x_T, generator)
+
+    def _sr(low_res, x_T, generator):
         if x_T is None:
             x_T = _randn((low_res.shape[0], size, size, 3), generator, device)
         if sample_fn.startswith("dpm_solver"):

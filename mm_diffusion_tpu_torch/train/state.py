@@ -37,6 +37,7 @@ from ..parallel.mesh import (
     local,
     rank_rows,
 )
+from ..utils import tracing
 from .resample import UniformSampler
 
 Shift = Union[None, int, torch.Generator]
@@ -300,6 +301,11 @@ def make_train_step(
     local batch rows), of which the rank takes its own (``rank_rows``).
     The loss, its quartiles and the sampler update are the global batch's
     (per-example losses all-gathered), the same on every rank.
+
+    The step is span ``train.step`` (id ``state.step``), around
+    ``train.forward`` and ``train.backward`` of each microbatch,
+    ``train.optimizer`` (the global norm and AdamW) and ``train.ema``
+    (``utils/tracing.py``; off by default).
     """
     adapter = adapter or multimodal_adapter(shift)
 
@@ -311,74 +317,79 @@ def make_train_step(
         t: Optional[torch.Tensor] = None,
         noise: Optional[State] = None,
     ) -> Dict[str, torch.Tensor]:
-        par = state.parallel
-        rank, world = par.rank, par.world
-        model = par.module
-        x_all, _ = adapter(model, batch)
-        leaf = _first_leaf(x_all)
-        b, device = leaf.shape[0], leaf.device
-        if b % accum_steps:
-            raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
-        rows = b * world
-        if t is None:
-            t, weights = state.sampler.sample(rows, generator=t_generator)
-        else:
-            t, weights = t.cpu(), torch.ones(rows)
-        if t.shape[0] != rows:
-            raise ValueError(f"t has {t.shape[0]} rows, the global batch {rows}")
-        t_host = t
-        t_mine = _to_device(rank_rows(t, rank, world), device)
-        weights = _to_device(rank_rows(weights, rank, world), device)
-        if noise is None:
-            noise = tree_map(
-                lambda x: torch.randn((rows,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device,
-                                      generator=noise_generator),
-                x_all,
-            )
-        noise = tree_map(lambda x: rank_rows(x, rank, world).to(device), noise)
-
-        state.optimizer.zero_grad()
-        micro = b // accum_steps
-        losses, flat = [], []
-        for i in range(accum_steps):
-            sl = slice(i * micro, (i + 1) * micro)
-            x_start, model_fn = adapter(model, {k: v[sl] for k, v in batch.items()})
-            with par.gradient_sync(i == accum_steps - 1):
-                terms = diffusion.training_losses(
-                    model_fn, x_start, t_mine[sl], noise=tree_map(lambda x: x[sl], noise),
+        with tracing.span("train.step", state.step):
+            par = state.parallel
+            rank, world = par.rank, par.world
+            model = par.module
+            x_all, _ = adapter(model, batch)
+            leaf = _first_leaf(x_all)
+            b, device = leaf.shape[0], leaf.device
+            if b % accum_steps:
+                raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
+            rows = b * world
+            if t is None:
+                t, weights = state.sampler.sample(rows, generator=t_generator)
+            else:
+                t, weights = t.cpu(), torch.ones(rows)
+            if t.shape[0] != rows:
+                raise ValueError(f"t has {t.shape[0]} rows, the global batch {rows}")
+            t_host = t
+            t_mine = _to_device(rank_rows(t, rank, world), device)
+            weights = _to_device(rank_rows(weights, rank, world), device)
+            if noise is None:
+                noise = tree_map(
+                    lambda x: torch.randn((rows,) + tuple(x.shape[1:]), dtype=x.dtype,
+                                          device=x.device, generator=noise_generator),
+                    x_all,
                 )
-                loss = (terms["loss"] * weights[sl]).mean()
-                (loss / accum_steps).backward()
-            losses.append(loss.detach())
-            flat.append(terms["loss"].detach())
-        par.reduce_gradients()
-        flat_loss = torch.cat(flat)
-        loss = torch.stack(losses).mean()
-        if world > 1:
-            flat_loss = all_gather_rows(flat_loss)
-            loss = all_gather_rows(loss.reshape(1)).mean()
+            noise = tree_map(lambda x: rank_rows(x, rank, world).to(device), noise)
 
-        params = state.optimizer.params
-        grad_norm = global_norm([p.grad for p in params])
-        state.optimizer.step(state.step, grad_norm)
-        with torch.no_grad():
-            names_params = dict(state.model.named_parameters())
-            for rate, ema in state.ema.items():
-                r = float(rate)
-                tensors = [local(x) for x in ema.values()]
-                torch._foreach_mul_(tensors, r)
-                torch._foreach_add_(tensors, [local(names_params[n]) for n in ema], alpha=1.0 - r)
-        state.sampler.update(t_host, flat_loss)
+            state.optimizer.zero_grad()
+            micro = b // accum_steps
+            losses, flat = [], []
+            for i in range(accum_steps):
+                sl = slice(i * micro, (i + 1) * micro)
+                with par.gradient_sync(i == accum_steps - 1):
+                    with tracing.span("train.forward"):
+                        x_start, model_fn = adapter(model, {k: v[sl] for k, v in batch.items()})
+                        terms = diffusion.training_losses(
+                            model_fn, x_start, t_mine[sl], noise=tree_map(lambda x: x[sl], noise),
+                        )
+                        loss = (terms["loss"] * weights[sl]).mean()
+                    with tracing.span("train.backward"):
+                        (loss / accum_steps).backward()
+                losses.append(loss.detach())
+                flat.append(terms["loss"].detach())
+            par.reduce_gradients()
+            flat_loss = torch.cat(flat)
+            loss = torch.stack(losses).mean()
+            if world > 1:
+                flat_loss = all_gather_rows(flat_loss)
+                loss = all_gather_rows(loss.reshape(1)).mean()
 
-        metrics = {
-            "loss": loss,
-            "grad_norm": grad_norm,
-            "param_norm": global_norm([p.detach() for p in params]),
-            "lr_step": torch.tensor(float(state.step)),
-        }
-        t_all = t_mine if world == 1 else _to_device(t_host, device)
-        metrics.update(quartile_metrics("loss", t_all, flat_loss, diffusion.num_timesteps))
-        state.step += 1
-        return metrics
+            params = state.optimizer.params
+            with tracing.span("train.optimizer"):
+                grad_norm = global_norm([p.grad for p in params])
+                state.optimizer.step(state.step, grad_norm)
+            with torch.no_grad(), tracing.span("train.ema"):
+                names_params = dict(state.model.named_parameters())
+                for rate, ema in state.ema.items():
+                    r = float(rate)
+                    tensors = [local(x) for x in ema.values()]
+                    torch._foreach_mul_(tensors, r)
+                    torch._foreach_add_(tensors, [local(names_params[n]) for n in ema],
+                                        alpha=1.0 - r)
+            state.sampler.update(t_host, flat_loss)
+
+            metrics = {
+                "loss": loss,
+                "grad_norm": grad_norm,
+                "param_norm": global_norm([p.detach() for p in params]),
+                "lr_step": torch.tensor(float(state.step)),
+            }
+            t_all = t_mine if world == 1 else _to_device(t_host, device)
+            metrics.update(quartile_metrics("loss", t_all, flat_loss, diffusion.num_timesteps))
+            state.step += 1
+            return metrics
 
     return train_step
