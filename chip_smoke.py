@@ -161,8 +161,20 @@ Phases, each printed as it runs; any failure exits non-zero:
      and the pipeline run, no probe skipped but the real-data one for
      want of OpenCV, K1-K3 launched in a base evaluation and K4-K7 in a
      train step.
+  13. the GroupNorm + FiLM + SiLU kernel (ops/group_norm.py): 13.1 one
+     evaluation of each benchmark sampling model (FLAGSHIP's SR U-Net on 16
+     frames at 256^2, the base MM-UNet at batch 8) under inference_mode,
+     every ResBlock and out-head norm on the fused route (the attention
+     norms counted apart), and a train-style forward and backward on the
+     autograd route alone; 13.2 the kernel at each shape 13.1 recorded
+     against its plain version, timed beside its bound, its two-read mode,
+     the plain version and the eager chain, and its name in a profiler
+     trace classified "group norm" by benchmark/trace.py.  Alone:
+     ``python3 -c "import chip_smoke as cs; cs.toolchain(); cs.build();
+     cs.group_norm_kernel()"``.
 
-The last three lines of standard output are the kernels' JSON record
+Standard output ends with phase 13's JSON record (the routes, the largest
+error and the per-evaluation sums), then three lines: the kernels' JSON record
 (launches on the main paths -- K1-K3 in phase 5's sampling run, K4-K7 in
 phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
 graph replay re-runs captured launches without counting them -- and the
@@ -2912,6 +2924,185 @@ def bench_run():
     return launches
 
 
+# Phase 13: the GroupNorm + FiLM + SiLU kernel (ops/group_norm.py) at every
+# shape of one sampling evaluation of the benchmark's two configurations
+# (FLAGSHIP's: the SR U-Net on one clip's 16 frames at 256^2, the base
+# MM-UNet at batch 8), against its plain version at GN_TOL (one bf16 step:
+# both round an fp32 value once, the sums taken in another order).
+GN_SR_FRAMES = 16
+GN_SHIFT = 3  # the RS-MMA shift of 13.1's base evaluation
+
+
+def group_norm_sites():
+    """Phase 13.1: one evaluation of each sampling model on the card under
+    ``inference_mode`` with the kernel's wrapper recording its calls: every
+    ResBlock and out-head norm took the fused route (the attention blocks'
+    norms stay on GroupNorm32, counted by forward hooks), and a train-style
+    forward and backward took none.  Returns ({model: Counter of (shape,
+    groups, FiLM dtype)}, {model: route counts})."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    from mm_diffusion_tpu_torch.bench import FLAGSHIP
+    from mm_diffusion_tpu_torch.models.attention import RSMMACrossAttention, TokenSelfAttention
+    from mm_diffusion_tpu_torch.models.image_unet import ImageSuperResModel
+    from mm_diffusion_tpu_torch.models.layers import GroupNorm32
+    from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
+    from mm_diffusion_tpu_torch.ops import group_norm as gn
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    phase("13.1 GroupNorm + FiLM + SiLU: the routes of one sampling evaluation of each benchmark model, "
+          "and of one train-style forward and backward")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(13)
+    sr = FLAGSHIP.sr
+    base = FLAGSHIP.base
+    f, c, h, w = base.video_size
+    cases = {
+        "sr": (lambda: ImageSuperResModel(sr), lambda m: m(
+            torch.randn((GN_SR_FRAMES, sr.image_size, sr.image_size, 3), generator=g).to(dev),
+            torch.full((GN_SR_FRAMES,), 500, device=dev),
+            torch.rand((GN_SR_FRAMES, sr.image_size // 4, sr.image_size // 4, 3), generator=g).to(dev) * 2 - 1)),
+        "base": (lambda: MultimodalUNet(base), lambda m: m(
+            torch.randn((B8, f, h, w, c), generator=g).to(dev),
+            torch.randn((B8, base.audio_size[1], base.audio_size[0]), generator=g).to(dev),
+            torch.tensor(B8_TIMESTEPS, device=dev), shift=GN_SHIFT)),
+    }
+    real = gn.group_norm_silu_cuda
+    sites, routes = {}, {}
+    for name, (build, run) in cases.items():
+        model = randomize_(build(), seed=43).to(dev).eval()
+        seen = collections.Counter()
+
+        def recording(x, weight, bias, groups, eps=1e-5, film=None, silu=True, _seen=seen):
+            _seen[(tuple(x.shape), groups, None if film is None else str(film[0].dtype).split(".")[-1],
+                   silu)] += 1
+            return real(x, weight, bias, groups, eps, film, silu)
+
+        in_attention = {id(m) for blk in model.modules() if isinstance(blk, (TokenSelfAttention, RSMMACrossAttention))
+                        for m in blk.modules() if isinstance(m, GroupNorm32)}
+        module_calls = collections.Counter()
+        hooks = [m.register_forward_hook(lambda mod, a, o, _k=id(m) in in_attention, _n=n:
+                                         module_calls.update(["attention" if _k else _n]))
+                 for n, m in model.named_modules() if isinstance(m, GroupNorm32)]
+        gn.reset_launch_counts()
+        gn.group_norm_silu_cuda = recording
+        try:
+            with torch.inference_mode():
+                outs = run(model)
+                torch.cuda.synchronize()
+        finally:
+            gn.group_norm_silu_cuda = real
+            for hd in hooks:
+                hd.remove()
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        check(all(torch.isfinite(o).all() for o in outs), f"{name}: non-finite output")
+        attn = module_calls.pop("attention", 0)
+        others = dict(module_calls)
+        routes[name] = dict(gn.ROUTES, attention_norms_on_group_norm32=attn)
+        print(f"{name}: norm calls of one evaluation: {dict(gn.ROUTES)} through group_norm_silu, {attn} "
+              f"attention norms on GroupNorm32; {len(seen)} distinct shapes, kernel launches "
+              f"{gn.LAUNCHES['group_norm_silu']}")
+        check(set(gn.ROUTES) == {"fused"} and gn.ROUTES["fused"] == sum(seen.values())
+              == gn.LAUNCHES["group_norm_silu"], f"{name}: routes {dict(gn.ROUTES)}")
+        check(not others, f"{name}: norms outside the attention blocks ran as modules: {others}")
+        sites[name] = seen
+        del model, outs
+        torch.cuda.empty_cache()
+
+    # Training: grad on, parameters require grad -> every norm on the autograd route.
+    small = dataclasses.replace(base, use_checkpoint=True)
+    model = randomize_(MultimodalUNet(small), seed=44).to(dev).train()
+    gn.reset_launch_counts()
+    v, a = model(torch.randn((1, f, h, w, c), generator=g).to(dev),
+                 torch.randn((1, base.audio_size[1], base.audio_size[0]), generator=g).to(dev),
+                 torch.tensor([500], device=dev), shift=GN_SHIFT)
+    (v.float().square().mean() + a.float().square().mean()).backward()
+    torch.cuda.synchronize()
+    print(f"train-style forward and backward (batch 1, remat): routes {dict(gn.ROUTES)}, kernel launches "
+          f"{gn.LAUNCHES['group_norm_silu']}")
+    check(set(gn.ROUTES) == {"autograd"} and gn.LAUNCHES["group_norm_silu"] == 0,
+          f"training took the kernel: {dict(gn.ROUTES)}")
+    routes["train"] = dict(gn.ROUTES)
+    del model, v, a
+    torch.cuda.empty_cache()
+    return sites, routes
+
+
+def group_norm_kernel():
+    """Phase 13: 13.1's routes, then 13.2: the kernel at each recorded shape
+    against its plain version (GN_TOL), its device ms beside the bound
+    (2 bytes read and 2 written an element, at 3.35 TB/s), its two-read
+    mode's, the plain version's and the eager chain's (GroupNorm32 then
+    SiLU: the library ms), and the kernel's name in a profiler trace in the
+    benchmark's "group norm" kind.  Returns the record printed as JSON."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark.trace import kind_of
+    from mm_diffusion_tpu_torch.models.layers import GroupNorm32
+    from mm_diffusion_tpu_torch.ops import group_norm as gn
+
+    sites, routes = group_norm_sites()
+    phase(f"13.2 GroupNorm + FiLM + SiLU kernel vs plain version at 13.1's shapes (bf16; {gn.GN_TOL})")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    record = {"routes": routes, "max_abs_err": 0.0}
+    for name, seen in sites.items():
+        tot = dict(ms=0.0, two_read_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for (shape, groups, film_dtype, silu), calls in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][0])):
+            n, c = shape[:2]
+            x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+            norm = GroupNorm32(c).to(dev).requires_grad_(False)
+            check(norm.num_groups == groups, f"{shape}: {norm.num_groups} groups, the model had {groups}")
+            with torch.no_grad():
+                norm.weight.copy_(1 + 0.1 * torch.randn(c, generator=g, device=dev))
+                norm.bias.copy_(0.1 * torch.randn(c, generator=g, device=dev))
+            film = None
+            if film_dtype is not None:
+                emb = (0.3 * torch.randn((n, 2 * c), generator=g, device=dev)).to(getattr(torch, film_dtype))
+                film = tuple(emb.chunk(2, dim=-1))
+            args = (x, norm.weight, norm.bias, groups, norm.eps, film, silu)
+            plain = gn.group_norm_silu_reference(*args)
+            err, ok = gn.GN_TOL.check(gn.group_norm_silu_cuda(*args), plain)
+            err2, ok2 = gn.GN_TOL.check(gn._group_norm_silu_two_read_cuda(*args), plain)
+            check(ok and ok2, f"group_norm_silu {shape} groups {groups} film {film_dtype}: err {err} "
+                              f"(two-read {err2})")
+            del plain
+            ms = time_ms(lambda: gn.group_norm_silu_cuda(*args))
+            two_ms = time_ms(lambda: gn._group_norm_silu_two_read_cuda(*args))
+            plain_ms = time_ms(lambda: gn.group_norm_silu_reference(*args))
+            lib_ms = time_ms(lambda: F.silu(norm(x, film=film)) if silu else norm(x, film=film))
+            bound = bound_ms(0, 4 * x.numel() + 8 * c + (4 * n * c if film is not None else 0))
+            print(f"{name} {shape} groups {groups} film {film_dtype} x{calls}: err={max(err, err2):.3e} "
+                  f"kernel={ms:.4f} ms two-read={two_ms:.4f} ms plain={plain_ms:.4f} ms "
+                  f"library (GroupNorm32 + SiLU, eager)={lib_ms:.4f} ms bound={bound[0]:.4f} ms "
+                  f"({100 * bound[0] / ms:.1f}% of it)")
+            record["max_abs_err"] = max(record["max_abs_err"], err, err2)
+            for key, val in (("ms", ms), ("two_read_ms", two_ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bound_ms", bound[0])):
+                tot[key] += calls * val
+            del x, args
+        print(f"{name}: one evaluation's norms: kernel {tot['ms']:.3f} ms, two-read {tot['two_read_ms']:.3f} ms, "
+              f"eager chain {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
+        record[name] = tot
+        torch.cuda.empty_cache()
+
+    (shape, groups, _, _), _ = max(sites["sr"].items(), key=lambda kv: math.prod(kv[0][0]))
+    x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    norm = GroupNorm32(shape[1]).to(dev).requires_grad_(False)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        gn.group_norm_silu_cuda(x, norm.weight, norm.bias, groups)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if "group_norm_silu" in e.name}
+    print(f"profiled kernel names: {sorted(names)} -> kinds {sorted({kind_of(n) for n in names})}")
+    check(names and all(kind_of(n) == "group norm" and gn.KERNEL_NAME in n for n in names),
+          f"kernel names in the trace: {names}")
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # one rank of phase 10, started by the script itself through torchrun
@@ -2966,6 +3157,7 @@ def main() -> int:
         b8_cases = batch8_kernels(summary)
         batch8_eval()
         bench_launches = bench_run()
+        gn_record = group_norm_kernel()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2998,6 +3190,7 @@ def main() -> int:
         }
         for name in REPLACES
     ]
+    print(json.dumps({"group_norm_silu": gn_record}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

@@ -29,8 +29,10 @@ from .layers import (
     GroupNorm32,
     Linear,
     TimeEmbedding,
+    group_norm_silu,
     image_downsample,
     image_upsample,
+    norm_silu_then,
     zero_module,
 )
 from .mm_unet import DTYPES, remat_min_tokens
@@ -135,17 +137,16 @@ class ImageResBlock(nn.Module):
     def forward(self, x, emb):
         if self.up or self.down:
             resample = image_upsample if self.up else image_downsample
-            h = resample(self.in_layers[1](self.in_layers[0](x)))
+            h = resample(group_norm_silu(self.in_layers[0], x))
             x = resample(x)
             h = self.in_layers[2](h)
         else:
-            h = self.in_layers(x)
+            h = norm_silu_then(self.in_layers, x)
         emb_out = self.emb_layers(emb)
-        norm, rest = self.out_layers[0], self.out_layers[1:]
         if self.use_scale_shift_norm:
-            h = rest(norm(h, film=tuple(emb_out.chunk(2, dim=-1))))
+            h = norm_silu_then(self.out_layers, h, film=tuple(emb_out.chunk(2, dim=-1)))
         else:
-            h = rest(norm(h + emb_out[:, :, None, None]))
+            h = norm_silu_then(self.out_layers, h + emb_out[:, :, None, None])
         return self.skip_connection(x) + h
 
 
@@ -255,7 +256,7 @@ class ImageUNet(nn.Module):
         h = self._run(self.middle_block, h, emb)
         for blocks in self.output_blocks:
             h = self._run(blocks, torch.cat([h, hs.pop()], dim=1), emb)
-        return self.out(h).float()
+        return norm_silu_then(self.out, h).float()
 
     def forward(self, x, timesteps, label=None):
         return self.unet_forward(x.permute(0, 3, 1, 2), timesteps, label).permute(0, 2, 3, 1)

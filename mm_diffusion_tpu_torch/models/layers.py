@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.group_norm import group_norm_silu
+
 Film = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -113,6 +115,15 @@ class MMNorm(nn.Module):
 
     def forward(self, x, film: Film = None, channels_last: bool = False):
         return self.GroupNorm(x, film=film, channels_last=channels_last)
+
+
+def norm_silu_then(layers: nn.Sequential, x: torch.Tensor, film: Film = None) -> torch.Tensor:
+    """``layers`` = (norm, SiLU, *rest): ``rest(silu(norm(x, film=film)))``
+    with the norm and the SiLU as one pass (``ops/group_norm.py``)."""
+    h = group_norm_silu(layers[0], x, film)
+    for m in layers[2:]:
+        h = m(h)
+    return h
 
 
 class VideoConv(nn.Module):

@@ -26,6 +26,7 @@ from .layers import (
     VideoConv,
     audio_downsample,
     audio_upsample,
+    norm_silu_then,
     video_downsample,
     video_upsample,
     zero_module,
@@ -260,8 +261,7 @@ class MMResBlock(nn.Module):
     def _out(layers, h, film, add):
         if add is not None:
             h = h + add
-        h = layers[0](h, film=film)
-        return layers[3](layers[2](layers[1](h)))
+        return norm_silu_then(layers, h, film)
 
     def forward(self, video, audio, emb, remat: bool = False):
         if remat:
@@ -278,8 +278,8 @@ class MMResBlock(nn.Module):
 
     def residual(self, video, audio, emb):
         spec = self.spec
-        vh = self.video_in_layers(video)
-        ah = self.audio_in_layers(audio)
+        vh = norm_silu_then(self.video_in_layers, video)
+        ah = norm_silu_then(self.audio_in_layers, audio)
         if spec.down:
             vh, video = video_downsample(vh), video_downsample(video)
             ah, audio = audio_downsample(ah), audio_downsample(audio)
@@ -414,6 +414,6 @@ class MultimodalUNet(nn.Module):
             video, audio = self._run(
                 blocks, torch.cat([video, sv], dim=1), torch.cat([audio, sa], dim=1), emb, shift
             )
-        video = self.video_out(video).float().permute(0, 2, 3, 4, 1)
-        audio = self.audio_out(audio).float().transpose(1, 2)
+        video = norm_silu_then(self.video_out, video).float().permute(0, 2, 3, 4, 1)
+        audio = norm_silu_then(self.audio_out, audio).float().transpose(1, 2)
         return video, audio

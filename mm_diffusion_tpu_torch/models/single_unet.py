@@ -34,6 +34,7 @@ from .layers import (
     VideoConv,
     audio_downsample,
     audio_upsample,
+    norm_silu_then,
     video_downsample,
     video_upsample,
     zero_module,
@@ -194,7 +195,7 @@ class SingleResBlock(nn.Module):
 
     def residual(self, x, emb):
         spec = self.spec
-        h = self.in_layers(x)
+        h = norm_silu_then(self.in_layers, x)
         if spec.down:
             down = video_downsample if self.video else audio_downsample
             h, x = down(h), down(x)
@@ -202,11 +203,10 @@ class SingleResBlock(nn.Module):
             up = video_upsample if self.video else audio_upsample
             h, x = up(h), up(x)
         emb_out = self.emb_layers(emb)
-        norm, rest = self.out_layers[0], self.out_layers[1:]
         if self.use_scale_shift_norm:
-            h = rest(norm(h, film=tuple(emb_out.chunk(2, dim=-1))))
+            h = norm_silu_then(self.out_layers, h, film=tuple(emb_out.chunk(2, dim=-1)))
         else:
-            h = rest(norm(h + emb_out.reshape(emb_out.shape + (1,) * (h.dim() - 2))))
+            h = norm_silu_then(self.out_layers, h + emb_out.reshape(emb_out.shape + (1,) * (h.dim() - 2)))
         if spec.out_ch != spec.in_ch:
             x = self.skip_connection(x)
         return x + h
@@ -281,4 +281,4 @@ class SingleModalUNet(nn.Module):
         h = self._run(self.middle_blocks, h, emb)
         for blocks in self.output_blocks:
             h = self._run(blocks, torch.cat([h, skips.pop()], dim=1), emb)
-        return self.out(h).float().movedim(1, -1)
+        return norm_silu_then(self.out, h).float().movedim(1, -1)

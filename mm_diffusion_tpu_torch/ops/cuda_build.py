@@ -38,6 +38,7 @@ SOURCES = (
     "flash_mha.cu",
     "skip_gemm.cu",
     "conv3x3_chw.cu",
+    "group_norm_silu.cu",
 )
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libmmdiff_kernels.so"
@@ -74,6 +75,7 @@ SIGNATURES = {
     "mmdiff_conv3x3_chw": [_P] * 3 + [_I] * 5 + [_P],
     "mmdiff_conv3x3_chw_mma": [_P] * 3 + [_I] * 5 + [_P],
     "mmdiff_channels_last_halo": [_P] * 2 + [_I] * 5 + [_P],
+    "mmdiff_group_norm_silu": [_P] * 6 + [_L] + [_I] * 4 + [_L, _F, _I, _I, _P],
 }
 
 
