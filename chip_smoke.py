@@ -10,7 +10,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      timed, with each kernel's registers and spills as ptxas reports them.
   3. kernels vs their plain PyTorch versions on the card, in bf16, at every
      main-path shape of the flagship sampler (several RS-MMA shifts, the
-     wrap included); max |error| against the stated tolerance, the kernel's,
+     wrap included) and K1 at the text-to-image cell's (SDXL, 8 rows, T =
+     4096 and 1024); max |error| against the stated tolerance, the kernel's,
      the plain version's and, where one PyTorch call computes the same
      function, that call's device time, and the bound: the least time the
      card could take for the same work.  The self-attention forward (K1) and
@@ -65,7 +66,7 @@ Phases, each printed as it runs; any failure exits non-zero:
      checkpoint for one more step.
   7. the kernels of the remaining entry points: 7.1 the flash MHA forward
      and backward (K8, ops/fused_attention.py) at its hot shapes in both
-     layouts (and at head dims 32, 256, and 12 and 36 on zero-padded
+     layouts (SDXL's cross-attention, Tk = 77, among them) (and at head dims 32, 256, and 12 and 36 on zero-padded
      copies), the K1 variants of the A/B tool
      (S1/S2: rows, nomax, noexp; also at head dims 12, 36, 136 and 200
      through their routes, checked with the route and launch counters),
@@ -163,10 +164,12 @@ Phases, each printed as it runs; any failure exits non-zero:
      train step.
   13. the GroupNorm + FiLM + SiLU kernel (ops/group_norm.py): 13.1 one
      evaluation of each benchmark sampling model (FLAGSHIP's SR U-Net on 16
-     frames at 256^2, the base MM-UNet at batch 8) under inference_mode,
-     every ResBlock and out-head norm on the fused route (the attention
-     norms counted apart), and a train-style forward and backward on the
-     autograd route alone; 13.2 the kernel at each shape 13.1 recorded
+     frames at 256^2, the base MM-UNet at batch 8, SDXL base's U-Net at 8
+     rows of 128^2 latents) under inference_mode, every ResBlock, out-head
+     and SpatialTransformer norm on the fused route (the attention norms
+     counted apart), SDXL's K1 and K8 launches once a transformer block
+     (70), its norm kernel's 46, and a train-style forward and backward on
+     the autograd route alone; 13.2 the kernel at each shape 13.1 recorded
      against its plain version, timed beside its bound, its two-read mode,
      the plain version and the eager chain, and its name in a profiler
      trace classified "group norm" by benchmark/trace.py.  Alone:
@@ -221,7 +224,8 @@ MODEL_REL_L2_TOL = 5e-2
 BANDED_SHIFTS = 3  # shifts per banded shape: 0, the middle and the last of the span
 
 # Main-path shapes at batch 1 of the flagship config (16x64x64 video, 25600
-# audio samples, 128 channels, mult 1,2,3,4; SR 192 channels, head dim 64).
+# audio samples, 128 channels, mult 1,2,3,4; SR 192 channels, head dim 64),
+# and of the text-to-image cell.
 SELF_SHAPES = [  # (label, N, T, C, heads, layout)
     ("mm spatial ds2", 16, 1024, 256, 4, "thirds"),
     ("mm spatial ds4", 16, 256, 384, 4, "thirds"),
@@ -233,6 +237,11 @@ SELF_SHAPES = [  # (label, N, T, C, heads, layout)
     ("sr ds8", 16, 1024, 384, 6, "per_head"),
     ("sr ds16", 16, 256, 768, 12, "per_head"),
     ("sr ds32", 16, 64, 768, 12, "per_head"),
+    # Stable Diffusion XL base's self-attention in the benchmark's
+    # text-to-image cell: 8 rows an evaluation (4 images with guidance),
+    # 64x64 and 32x32 latent tokens, 64-wide heads.
+    ("sdxl 64x64", 8, 4096, 640, 10, "thirds"),
+    ("sdxl 32x32", 8, 1024, 1280, 20, "thirds"),
 ]
 BANDED_SHAPES = [  # (label, F, Tq, Tk, C, heads, lw)
     ("ds2 video->audio", 16, 1024, 400, 256, 4, 1),
@@ -328,6 +337,9 @@ FLASH_SHAPES = [
     ("self", 128, 4, 1024, 1024, 64, "bhtd"),
     ("video->audio", 128, 4, 1024, 400, 64, "bthd"),
     ("audio->video", 128, 4, 100, 1024, 64, "bthd"),
+    # SDXL's cross-attention to the 77-token text context, 8 rows.
+    ("sdxl 64x64 cross", 8, 10, 4096, 77, 64, "bthd"),
+    ("sdxl 32x32 cross", 8, 20, 1024, 77, 64, "bthd"),
 ]
 # K8 at head dims 32 and 256, and 12 and 36 on zero-padded copies (checked
 # and timed, not in the sums).
@@ -2925,29 +2937,42 @@ def bench_run():
 
 
 # Phase 13: the GroupNorm + FiLM + SiLU kernel (ops/group_norm.py) at every
-# shape of one sampling evaluation of the benchmark's two configurations
-# (FLAGSHIP's: the SR U-Net on one clip's 16 frames at 256^2, the base
-# MM-UNet at batch 8), against its plain version at GN_TOL (one bf16 step:
+# shape of one sampling evaluation of the benchmark's sampling
+# configurations (FLAGSHIP's: the SR U-Net on one clip's 16 frames at 256^2,
+# the base MM-UNet at batch 8; SDXL base's U-Net at 8 rows of 128^2
+# latents, whose transformer norms run with eps 1e-6 and the SiLU off),
+# against its plain version at GN_TOL (one bf16 step:
 # both round an fp32 value once, the sums taken in another order).
 GN_SR_FRAMES = 16
 GN_SHIFT = 3  # the RS-MMA shift of 13.1's base evaluation
+SDXL_CONTEXT_TOKENS, SDXL_POOLED = 77, 1280  # 13.1's SDXL text context and pooled embedding
 
 
 def group_norm_sites():
     """Phase 13.1: one evaluation of each sampling model on the card under
     ``inference_mode`` with the kernel's wrapper recording its calls: every
-    ResBlock and out-head norm took the fused route (the attention blocks'
-    norms stay on GroupNorm32, counted by forward hooks), and a train-style
-    forward and backward took none.  Returns ({model: Counter of (shape,
-    groups, FiLM dtype)}, {model: route counts})."""
+    ResBlock, out-head and SpatialTransformer norm took the fused route (the
+    attention blocks' norms stay on GroupNorm32, counted by forward hooks),
+    and a train-style forward and backward took none.  The models: the SR
+    U-Net, the base MM-UNet at batch 8, and Stable Diffusion XL base's
+    U-Net in one 8-row evaluation of the benchmark's text-to-image cell,
+    where K1 runs once and K8 once a transformer block.  Every launch
+    counter is reset just before each evaluation.  Returns ({model: Counter
+    of (shape, groups, FiLM dtype, silu, eps)}, {model: route and launch
+    counts})."""
     import collections
     import dataclasses
 
     import torch
 
+    from benchmark.weights import load_seeded_
+    from mm_diffusion_tpu_torch import configs
     from mm_diffusion_tpu_torch.bench import FLAGSHIP
     from mm_diffusion_tpu_torch.models.attention import RSMMACrossAttention, TokenSelfAttention
-    from mm_diffusion_tpu_torch.models.image_unet import ImageSuperResModel
+    from mm_diffusion_tpu_torch.models.image_unet import ImageResBlock, ImageSuperResModel, ImageUNet, sdxl_vector
+    from mm_diffusion_tpu_torch.models.transformer import BasicTransformerBlock, SpatialTransformer
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+    from mm_diffusion_tpu_torch.ops import fused_attention as fa
     from mm_diffusion_tpu_torch.models.layers import GroupNorm32
     from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
     from mm_diffusion_tpu_torch.ops import group_norm as gn
@@ -2960,25 +2985,36 @@ def group_norm_sites():
     sr = FLAGSHIP.sr
     base = FLAGSHIP.base
     f, c, h, w = base.video_size
+    sdxl = configs.create_text2img_config(**configs.sdxl_base_flags())
+
+    def sdxl_model():
+        with torch.device(dev):
+            return load_seeded_(ImageUNet(sdxl), 45)
+
     cases = {
-        "sr": (lambda: ImageSuperResModel(sr), lambda m: m(
+        "sr": (lambda: randomize_(ImageSuperResModel(sr), seed=43), lambda m: m(
             torch.randn((GN_SR_FRAMES, sr.image_size, sr.image_size, 3), generator=g).to(dev),
             torch.full((GN_SR_FRAMES,), 500, device=dev),
             torch.rand((GN_SR_FRAMES, sr.image_size // 4, sr.image_size // 4, 3), generator=g).to(dev) * 2 - 1)),
-        "base": (lambda: MultimodalUNet(base), lambda m: m(
+        "base": (lambda: randomize_(MultimodalUNet(base), seed=43), lambda m: m(
             torch.randn((B8, f, h, w, c), generator=g).to(dev),
             torch.randn((B8, base.audio_size[1], base.audio_size[0]), generator=g).to(dev),
             torch.tensor(B8_TIMESTEPS, device=dev), shift=GN_SHIFT)),
+        "sdxl": (sdxl_model, lambda m: m(
+            torch.randn((B8, sdxl.image_size, sdxl.image_size, sdxl.in_channels), generator=g).to(dev),
+            torch.tensor(B8_TIMESTEPS, device=dev),
+            context=torch.randn((B8, SDXL_CONTEXT_TOKENS, sdxl.context_dim), generator=g).to(dev),
+            y=sdxl_vector(torch.randn((B8, SDXL_POOLED), generator=g)).to(dev))),
     }
     real = gn.group_norm_silu_cuda
     sites, routes = {}, {}
     for name, (build, run) in cases.items():
-        model = randomize_(build(), seed=43).to(dev).eval()
+        model = build().to(dev).eval()
         seen = collections.Counter()
 
         def recording(x, weight, bias, groups, eps=1e-5, film=None, silu=True, _seen=seen):
             _seen[(tuple(x.shape), groups, None if film is None else str(film[0].dtype).split(".")[-1],
-                   silu)] += 1
+                   silu, eps)] += 1
             return real(x, weight, bias, groups, eps, film, silu)
 
         in_attention = {id(m) for blk in model.modules() if isinstance(blk, (TokenSelfAttention, RSMMACrossAttention))
@@ -2987,7 +3023,8 @@ def group_norm_sites():
         hooks = [m.register_forward_hook(lambda mod, a, o, _k=id(m) in in_attention, _n=n:
                                          module_calls.update(["attention" if _k else _n]))
                  for n, m in model.named_modules() if isinstance(m, GroupNorm32)]
-        gn.reset_launch_counts()
+        for counts in (gn, ba, fa):
+            counts.reset_launch_counts()
         gn.group_norm_silu_cuda = recording
         try:
             with torch.inference_mode():
@@ -3001,10 +3038,24 @@ def group_norm_sites():
         check(all(torch.isfinite(o).all() for o in outs), f"{name}: non-finite output")
         attn = module_calls.pop("attention", 0)
         others = dict(module_calls)
-        routes[name] = dict(gn.ROUTES, attention_norms_on_group_norm32=attn)
+        launches = {"self_attention": ba.LAUNCHES["self_attention"], "flash_mha_fwd": fa.LAUNCHES["flash_mha_fwd"],
+                    "flash_mha_designs": dict(fa.FORWARD_DESIGNS), "head_dim_routes": dict(ba.HEAD_DIM_ROUTES)}
+        routes[name] = dict(gn.ROUTES, attention_norms_on_group_norm32=attn, launches=launches)
         print(f"{name}: norm calls of one evaluation: {dict(gn.ROUTES)} through group_norm_silu, {attn} "
               f"attention norms on GroupNorm32; {len(seen)} distinct shapes, kernel launches "
-              f"{gn.LAUNCHES['group_norm_silu']}")
+              f"{gn.LAUNCHES['group_norm_silu']}; attention launches {launches}")
+        if name == "sdxl":
+            # K1 and K8 once a transformer block; the norm twice a ResBlock,
+            # once a SpatialTransformer and once in the out head.
+            blocks = sum(isinstance(m, BasicTransformerBlock) for m in model.modules())
+            norms = (2 * sum(isinstance(m, ImageResBlock) for m in model.modules()) + 1
+                     + sum(isinstance(m, SpatialTransformer) for m in model.modules()))
+            check(blocks == 70 and launches["self_attention"] == blocks and launches["flash_mha_fwd"] == blocks
+                  and launches["flash_mha_designs"] == {"sm90": blocks} and not launches["head_dim_routes"],
+                  f"sdxl: {blocks} transformer blocks, attention launches {launches}")
+            check(gn.LAUNCHES["group_norm_silu"] == norms == 46,
+                  f"sdxl: {norms} norms, {gn.LAUNCHES['group_norm_silu']} kernel launches")
+            check(any(not silu and eps == 1e-6 for (_, _, _, silu, eps) in seen), "sdxl: no transformer norm seen")
         check(set(gn.ROUTES) == {"fused"} and gn.ROUTES["fused"] == sum(seen.values())
               == gn.LAUNCHES["group_norm_silu"], f"{name}: routes {dict(gn.ROUTES)}")
         check(not others, f"{name}: norms outside the attention blocks ran as modules: {others}")
@@ -3052,10 +3103,10 @@ def group_norm_kernel():
     record = {"routes": routes, "max_abs_err": 0.0}
     for name, seen in sites.items():
         tot = dict(ms=0.0, two_read_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-        for (shape, groups, film_dtype, silu), calls in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][0])):
+        for (shape, groups, film_dtype, silu, eps), calls in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][0])):
             n, c = shape[:2]
             x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
-            norm = GroupNorm32(c).to(dev).requires_grad_(False)
+            norm = GroupNorm32(c, eps=eps).to(dev).requires_grad_(False)
             check(norm.num_groups == groups, f"{shape}: {norm.num_groups} groups, the model had {groups}")
             with torch.no_grad():
                 norm.weight.copy_(1 + 0.1 * torch.randn(c, generator=g, device=dev))
@@ -3068,7 +3119,7 @@ def group_norm_kernel():
             plain = gn.group_norm_silu_reference(*args)
             err, ok = gn.GN_TOL.check(gn.group_norm_silu_cuda(*args), plain)
             err2, ok2 = gn.GN_TOL.check(gn._group_norm_silu_two_read_cuda(*args), plain)
-            check(ok and ok2, f"group_norm_silu {shape} groups {groups} film {film_dtype}: err {err} "
+            check(ok and ok2, f"group_norm_silu {shape} groups {groups} film {film_dtype} eps {eps}: err {err} "
                               f"(two-read {err2})")
             del plain
             ms = time_ms(lambda: gn.group_norm_silu_cuda(*args))
@@ -3076,7 +3127,8 @@ def group_norm_kernel():
             plain_ms = time_ms(lambda: gn.group_norm_silu_reference(*args))
             lib_ms = time_ms(lambda: F.silu(norm(x, film=film)) if silu else norm(x, film=film))
             bound = bound_ms(0, 4 * x.numel() + 8 * c + (4 * n * c if film is not None else 0))
-            print(f"{name} {shape} groups {groups} film {film_dtype} x{calls}: err={max(err, err2):.3e} "
+            print(f"{name} {shape} groups {groups} film {film_dtype} silu {silu} eps {eps} x{calls}: "
+                  f"err={max(err, err2):.3e} "
                   f"kernel={ms:.4f} ms two-read={two_ms:.4f} ms plain={plain_ms:.4f} ms "
                   f"library (GroupNorm32 + SiLU, eager)={lib_ms:.4f} ms bound={bound[0]:.4f} ms "
                   f"({100 * bound[0] / ms:.1f}% of it)")
@@ -3090,7 +3142,7 @@ def group_norm_kernel():
         record[name] = tot
         torch.cuda.empty_cache()
 
-    (shape, groups, _, _), _ = max(sites["sr"].items(), key=lambda kv: math.prod(kv[0][0]))
+    (shape, groups, *_), _ = max(sites["sr"].items(), key=lambda kv: math.prod(kv[0][0]))
     x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
     norm = GroupNorm32(shape[1]).to(dev).requires_grad_(False)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:

@@ -281,6 +281,82 @@ def image_sr_create_model_and_diffusion(**kwargs):
     return ImageSuperResModel(create_image_sr_config(**merged)), diffusion
 
 
+# -- text-to-image model (Stable Diffusion XL) ----------------------------------
+
+
+def sdxl_base_flags() -> Dict[str, Any]:
+    """Stable Diffusion XL base's U-Net under SGM's flag names
+    (``configs/inference/sd_xl_base.yaml``, ``network_config``; 2.57 B
+    parameters, 70 transformer blocks), the latent side of a 1024^2 image,
+    and bf16 compute in place of the deployment's fp16."""
+    return dict(
+        adm_in_channels=2816,
+        num_classes="sequential",
+        in_channels=4,
+        out_channels=4,
+        model_channels=320,
+        attention_resolutions="4,2",
+        num_res_blocks=2,
+        channel_mult="1,2,4",
+        num_head_channels=64,
+        use_linear_in_transformer=True,
+        transformer_depth="1,2,10",
+        context_dim=2048,
+        image_size=128,
+        use_fp16=True,
+    )
+
+
+def create_text2img_config(
+    *,
+    in_channels,
+    out_channels,
+    model_channels,
+    attention_resolutions,
+    num_res_blocks,
+    channel_mult,
+    num_head_channels,
+    transformer_depth,
+    context_dim,
+    use_linear_in_transformer,
+    adm_in_channels,
+    num_classes,
+    image_size,
+    use_fp16=False,
+    dtype: Optional[str] = None,
+    **_unused,
+) -> ImageUNetConfig:
+    """The text-to-image U-Net's config from SGM's ``UNetModel`` flags
+    (SDXL base's: :func:`sdxl_base_flags`): ``attention_resolutions`` are
+    downsample rates, ``transformer_depth`` one count per level (or one for
+    all; the middle block takes the last), ``num_classes="sequential"``
+    with ``adm_in_channels`` the vector condition, ``image_size`` the
+    latent's side.  ``use_fp16`` selects bf16 compute.  Only the linear
+    ``proj_in`` / ``proj_out`` are built (``use_linear_in_transformer``
+    true).  SGM's other flags keep the values SDXL gives them (no
+    scale-shift norm, resampling by conv, no dropout)."""
+    if not use_linear_in_transformer:
+        raise NotImplementedError("the spatial transformers' 1x1-conv projections are not built")
+    if adm_in_channels is not None and num_classes != "sequential":
+        raise ValueError(f"adm_in_channels needs num_classes='sequential', got {num_classes!r}")
+    mult = _ints(channel_mult)
+    depth = _ints(transformer_depth)
+    return ImageUNetConfig(
+        image_size=int(image_size),
+        in_channels=int(in_channels),
+        model_channels=int(model_channels),
+        out_channels=int(out_channels),
+        num_res_blocks=int(num_res_blocks),
+        attention_resolutions=_ints(attention_resolutions),
+        channel_mult=mult,
+        num_head_channels=int(num_head_channels),
+        dtype=dtype or ("bfloat16" if use_fp16 else "float32"),
+        context_dim=int(context_dim),
+        transformer_depth=depth * len(mult) if len(depth) == 1 else depth,
+        adm_in_channels=None if adm_in_channels is None else int(adm_in_channels),
+    )
+
+
 # -- argparse helpers ------------------------------------------------------------
 
 

@@ -30,6 +30,10 @@ def get_named_beta_schedule(schedule_name: str, num_diffusion_timesteps: int) ->
         # Ho et al.'s linear schedule, rescaled so it is invariant to T.
         scale = 1000.0 / num_diffusion_timesteps
         return np.linspace(scale * 0.0001, scale * 0.02, num_diffusion_timesteps, dtype=np.float64)
+    if schedule_name == "scaled_linear":
+        # Stable Diffusion's: linear in sqrt(beta) from 0.00085 to 0.012
+        # (SGM's LegacyDDPMDiscretization, diffusers' "scaled_linear").
+        return np.linspace(0.00085**0.5, 0.012**0.5, num_diffusion_timesteps, dtype=np.float64) ** 2
     if schedule_name == "cosine":
         return betas_for_alpha_bar(
             num_diffusion_timesteps,

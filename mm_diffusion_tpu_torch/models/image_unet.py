@@ -7,6 +7,14 @@ upsampler checkpoints load unchanged.  Differences from the MM-UNet, as in
 the original: the time embedding is ``4 * model_channels`` wide, and an
 up/down ResBlock resamples between its norm-SiLU and its first conv.
 
+Text-to-image (Stable Diffusion XL's U-Net, SGM's ``openaimodel.UNetModel``):
+with ``context_dim`` set, every attention site is a ``SpatialTransformer``
+of ``transformer_depth[level]`` blocks (``models/transformer.py``) that
+attends to the text ``context``, and ``adm_in_channels`` adds SGM's vector
+condition ``y`` (``label_emb``: Linear -> SiLU -> Linear) to the time
+embedding; :func:`sdxl_vector` builds ``y``.  Without ``context_dim`` the
+model is the guided-diffusion U-Net above, module for module.
+
 Training mode: dropout is active under ``model.train()``; with
 ``cfg.use_checkpoint`` each ResBlock whose input holds at least
 ``remat_min_tokens()`` pixels (H*W) recomputes its activations in the
@@ -33,9 +41,11 @@ from .layers import (
     image_downsample,
     image_upsample,
     norm_silu_then,
+    timestep_embedding,
     zero_module,
 )
 from .mm_unet import DTYPES, remat_min_tokens
+from .transformer import SpatialTransformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +66,11 @@ class ImageUNetConfig:
     resblock_updown: bool = False
     use_checkpoint: bool = False  # recompute the large ResBlocks in the backward
     dtype: str = "bfloat16"
+    # Text-to-image (SGM's flags): spatial transformers at the attention
+    # sites, attending to a [N, L, context_dim] context.
+    context_dim: Optional[int] = None
+    transformer_depth: Tuple[int, ...] = (1,)  # blocks per site, by level; the middle takes the last
+    adm_in_channels: Optional[int] = None  # the vector condition y (num_classes "sequential")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -76,14 +91,22 @@ class _RB:
     in_ch: int
     out_ch: int
     attn_heads: int = 0  # 0 = no attention after this block
+    depth: int = 0  # transformer blocks at the attention site (text-to-image)
     up: bool = False
     down: bool = False
 
 
 def build_image_plan(cfg: ImageUNetConfig):
     """Encoder / middle / decoder specs, as in the JAX package;
-    ``attention_resolutions`` are downsample rates."""
+    ``attention_resolutions`` are downsample rates.  With ``context_dim``
+    each attention site carries its transformer depth."""
     mc = cfg.model_channels
+
+    def depth(level):
+        if cfg.context_dim is None:
+            return 0
+        return cfg.transformer_depth[-1 if level is None else level]
+
     ch = int(cfg.channel_mult[0] * mc)
     input_chans = [ch]
     encoder: List[Tuple[Any, ...]] = [("initial",)]
@@ -91,7 +114,7 @@ def build_image_plan(cfg: ImageUNetConfig):
     for level, mult in enumerate(cfg.channel_mult):
         for _ in range(cfg.num_res_blocks):
             heads = cfg.heads(int(mult * mc)) if ds in cfg.attention_resolutions else 0
-            encoder.append((_RB(ch, int(mult * mc), attn_heads=heads),))
+            encoder.append((_RB(ch, int(mult * mc), attn_heads=heads, depth=depth(level)),))
             ch = int(mult * mc)
             input_chans.append(ch)
         if level != len(cfg.channel_mult) - 1:
@@ -99,7 +122,7 @@ def build_image_plan(cfg: ImageUNetConfig):
             input_chans.append(ch)
             ds *= 2
 
-    middle = (_RB(ch, ch, attn_heads=cfg.heads(ch)), _RB(ch, ch))
+    middle = (_RB(ch, ch, attn_heads=cfg.heads(ch), depth=depth(None)), _RB(ch, ch))
 
     decoder: List[Tuple[Any, ...]] = []
     chans = list(input_chans)
@@ -109,7 +132,7 @@ def build_image_plan(cfg: ImageUNetConfig):
             heads = (
                 cfg.heads(int(mult * mc), upsample=True) if ds in cfg.attention_resolutions else 0
             )
-            specs: List[Any] = [_RB(ch + ich, int(mult * mc), attn_heads=heads)]
+            specs: List[Any] = [_RB(ch + ich, int(mult * mc), attn_heads=heads, depth=depth(level))]
             ch = int(mult * mc)
             if level and i == cfg.num_res_blocks:
                 specs.append(_RB(ch, ch, up=True) if cfg.resblock_updown else "upsample")
@@ -195,8 +218,14 @@ class ImageUNet(nn.Module):
         emb_ch = 4 * mc
         encoder, middle, decoder, out_ch = build_image_plan(cfg)
         self.time_embed = TimeEmbedding(mc, emb_ch)
+        if cfg.num_classes is not None and cfg.adm_in_channels is not None:
+            raise ValueError("num_classes and adm_in_channels are two label embeddings; give one")
         if cfg.num_classes is not None:
             self.label_emb = nn.Embedding(cfg.num_classes, emb_ch)
+        if cfg.adm_in_channels is not None:
+            self.label_emb = nn.Sequential(
+                nn.Sequential(Linear(cfg.adm_in_channels, emb_ch), nn.SiLU(), Linear(emb_ch, emb_ch))
+            )
 
         ch = int(cfg.channel_mult[0] * mc)  # channels entering the next block
 
@@ -213,7 +242,9 @@ class ImageUNet(nn.Module):
                 else:
                     mods.append(ImageResBlock(spec, cfg, emb_ch))
                     ch = spec.out_ch
-                    if spec.attn_heads:
+                    if spec.attn_heads and cfg.context_dim is not None:
+                        mods.append(SpatialTransformer(spec.out_ch, spec.attn_heads, spec.depth, cfg.context_dim))
+                    elif spec.attn_heads:
                         mods.append(ImageAttention(spec.out_ch, spec.attn_heads))
             return nn.ModuleList(mods)
 
@@ -229,9 +260,11 @@ class ImageUNet(nn.Module):
             return False
         return h.shape[2] * h.shape[3] >= remat_min_tokens()
 
-    def _run(self, blocks, h, emb):
+    def _run(self, blocks, h, emb, context=None):
         for m in blocks:
-            if not isinstance(m, ImageResBlock):
+            if isinstance(m, SpatialTransformer):
+                h = m(h, context)
+            elif not isinstance(m, ImageResBlock):
                 h = m(h)
             elif self._remat(h):
                 h = checkpoint(m, h, emb, use_reentrant=False)
@@ -239,8 +272,10 @@ class ImageUNet(nn.Module):
                 h = m(h, emb)
         return h
 
-    def unet_forward(self, h, timesteps, label=None):
-        """Channels-first ``[N, C, H, W]`` in, fp32 channels-first out."""
+    def unet_forward(self, h, timesteps, label=None, context=None, y=None):
+        """Channels-first ``[N, C, H, W]`` in, fp32 channels-first out;
+        ``context [N, L, context_dim]`` and ``y [N, adm_in_channels]`` for
+        the text-to-image model."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         emb = self.time_embed(timesteps, dt)
@@ -248,18 +283,27 @@ class ImageUNet(nn.Module):
             if label is None:
                 raise ValueError("a class-conditional model needs a label")
             emb = emb + self.label_emb(label).to(dt)
+        if cfg.adm_in_channels is not None:
+            if y is None:
+                raise ValueError("a model with adm_in_channels needs the vector condition y")
+            emb = emb + self.label_emb(y.to(dt))
+        if cfg.context_dim is not None:
+            if context is None:
+                raise ValueError("a model with context_dim needs a context")
+            context = context.to(dt)
         h = h.to(dt)
         hs = []
         for blocks in self.input_blocks:
-            h = self._run(blocks, h, emb)
+            h = self._run(blocks, h, emb, context)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb)
+        h = self._run(self.middle_block, h, emb, context)
         for blocks in self.output_blocks:
-            h = self._run(blocks, torch.cat([h, hs.pop()], dim=1), emb)
+            h = self._run(blocks, torch.cat([h, hs.pop()], dim=1), emb, context)
         return norm_silu_then(self.out, h).float()
 
-    def forward(self, x, timesteps, label=None):
-        return self.unet_forward(x.permute(0, 3, 1, 2), timesteps, label).permute(0, 2, 3, 1)
+    def forward(self, x, timesteps, label=None, context=None, y=None):
+        h = self.unet_forward(x.permute(0, 3, 1, 2), timesteps, label, context, y)
+        return h.permute(0, 2, 3, 1)
 
 
 class ImageSuperResModel(ImageUNet):
@@ -274,3 +318,15 @@ class ImageSuperResModel(ImageUNet):
         )
         h = torch.cat([x, up], dim=1)
         return self.unet_forward(h, timesteps, label).permute(0, 2, 3, 1)
+
+
+def sdxl_vector(pooled: torch.Tensor, original_size=(1024, 1024), crop_top_left=(0, 0),
+                target_size=(1024, 1024), size_dim: int = 256) -> torch.Tensor:
+    """SGM's vector condition ``y`` of Stable Diffusion XL base: the pooled
+    text embedding ``[N, P]``, then its ``ConcatTimestepEmbedderND`` of the
+    original size, the crop's top-left corner and the target size, each of
+    the six numbers as ``size_dim`` sinusoids ``[cos | sin]``: fp32
+    ``[N, P + 6 * size_dim]``."""
+    sizes = torch.tensor([*original_size, *crop_top_left, *target_size], dtype=torch.float32)
+    emb = timestep_embedding(sizes, size_dim).reshape(1, -1).to(pooled.device)
+    return torch.cat([pooled.float(), emb.expand(pooled.shape[0], -1)], dim=-1)

@@ -48,7 +48,8 @@ class Linear(nn.Linear):
     """fp32 parameters, computed in the input's dtype."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class Conv1d(nn.Conv1d):
@@ -79,17 +80,17 @@ def pointwise(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm with fp32 statistics, eps 1e-5.  The group count halves
-    from 32 until it divides the channels (narrow test widths).
+    """GroupNorm with fp32 statistics, eps 1e-5 unless given.  The group
+    count halves from 32 until it divides the channels (narrow test widths).
 
     ``film=(scale, shift)`` ([B, C] each) applies ``y * (1 + scale) + shift``
     in fp32 before the cast back.  ``channels_last=True`` takes ``[N, ..., C]``.
     """
 
-    def __init__(self, channels: int, num_groups: int = 32):
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
         while channels % num_groups:
             num_groups //= 2
-        super().__init__(num_groups, channels, eps=1e-5)
+        super().__init__(num_groups, channels, eps=eps)
 
     def forward(self, x, film: Film = None, channels_last: bool = False):
         y = x.float()

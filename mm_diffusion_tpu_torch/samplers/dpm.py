@@ -175,7 +175,8 @@ def wrap_model(
         return _f32(t_continuous).reshape(-1).expand(b)
 
     def noise_pred(x, tb, cond=None):
-        t_input = model_input_time(ns, tb, rescale).to(tree_leaves(x)[0].device)
+        # non_blocking: a copy from pageable memory that does not wait for the device
+        t_input = model_input_time(ns, tb, rescale).to(tree_leaves(x)[0].device, non_blocking=True)
         return raw_model_fn(x, t_input) if cond is None else raw_model_fn(x, t_input, cond)
 
     if guidance_type == "uncond":

@@ -2,14 +2,16 @@
 conditional (audio->video, video->audio) sampler, the 64->256 frame
 super-resolution sampler, the single-modal (video or audio) sampler, and
 the chain of base and SR (counterpart of
-``mm_diffusion_tpu/sampling.py``).
+``mm_diffusion_tpu/sampling.py``); and the text-to-image latent sampler of
+Stable Diffusion XL's U-Net, which the JAX package does not have.
 
 Randomness is explicit: a device ``torch.Generator`` for the noise, and a
 CPU generator from which the MM-UNet draws each RS-MMA window shift on the
 host, so no draw waits on the device.
 
-Each call of a base or SR sampler is span ``sample.call`` and each model
-evaluation in it span ``sample.nfe`` (``utils/tracing.py``; off by default).
+Each call of a base, SR or text-to-image sampler is span ``sample.call``
+and each model evaluation in it span ``sample.nfe`` (``utils/tracing.py``;
+off by default).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from .samplers import (
     model_input_time,
     noise_schedule_from_diffusion,
     p_sample_loop,
+    wrap_model,
 )
 from .utils import tracing
 from .utils.seeds import derive_seed
@@ -248,6 +251,41 @@ def build_sr_sampler(
         return _ancestral(sample_fn, sr_diffusion, model_fn, x_T, generator, clip_denoised)
 
     return sr
+
+
+def build_text2img_sampler(model, diffusion: GaussianDiffusion, steps: int = 20,
+                           guidance_scale: float = 5.0):
+    """Text-to-image latent sampler of an ``ImageUNet`` with ``context_dim``
+    (Stable Diffusion XL): DPM-Solver++ (``predict_x0``, no thresholding),
+    multistep order 2 over time-uniform steps, as DPM-Solver's example for
+    Stable Diffusion runs it; classifier-free guidance at
+    ``guidance_scale`` through ``wrap_model``, each evaluation one call on
+    the doubled batch ``[uncond; cond]``, the model time the truncated
+    integer timestep.
+
+    Returns ``sample(cond, uncond, x_T=None, generator=None) -> [n, H, W,
+    in_channels]`` latents, ``cond`` and ``uncond`` holding ``"context"``
+    ``[n, L, context_dim]`` and ``"y"`` ``[n, adm_in_channels]``
+    (``models.image_unet.sdxl_vector``)."""
+    ns = noise_schedule_from_diffusion(diffusion)
+    device = _device(model)
+    shape = (model.cfg.image_size, model.cfg.image_size, model.cfg.in_channels)
+
+    def raw(x, t_model, cond):
+        with tracing.span("sample.nfe"):
+            return model(x, t_model, context=cond["context"], y=cond.get("y"))
+
+    @torch.inference_mode()
+    def sample(cond, uncond, x_T=None, generator: Optional[torch.Generator] = None):
+        with tracing.span("sample.call", next(_CALLS)):
+            n = cond["context"].shape[0]
+            x = _randn((n,) + shape, generator, device) if x_T is None else x_T
+            guided = wrap_model(raw, ns, guidance_type="classifier-free", guidance_scale=guidance_scale,
+                                condition=cond, unconditional_condition=uncond)
+            solver = DPMSolver(guided, ns, predict_x0=True, thresholding=False)
+            return solver.sample(x, steps=steps, order=2, method="multistep", skip_type="time_uniform")
+
+    return sample
 
 
 def build_single_sampler(
