@@ -169,10 +169,16 @@ Phases, each printed as it runs; any failure exits non-zero:
      and SpatialTransformer norm on the fused route (the attention norms
      counted apart), SDXL's K1 and K8 launches once a transformer block
      (70), its norm kernel's 46, and a train-style forward and backward on
-     the autograd route alone; 13.2 the kernel at each shape 13.1 recorded
-     against its plain version, timed beside its bound, its two-read mode,
-     the plain version and the eager chain, and its name in a profiler
-     trace classified "group norm" by benchmark/trace.py.  Alone:
+     the autograd route alone; the SR and SDXL norms on the kernel's
+     channels-last mode (route "fused_cl"), the base model's on the
+     channels-first one; 13.2 the kernel at each shape 13.1 recorded, in the
+     layout recorded, against its plain version, timed beside its 4-byte
+     and 6-byte bounds, its two-read mode, the channels-first mode on the
+     same shape, the plain version and the eager chain, and both modes'
+     names in a profiler trace classified "group norm" by
+     benchmark/trace.py; 13.3 cuDNN's layout transposes (nchwToNhwc,
+     nhwcToNchw) counted, with their device seconds, in one traced SR
+     evaluation.  Alone:
      ``python3 -c "import chip_smoke as cs; cs.toolchain(); cs.build();
      cs.group_norm_kernel()"``.
 
@@ -3014,7 +3020,7 @@ def group_norm_sites():
 
         def recording(x, weight, bias, groups, eps=1e-5, film=None, silu=True, _seen=seen):
             _seen[(tuple(x.shape), groups, None if film is None else str(film[0].dtype).split(".")[-1],
-                   silu, eps)] += 1
+                   silu, eps, "cl" if gn.channels_last(x) else "cf")] += 1
             return real(x, weight, bias, groups, eps, film, silu)
 
         in_attention = {id(m) for blk in model.modules() if isinstance(blk, (TokenSelfAttention, RSMMACrossAttention))
@@ -3042,8 +3048,8 @@ def group_norm_sites():
                     "flash_mha_designs": dict(fa.FORWARD_DESIGNS), "head_dim_routes": dict(ba.HEAD_DIM_ROUTES)}
         routes[name] = dict(gn.ROUTES, attention_norms_on_group_norm32=attn, launches=launches)
         print(f"{name}: norm calls of one evaluation: {dict(gn.ROUTES)} through group_norm_silu, {attn} "
-              f"attention norms on GroupNorm32; {len(seen)} distinct shapes, kernel launches "
-              f"{gn.LAUNCHES['group_norm_silu']}; attention launches {launches}")
+              f"attention norms on GroupNorm32; {len(seen)} distinct shapes, kernel launches by mode "
+              f"{dict(gn.LAUNCHES)}; attention launches {launches}")
         if name == "sdxl":
             # K1 and K8 once a transformer block; the norm twice a ResBlock,
             # once a SpatialTransformer and once in the out head.
@@ -3053,11 +3059,14 @@ def group_norm_sites():
             check(blocks == 70 and launches["self_attention"] == blocks and launches["flash_mha_fwd"] == blocks
                   and launches["flash_mha_designs"] == {"sm90": blocks} and not launches["head_dim_routes"],
                   f"sdxl: {blocks} transformer blocks, attention launches {launches}")
-            check(gn.LAUNCHES["group_norm_silu"] == norms == 46,
-                  f"sdxl: {norms} norms, {gn.LAUNCHES['group_norm_silu']} kernel launches")
-            check(any(not silu and eps == 1e-6 for (_, _, _, silu, eps) in seen), "sdxl: no transformer norm seen")
-        check(set(gn.ROUTES) == {"fused"} and gn.ROUTES["fused"] == sum(seen.values())
-              == gn.LAUNCHES["group_norm_silu"], f"{name}: routes {dict(gn.ROUTES)}")
+            check(gn.LAUNCHES["group_norm_silu_cl"] == norms == 46,
+                  f"sdxl: {norms} norms, {dict(gn.LAUNCHES)} kernel launches")
+            check(any(not silu and eps == 1e-6 for (_, _, _, silu, eps, _) in seen), "sdxl: no transformer norm seen")
+        # The image U-Net (sr, sdxl) holds its activations channels-last, the MM-UNet channels-first.
+        route, mode = ("fused", "group_norm_silu") if name == "base" else ("fused_cl", "group_norm_silu_cl")
+        check(set(gn.ROUTES) == {route} and gn.ROUTES[route] == sum(seen.values()) == gn.LAUNCHES[mode]
+              and sum(gn.LAUNCHES.values()) == gn.LAUNCHES[mode], f"{name}: routes {dict(gn.ROUTES)}, "
+              f"launches {dict(gn.LAUNCHES)}")
         check(not others, f"{name}: norms outside the attention blocks ran as modules: {others}")
         sites[name] = seen
         del model, outs
@@ -3073,8 +3082,8 @@ def group_norm_sites():
     (v.float().square().mean() + a.float().square().mean()).backward()
     torch.cuda.synchronize()
     print(f"train-style forward and backward (batch 1, remat): routes {dict(gn.ROUTES)}, kernel launches "
-          f"{gn.LAUNCHES['group_norm_silu']}")
-    check(set(gn.ROUTES) == {"autograd"} and gn.LAUNCHES["group_norm_silu"] == 0,
+          f"{dict(gn.LAUNCHES)}")
+    check(set(gn.ROUTES) == {"autograd"} and not any(gn.LAUNCHES.values()),
           f"training took the kernel: {dict(gn.ROUTES)}")
     routes["train"] = dict(gn.ROUTES)
     del model, v, a
@@ -3084,11 +3093,13 @@ def group_norm_sites():
 
 def group_norm_kernel():
     """Phase 13: 13.1's routes, then 13.2: the kernel at each recorded shape
-    against its plain version (GN_TOL), its device ms beside the bound
-    (2 bytes read and 2 written an element, at 3.35 TB/s), its two-read
-    mode's, the plain version's and the eager chain's (GroupNorm32 then
-    SiLU: the library ms), and the kernel's name in a profiler trace in the
-    benchmark's "group norm" kind.  Returns the record printed as JSON."""
+    and layout against its plain version (GN_TOL), its device ms beside the
+    bounds (4 bytes an element: read once, written once; 6: read twice),
+    its two-read mode's, the channels-first mode's on a contiguous copy of
+    the same input (for the channels-last shapes), the plain version's and
+    the eager chain's (GroupNorm32 then SiLU: the library ms), both modes'
+    names in a profiler trace in the benchmark's "group norm" kind, and
+    13.3's transposes.  Returns the record printed as JSON."""
     import torch
     import torch.nn.functional as F
 
@@ -3097,15 +3108,20 @@ def group_norm_kernel():
     from mm_diffusion_tpu_torch.ops import group_norm as gn
 
     sites, routes = group_norm_sites()
-    phase(f"13.2 GroupNorm + FiLM + SiLU kernel vs plain version at 13.1's shapes (bf16; {gn.GN_TOL})")
+    phase(f"13.2 GroupNorm + FiLM + SiLU kernel vs plain version at 13.1's shapes and layouts (bf16; {gn.GN_TOL})")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(14)
     record = {"routes": routes, "max_abs_err": 0.0}
     for name, seen in sites.items():
-        tot = dict(ms=0.0, two_read_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-        for (shape, groups, film_dtype, silu, eps), calls in sorted(seen.items(), key=lambda kv: -math.prod(kv[0][0])):
+        tot = dict(ms=0.0, two_read_ms=0.0, channels_first_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                   bound6_ms=0.0)
+        for (shape, groups, film_dtype, silu, eps, layout), calls in sorted(
+                seen.items(), key=lambda kv: -math.prod(kv[0][0])):
             n, c = shape[:2]
             x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+            if layout == "cl":
+                x = x.movedim(1, -1).contiguous().movedim(-1, 1)
+            check(gn.channels_last(x) == (layout == "cl"), f"{shape}: layout {layout} not rebuilt")
             norm = GroupNorm32(c, eps=eps).to(dev).requires_grad_(False)
             check(norm.num_groups == groups, f"{shape}: {norm.num_groups} groups, the model had {groups}")
             with torch.no_grad():
@@ -3116,29 +3132,37 @@ def group_norm_kernel():
                 emb = (0.3 * torch.randn((n, 2 * c), generator=g, device=dev)).to(getattr(torch, film_dtype))
                 film = tuple(emb.chunk(2, dim=-1))
             args = (x, norm.weight, norm.bias, groups, norm.eps, film, silu)
+            cf_args = (x.contiguous(),) + args[1:]
             plain = gn.group_norm_silu_reference(*args)
-            err, ok = gn.GN_TOL.check(gn.group_norm_silu_cuda(*args), plain)
+            out = gn.group_norm_silu_cuda(*args)
+            check(gn.channels_last(out) == (layout == "cl"), f"{shape}: the output left the input's layout")
+            err, ok = gn.GN_TOL.check(out, plain)
             err2, ok2 = gn.GN_TOL.check(gn._group_norm_silu_two_read_cuda(*args), plain)
-            check(ok and ok2, f"group_norm_silu {shape} groups {groups} film {film_dtype} eps {eps}: err {err} "
-                              f"(two-read {err2})")
-            del plain
+            check(ok and ok2, f"group_norm_silu {shape} {layout} groups {groups} film {film_dtype} eps {eps}: "
+                              f"err {err} (two-read {err2})")
+            del plain, out
             ms = time_ms(lambda: gn.group_norm_silu_cuda(*args))
             two_ms = time_ms(lambda: gn._group_norm_silu_two_read_cuda(*args))
+            cf_ms = time_ms(lambda: gn.group_norm_silu_cuda(*cf_args)) if layout == "cl" else ms
             plain_ms = time_ms(lambda: gn.group_norm_silu_reference(*args))
             lib_ms = time_ms(lambda: F.silu(norm(x, film=film)) if silu else norm(x, film=film))
-            bound = bound_ms(0, 4 * x.numel() + 8 * c + (4 * n * c if film is not None else 0))
-            print(f"{name} {shape} groups {groups} film {film_dtype} silu {silu} eps {eps} x{calls}: "
+            extra = 8 * c + (4 * n * c if film is not None else 0)
+            bound = bound_ms(0, 4 * x.numel() + extra)
+            bound6 = bound_ms(0, 6 * x.numel() + extra)
+            print(f"{name} {shape} {layout} groups {groups} film {film_dtype} silu {silu} eps {eps} x{calls}: "
                   f"err={max(err, err2):.3e} "
-                  f"kernel={ms:.4f} ms two-read={two_ms:.4f} ms plain={plain_ms:.4f} ms "
-                  f"library (GroupNorm32 + SiLU, eager)={lib_ms:.4f} ms bound={bound[0]:.4f} ms "
-                  f"({100 * bound[0] / ms:.1f}% of it)")
+                  f"kernel={ms:.4f} ms two-read={two_ms:.4f} ms channels-first={cf_ms:.4f} ms "
+                  f"plain={plain_ms:.4f} ms library (GroupNorm32 + SiLU, eager)={lib_ms:.4f} ms "
+                  f"bound={bound[0]:.4f} ms ({100 * bound[0] / ms:.1f}% of it) 6-byte bound={bound6[0]:.4f} ms")
             record["max_abs_err"] = max(record["max_abs_err"], err, err2)
-            for key, val in (("ms", ms), ("two_read_ms", two_ms), ("plain_ms", plain_ms),
-                             ("library_ms", lib_ms), ("bound_ms", bound[0])):
+            for key, val in (("ms", ms), ("two_read_ms", two_ms), ("channels_first_ms", cf_ms),
+                             ("plain_ms", plain_ms), ("library_ms", lib_ms), ("bound_ms", bound[0]),
+                             ("bound6_ms", bound6[0])):
                 tot[key] += calls * val
-            del x, args
+            del x, args, cf_args
         print(f"{name}: one evaluation's norms: kernel {tot['ms']:.3f} ms, two-read {tot['two_read_ms']:.3f} ms, "
-              f"eager chain {tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
+              f"channels-first {tot['channels_first_ms']:.3f} ms, eager chain {tot['library_ms']:.3f} ms, "
+              f"bound {tot['bound_ms']:.3f} ms (6-byte {tot['bound6_ms']:.3f} ms)")
         record[name] = tot
         torch.cuda.empty_cache()
 
@@ -3147,12 +3171,60 @@ def group_norm_kernel():
     norm = GroupNorm32(shape[1]).to(dev).requires_grad_(False)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         gn.group_norm_silu_cuda(x, norm.weight, norm.bias, groups)
+        gn.group_norm_silu_cuda(x.contiguous(memory_format=torch.channels_last), norm.weight, norm.bias, groups)
         torch.cuda.synchronize()
     names = {e.name for e in prof.events() if "group_norm_silu" in e.name}
     print(f"profiled kernel names: {sorted(names)} -> kinds {sorted({kind_of(n) for n in names})}")
-    check(names and all(kind_of(n) == "group norm" and gn.KERNEL_NAME in n for n in names),
+    check(len(names) == 2 and all(kind_of(n) == "group norm" for n in names)
+          and any(f"{gn.KERNEL_NAME}<" in n for n in names) and any(gn.CL_KERNEL_NAME in n for n in names),
           f"kernel names in the trace: {names}")
+    record["sr_transposes"] = sr_layout_transposes()
     return record
+
+
+def sr_layout_transposes():
+    """Phase 13.3: one SR evaluation (FLAGSHIP's U-Net, 16 frames at 256^2,
+    bf16, inference_mode) under the profiler after a warm-up one: cuDNN's
+    layout transposes (kernels named nchwToNhwc / nhwcToNchw), counted, with
+    their device seconds, beside the evaluation's busy kernel seconds.
+    Returns {kernel: [launches, seconds]} with "all kernels"."""
+    import collections
+
+    import torch
+
+    from mm_diffusion_tpu_torch.bench import FLAGSHIP
+    from mm_diffusion_tpu_torch.models.image_unet import ImageSuperResModel
+    from mm_diffusion_tpu_torch.weights import randomize_
+
+    phase("13.3 cuDNN layout transposes in one traced SR evaluation (16 frames at 256^2)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(15)
+    sr = FLAGSHIP.sr
+    model = randomize_(ImageSuperResModel(sr), seed=43).to(dev).eval()
+    x = torch.randn((GN_SR_FRAMES, sr.image_size, sr.image_size, 3), generator=g).to(dev)
+    ts = torch.full((GN_SR_FRAMES,), 500, device=dev)
+    low = torch.rand((GN_SR_FRAMES, sr.image_size // 4, sr.image_size // 4, 3), generator=g).to(dev) * 2 - 1
+    with torch.inference_mode():
+        model(x, ts, low)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            model(x, ts, low)
+            torch.cuda.synchronize()
+    counts = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()  # the kernel's own interval
+        for key in ("nchwToNhwc", "nhwcToNchw"):
+            if key in e.name:
+                counts[key][0] += 1
+                counts[key][1] += us / 1e6
+        counts["all kernels"][0] += 1
+        counts["all kernels"][1] += us / 1e6
+    print("one SR evaluation: " + ", ".join(f"{k} {n} launches {sec:.6f} s" for k, (n, sec) in counts.items()))
+    del model
+    torch.cuda.empty_cache()
+    return dict(counts)
 
 
 def main() -> int:

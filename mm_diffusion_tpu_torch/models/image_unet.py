@@ -15,6 +15,15 @@ condition ``y`` (``label_emb``: Linear -> SiLU -> Linear) to the time
 embedding; :func:`sdxl_vector` builds ``y``.  Without ``context_dim`` the
 model is the guided-diffusion U-Net above, module for module.
 
+Layout: the activations are held channels-last in memory
+(``torch.channels_last`` strides on ``[N, C, H, W]``) from the entry to the
+exit, so that cuDNN's NHWC convolutions, the GroupNorm kernel's
+channels-last mode, the attention blocks' token views and the transformers'
+``proj_in`` / residual add make no layout copies; ``models/layers.py``
+says which op keeps the format.  The public ``forward`` functions take and
+return ``[N, H, W, C]``, whose permute to ``[N, C, H, W]`` is already a
+channels-last view.
+
 Training mode: dropout is active under ``model.train()``; with
 ``cfg.use_checkpoint`` each ResBlock whose input holds at least
 ``remat_min_tokens()`` pixels (H*W) recomputes its activations in the
@@ -175,7 +184,9 @@ class ImageResBlock(nn.Module):
 
 class ImageAttention(TokenSelfAttention):
     """Spatial self-attention on ``[N, C, H, W]`` (the original's
-    AttentionBlock: bare GroupNorm, legacy per-head qkv order)."""
+    AttentionBlock: bare GroupNorm, legacy per-head qkv order).  On a
+    channels-last ``x`` the ``[N, H*W, C]`` tokens and the returned image
+    are views, not copies."""
 
     def __init__(self, channels: int, num_heads: int):
         super().__init__(channels, num_heads, image=True)
@@ -209,7 +220,8 @@ class Upsample(nn.Module):
 
 
 class ImageUNet(nn.Module):
-    """``(x [N,H,W,C], timesteps [N])`` -> ``[N,H,W,out_channels]``, fp32."""
+    """``(x [N,H,W,C], timesteps [N])`` -> ``[N,H,W,out_channels]``, fp32
+    (contiguous); channels-last activations inside (module docstring)."""
 
     def __init__(self, cfg: ImageUNetConfig):
         super().__init__()
@@ -273,7 +285,8 @@ class ImageUNet(nn.Module):
         return h
 
     def unet_forward(self, h, timesteps, label=None, context=None, y=None):
-        """Channels-first ``[N, C, H, W]`` in, fp32 channels-first out;
+        """``[N, C, H, W]`` in, in any memory format (held channels-last
+        from here on), fp32 ``[N, C, H, W]`` out, channels-last;
         ``context [N, L, context_dim]`` and ``y [N, adm_in_channels]`` for
         the text-to-image model."""
         cfg = self.cfg
@@ -291,7 +304,7 @@ class ImageUNet(nn.Module):
             if context is None:
                 raise ValueError("a model with context_dim needs a context")
             context = context.to(dt)
-        h = h.to(dt)
+        h = h.to(dtype=dt, memory_format=torch.channels_last)
         hs = []
         for blocks in self.input_blocks:
             h = self._run(blocks, h, emb, context)
@@ -308,7 +321,9 @@ class ImageUNet(nn.Module):
 
 class ImageSuperResModel(ImageUNet):
     """The SR U-Net: bilinearly upsample ``low_res`` to the input size and
-    concatenate it on channels (``cfg.in_channels`` counts both)."""
+    concatenate it on channels (``cfg.in_channels`` counts both); the
+    permuted inputs are channels-last views, and the resize and the
+    concatenation keep that format."""
 
     def forward(self, x, timesteps, low_res, label=None):
         x = x.permute(0, 3, 1, 2)

@@ -1,10 +1,18 @@
 """Shared layers of the MM-UNet and the SR U-Net
 (counterpart of ``mm_diffusion_tpu/models/layers.py``).
 
-Layout: inside the models activations are channels-first -- video
-``[B, C, F, H, W]``, audio ``[B, C, L]``, images ``[N, C, H, W]`` -- the
-layout PyTorch's convolutions take.  The models' public functions keep the
-JAX package's channels-last layouts and convert at the edges.
+Layout: inside the models activations have PyTorch's channels-first
+shapes -- video ``[B, C, F, H, W]``, audio ``[B, C, L]``, images
+``[N, C, H, W]``.  The MM-UNet and the single-modal U-Net hold them
+contiguous (channels-first memory).  The image U-Net holds its images
+channels-last in memory (``torch.channels_last`` strides on the same
+shapes) from its entry to its exit: cuDNN's bf16 convolutions on Hopper are
+NHWC kernels, and a channels-first operand costs a transpose on each side
+of every conv.  The layers here keep the memory format they are given:
+:class:`Conv2d` casts its weight into its input's format, and the
+resamplers, the adds and the GroupNorm kernel keep theirs.  The models'
+public functions keep the JAX package's channels-last layouts; for the image
+U-Net the permute at its edges is then a view.
 
 Precision: parameters stay fp32; every conv / linear runs in the dtype of
 its input (bf16 when the model computes in bf16), GroupNorm computes its
@@ -23,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.group_norm import group_norm_silu
+from ..ops.group_norm import channels_last, group_norm_silu
 
 Film = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -58,8 +66,13 @@ class Conv1d(nn.Conv1d):
 
 
 class Conv2d(nn.Conv2d):
+    """fp32 parameters, computed in the input's dtype; on a channels-last
+    input the weight is cast into channels-last in the same pass, so the
+    convolution makes no layout copy of its own."""
+
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        fmt = torch.channels_last if channels_last(x) else torch.preserve_format
+        return self._conv_forward(x, self.weight.to(dtype=x.dtype, memory_format=fmt), self.bias.to(x.dtype))
 
 
 class Conv3d(nn.Conv3d):
@@ -198,7 +211,10 @@ def image_downsample(x):
 
 
 def image_upsample(x):
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """Nearest 2x upsample of ``[N, C, H, W]`` in ``x``'s memory format (each
+    pixel repeated twice along H and W, as ``repeat_interleave`` does, which
+    writes channels-first)."""
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
 
 
 class TimeEmbedding(nn.Sequential):

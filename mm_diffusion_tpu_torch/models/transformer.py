@@ -112,7 +112,9 @@ class SpatialTransformer(nn.Module):
     """GroupNorm (eps 1e-6), the linear ``proj_in`` (SGM's
     ``use_linear_in_transformer``), ``depth`` blocks over the H*W tokens,
     the linear ``proj_out``, plus the input: ``[N, C, H, W]`` -> ``[N, C,
-    H, W]``."""
+    H, W]``.  On a channels-last ``x`` (the image U-Net's layout) the
+    tokens ``proj_in`` reads and the image added back are views of
+    ``[N, H*W, C]`` memory, and the sum is channels-last."""
 
     def __init__(self, channels: int, heads: int, depth: int, context_dim: int):
         super().__init__()

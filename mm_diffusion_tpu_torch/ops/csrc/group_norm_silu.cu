@@ -5,10 +5,14 @@
 //   y = y * (1 + scale_nc) + shift_nc        (FiLM, when given)
 //   out = bf16(silu(y))                      (or bf16(y) without the SiLU)
 //
-// x is channels-first and contiguous, [N, C, S]: a (sample, group) slab is
-// one contiguous run of (C / G) * S elements.  Statistics are fp32 over the
-// slab, the variance biased; every product is fp32 and the result is
-// rounded to bf16 once, at the store.
+// Two layouts, two kernels.  Channels-first, x contiguous [N, C, S]: a
+// (sample, group) slab is one contiguous run of (C / G) * S elements
+// (group_norm_silu_kernel).  Channels-last, x contiguous [N, S, C] (the
+// image U-Net's activations, held with torch.channels_last strides): a
+// sample is S rows of C channels and a group is C / G adjacent channels of
+// every row (group_norm_silu_cl_kernel, below the first).  Statistics are
+// fp32 over the (sample, group), the variance biased; every product is fp32
+// and the result is rounded to bf16 once, at the store.
 //
 // It replaces no Pallas kernel: on the TPU, XLA fuses the JAX package's
 // GroupNormFP32 (mm_diffusion_tpu/models/layers.py) and the SiLU after it.
@@ -21,8 +25,8 @@
 // exp and reciprocal are two MUFU operations an element, half of what the
 // special-function units do at 3.35 TB/s / 4 bytes).
 //
-// Design, built as described (device ms at every sampling shape: chip_smoke.py
-// phase 13; PERF.md):
+// Channels-first design, built as described (device ms at every sampling
+// shape: chip_smoke.py phase 13; PERF.md):
 //   - a thread-block cluster of k <= 8 blocks holds a slab of up to 768 KB
 //     in shared memory, each block a chunk of at most 96 KB, so that two
 //     blocks share an SM and one's loads overlap the other's arithmetic.
@@ -342,6 +346,333 @@ static int launch(const Args& a, long slabs, int k, int threads, int smem, cudaS
   return err ? err : (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Channels-last mode: x, out [N, S, C] contiguous.
+//
+// A 16-byte vector holds 8 adjacent channels of one row, and a group of
+// 6, 10, 12 or 18 channels starts inside a vector, so no vector belongs to
+// one group.  The kernel therefore keeps per-channel sums, not per-group
+// ones: a block is `rows` x `cols` threads over a row of C channels,
+// cols = C / lanes (lanes = 8 channels a 16-byte vector, or 1 an element
+// where C % 8 != 0), and thread (row, col) always holds the same lanes
+// channels, of rows row, row + rows, ...  So
+//   - every thread adds its channels' x - x0 and (x - x0)^2 in registers
+//     (fp32, no group test in the loop; x0 the group's first element, a
+//     shift that keeps the variance from cancelling);
+//   - the block adds its rows' per-channel sums in shared memory by a fixed
+//     tree, then each group's channels by one warp;
+//   - each thread makes its lanes' coefficients (rstd * w * (1 + scale) and
+//     the offset) once, in registers, and the apply is one FMA and the SiLU
+//     a lane, a 16-byte streaming store per 8 channels.
+// A sample is split by rows over a cluster of k blocks (each step of a
+// block one contiguous run of rows x C elements); the blocks' group sums
+// are added over distributed shared memory (the same float in every
+// block), and the rows are read again last first, so that what the first
+// pass read last is still in L2: up to 6 bytes an element.  k grows while
+// the blocks stay within one an SM, up to 16 (a non-portable cluster, where
+// the card schedules one): the SR U-Net's 16 samples take 8 blocks each,
+// SDXL's 8 take 16.  There is no resident mode: one that held whole groups
+// of a sample in shared memory (the 32^2 and smaller levels) measured no
+// faster over an SR evaluation's norms (PERF.md).
+// C > 8 * kRowThreads (or C > kRowThreads where C % 8 != 0) is refused.
+
+constexpr int kRowThreads = 512;
+constexpr int kRowMaxCluster = 16;
+constexpr long kRowSmemCap = 110L * 1024;  // two blocks share an SM
+constexpr int kRowUnroll = 4;              // loads in flight a thread
+
+struct RowArgs {
+  const bf16* x;
+  bf16* out;
+  const float* weight;  // [C]
+  const float* bias;    // [C]
+  const void* scale;    // FiLM [N, C], rows film_stride elements apart, or null
+  const void* shift;
+  long film_stride;
+  int film_bf16;
+  int c;         // channels: a row
+  int cpg;       // channels per group
+  long s;        // rows (pixels) a sample
+  long chunk;    // rows a block
+  int cols;      // threads along a row: C / lanes
+  int rows;      // rows in flight
+  int row_half;  // the reduction tree's first step: half the power of two >= rows
+  float eps;
+  int silu;
+};
+
+template <int kLanes>
+struct RowVec;
+
+template <>
+struct RowVec<8> {
+  using T = uint4;
+  static __device__ __forceinline__ T load(const bf16* p) { return __ldg(reinterpret_cast<const T*>(p)); }
+  static __device__ __forceinline__ void unpack(const T& q, float (&f)[8]) { unpack8(q, f); }
+  static __device__ __forceinline__ void store(bf16* p, const float (&f)[8]) {  // streaming: evict first
+    __stcs(reinterpret_cast<T*>(p), pack8(f));
+  }
+};
+
+template <>
+struct RowVec<1> {
+  using T = bf16;
+  static __device__ __forceinline__ T load(const bf16* p) { return *p; }
+  static __device__ __forceinline__ void unpack(const T& q, float (&f)[1]) { f[0] = __bfloat162float(q); }
+  static __device__ __forceinline__ void store(bf16* p, const float (&f)[1]) { *p = __float2bfloat16_rn(f[0]); }
+};
+
+// Shared memory: the rows' per-channel sums (2 x rows x C floats), the
+// block's group sums and the cluster's (2 x groups each), the groups'
+// shifts.
+struct RowSmem {
+  float* red;
+  float* part;
+  float* tot;
+  float* shift;
+};
+
+inline long row_smem_bytes(int rows, int c, int groups) {
+  return (2L * rows * c + 5L * groups) * (long)sizeof(float);
+}
+
+__device__ inline RowSmem row_smem(unsigned char* base, const RowArgs& a, int groups) {
+  RowSmem m;
+  m.red = reinterpret_cast<float*>(base);
+  m.part = m.red + 2L * a.rows * a.c;
+  m.tot = m.part + 2 * groups;
+  m.shift = m.tot + 2 * groups;
+  return m;
+}
+
+// The block's sums of s1[] and s2[] (each thread's lanes channels, over its
+// rows) by group, into dst[0, groups) and dst[groups, 2 groups): the rows'
+// per-channel sums added by a fixed tree in red, then each group's channels
+// by one warp (lanes over channels, a butterfly).  blockDim.x >= 32.
+template <int kLanes>
+__device__ void row_block_sums(const float (&s1)[kLanes], const float (&s2)[kLanes], float* red, float* dst,
+                               const RowArgs& a, int groups, int row, int c0) {
+  const long plane = (long)a.rows * a.c;
+  float* mine = red + (long)row * a.c + c0;
+  if (row < a.rows) {  // not the idle threads of the last warp
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) {
+      mine[l] = s1[l];
+      mine[plane + l] = s2[l];
+    }
+  }
+  __syncthreads();
+  for (int h = a.row_half; h >= 1; h >>= 1) {
+    if (row < h && row + h < a.rows) {
+      const float* other = mine + (long)h * a.c;
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) {
+        mine[l] += other[l];
+        mine[plane + l] += other[plane + l];
+      }
+    }
+    __syncthreads();
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int i = warp; i < 2 * groups; i += warps) {
+    const float* src = red + (i < groups ? 0 : plane) + (long)(i % groups) * a.cpg;
+    float t = 0.f;
+    for (int j = lane; j < a.cpg; j += 32) t += src[j];
+    t = warp_sum(t);
+    if (lane == 0) dst[i] = t;
+  }
+  __syncthreads();
+}
+
+// tot[i] = the sum of the cluster's blocks' part[i], i < m, in every block:
+// a warp takes 32 / w values at once, w = k rounded up to a power of two,
+// lane r of each w-lane segment reading block r's, then a butterfly within
+// the segment (the same float in every block).
+__device__ void row_cluster_sums(float* part, float* tot, int m, cg::cluster_group& cluster, int k) {
+  cluster_arrive();  // part[] is written: release it to the cluster
+  cluster_wait();
+  int w = 1;
+  while (w < k) w *= 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int per_warp = 32 / w, seg = lane / w, r = lane % w;
+  for (int i0 = warp * per_warp; i0 < m; i0 += warps * per_warp) {
+    const int i = i0 + seg;
+    float t = (r < k && i < m) ? *cluster.map_shared_rank(part + i, r) : 0.f;
+    for (int o = w / 2; o; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    if (r == 0 && i < m) tot[i] = t;
+  }
+  __syncthreads();
+}
+
+template <int kLanes>
+__device__ __forceinline__ void row_sum(const float (&f)[kLanes], const float (&x0)[kLanes], float (&s1)[kLanes],
+                                        float (&s2)[kLanes]) {
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    const float d = f[l] - x0[l];
+    s1[l] += d;
+    s2[l] = fmaf(d, d, s2[l]);
+  }
+}
+
+// Lane l's coefficients (channel c0 + l of sample n; its group's sums in
+// tot[g] and tot[groups + g]), in w[] and b[].
+template <int kLanes>
+__device__ __forceinline__ void row_coefficients(const RowArgs& a, const float* tot, int groups, long n,
+                                                 int c0, bool active, const float (&x0)[kLanes],
+                                                 float (&w)[kLanes], float (&b)[kLanes]) {
+  const float m_inv = 1.f / ((float)a.s * (float)a.cpg);
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    const int c = active ? c0 + l : 0;
+    const int g = c / a.cpg;
+    const float dm = tot[g] * m_inv;
+    const float mean = x0[l] + dm;
+    const float rstd = rsqrtf(fmaxf(tot[groups + g] * m_inv - dm * dm, 0.f) + a.eps);
+    w[l] = a.weight[c] * rstd;
+    b[l] = a.bias[c] - mean * w[l];
+    if (a.scale) {
+      const long off = n * a.film_stride + c;
+      const float sc = a.film_bf16 ? __bfloat162float(static_cast<const bf16*>(a.scale)[off])
+                                   : static_cast<const float*>(a.scale)[off];
+      const float sh = a.film_bf16 ? __bfloat162float(static_cast<const bf16*>(a.shift)[off])
+                                   : static_cast<const float*>(a.shift)[off];
+      w[l] *= 1.f + sc;
+      b[l] = fmaf(b[l], 1.f + sc, sh);
+    }
+  }
+}
+
+template <int kLanes>
+__device__ __forceinline__ void row_apply(float (&f)[kLanes], const float (&w)[kLanes], const float (&b)[kLanes],
+                                          int silu) {
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) f[l] = apply(f[l], w[l], b[l], silu);
+}
+
+// Cluster (sample n) of k blocks, block r rows [r * chunk, ...).
+template <int kLanes>
+__global__ void __launch_bounds__(kRowThreads, 2) group_norm_silu_cl_kernel(RowArgs a) {
+  using V = RowVec<kLanes>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks();
+  const int groups = a.c / a.cpg;
+  const long rank = (long)cluster.block_rank();
+  const long n = blockIdx.x / k;
+  const long lo = rank * a.chunk < a.s ? rank * a.chunk : a.s;
+  const long hi = lo + a.chunk < a.s ? lo + a.chunk : a.s;
+  const bf16* x = a.x + n * a.s * a.c;
+  bf16* out = a.out + n * a.s * a.c;
+  const RowSmem m = row_smem(smem, a, groups);
+  const int col = threadIdx.x % a.cols, row = threadIdx.x / a.cols;
+  const int c0 = col * kLanes;
+  const bool active = row < a.rows;  // the threads past rows x cols fill the last warp
+  const long step = a.rows;
+  const long first = active ? row : a.chunk;  // the idle threads take no row
+
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) m.shift[g] = __bfloat162float(x[g * a.cpg]);
+  __syncthreads();
+  float x0[kLanes], s1[kLanes], s2[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    x0[l] = active ? m.shift[(c0 + l) / a.cpg] : 0.f;
+    s1[l] = 0.f;
+    s2[l] = 0.f;
+  }
+  long p = lo + first;
+  for (; p + (kRowUnroll - 1L) * step < hi; p += kRowUnroll * step) {
+    typename V::T q[kRowUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) q[u] = V::load(x + (p + u * step) * a.c + c0);
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      float f[kLanes];
+      V::unpack(q[u], f);
+      row_sum(f, x0, s1, s2);
+    }
+  }
+  for (; p < hi; p += step) {
+    float f[kLanes];
+    V::unpack(V::load(x + p * a.c + c0), f);
+    row_sum(f, x0, s1, s2);
+  }
+  row_block_sums(s1, s2, m.red, m.part, a, groups, row, c0);
+  row_cluster_sums(m.part, m.tot, 2 * groups, cluster, k);
+  cluster_arrive();  // this block's reads of its peers' sums are done (waited for before exit)
+  float w[kLanes], b[kLanes];
+  row_coefficients(a, m.tot, groups, n, c0, active, x0, w, b);
+
+  // The last rows first: what the first pass read last is still in L2.
+  p = hi - 1 - first;
+  for (; p - (kRowUnroll - 1L) * step >= lo; p -= kRowUnroll * step) {
+    typename V::T q[kRowUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) q[u] = V::load(x + (p - u * step) * a.c + c0);
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      float f[kLanes];
+      V::unpack(q[u], f);
+      row_apply(f, w, b, a.silu);
+      V::store(out + (p - u * step) * a.c + c0, f);
+    }
+  }
+  for (; p >= lo; p -= step) {
+    float f[kLanes];
+    V::unpack(V::load(x + p * a.c + c0), f);
+    row_apply(f, w, b, a.silu);
+    V::store(out + p * a.c + c0, f);
+  }
+  cluster_wait();  // no block leaves while a peer may still read its sums
+}
+
+// The largest cluster (16 or 8 blocks) that the card schedules for the
+// kernel's largest block: kRowThreads threads, kRowSmemCap bytes.
+template <int kLanes>
+static int row_max_cluster(int* max_k) {
+  auto kernel = group_norm_silu_cl_kernel<kLanes>;
+  int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowSmemCap);
+  if (!err) err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kRowMaxCluster, 1, 1);
+  cfg.blockDim = dim3(kRowThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)kRowSmemCap;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kRowMaxCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) {
+    (void)cudaGetLastError();  // not an error of the launch: fall back to the portable size
+    clusters = 0;
+  }
+  *max_k = clusters > 0 ? kRowMaxCluster : kMaxCluster;
+  return 0;
+}
+
+template <typename Kernel>
+static int launch_row_kernel(Kernel kernel, const RowArgs& a, long blocks, int k, int threads, int smem,
+                             cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, a);
+  return err ? err : (int)cudaGetLastError();
+}
+
 }  // namespace gn
 }  // namespace mmdiff
 
@@ -397,4 +728,66 @@ extern "C" int mmdiff_group_norm_silu(const void* x, void* out, const void* weig
                : launch<true, false>(a, slabs, k, threads, smem, st);
   return vec ? launch<false, true>(a, slabs, k, threads, smem, st)
              : launch<false, false>(a, slabs, k, threads, smem, st);
+}
+
+// Channels-last: x, out [N, S, C] contiguous bf16 (the memory of a
+// torch.channels_last [N, C, H, W]); the rest as above, with no two-read
+// flag (this mode always reads twice).  Returns cudaErrorInvalidValue for
+// C > 8 * kRowThreads (C > kRowThreads where C % 8 != 0 or x / out are not
+// 16-byte aligned).
+extern "C" int mmdiff_group_norm_silu_cl(const void* x, void* out, const void* weight, const void* bias,
+                                         const void* scale, const void* shift, long long film_stride,
+                                         int film_bf16, int n, int c, int groups, long long s, float eps,
+                                         int silu, void* stream) {
+  using namespace mmdiff::gn;
+  if (n < 1 || c < 1 || groups < 1 || s < 1 || c % groups || (scale == nullptr) != (shift == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool vec = c % kVec == 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) % 16) == 0;
+  if ((vec ? c / kVec : c) > kRowThreads || s > INT_MAX) return (int)cudaErrorInvalidValue;
+
+  RowArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.out = static_cast<bf16*>(out);
+  a.weight = static_cast<const float*>(weight);
+  a.bias = static_cast<const float*>(bias);
+  a.scale = scale;
+  a.shift = shift;
+  a.film_stride = (long)film_stride;
+  a.film_bf16 = film_bf16;
+  a.c = c;
+  a.cpg = c / groups;
+  a.s = (long)s;
+  a.eps = eps;
+  a.silu = silu;
+  // rows x cols threads (~kRowThreads), rounded up to whole warps (the idle
+  // ones only join the reductions); the tree's first step.
+  a.cols = c / (vec ? kVec : 1);
+  a.rows = std::max(1, kRowThreads / a.cols);
+  int half = 1;
+  while (half < a.rows) half *= 2;
+  a.row_half = half / 2;
+  const int threads = (a.rows * a.cols + 31) / 32 * 32;
+
+  // One query a kernel and process for the largest cluster the card
+  // schedules, then k blocks a sample, doubled while the blocks stay within
+  // one an SM and the chunks large.
+  static const long sms = sm_count();  // one query a process
+  static int max_k[2] = {0, 0};
+  int& mk = max_k[vec];
+  if (!mk) {
+    const int err = vec ? row_max_cluster<8>(&mk) : row_max_cluster<1>(&mk);
+    if (err) {
+      mk = 0;
+      return err;
+    }
+  }
+  const long smem = row_smem_bytes(a.rows, c, groups);
+  int k = 1;
+  while (k < mk && (long)n * k * 2 <= sms && (s + 2 * k - 1) / (2 * k) * c >= kMinChunk) k *= 2;
+  a.chunk = (s + k - 1) / k;
+  if (smem > kRowSmemCap || (long)n * k > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return vec ? launch_row_kernel(group_norm_silu_cl_kernel<8>, a, (long)n * k, k, threads, (int)smem, st)
+             : launch_row_kernel(group_norm_silu_cl_kernel<1>, a, (long)n * k, k, threads, (int)smem, st);
 }

@@ -76,6 +76,7 @@ SIGNATURES = {
     "mmdiff_conv3x3_chw_mma": [_P] * 3 + [_I] * 5 + [_P],
     "mmdiff_channels_last_halo": [_P] * 2 + [_I] * 5 + [_P],
     "mmdiff_group_norm_silu": [_P] * 6 + [_L] + [_I] * 4 + [_L, _F, _I, _I, _P],
+    "mmdiff_group_norm_silu_cl": [_P] * 6 + [_L] + [_I] * 4 + [_L, _F, _I, _P],
 }
 
 

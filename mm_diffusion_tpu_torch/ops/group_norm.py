@@ -5,11 +5,20 @@
   ``y * (1 + scale) + shift``, the SiLU), one cast back to the input's
   dtype at the end.
 * :func:`group_norm_silu_cuda` -- the hand-written kernel
-  (``csrc/group_norm_silu.cu``): bf16 ``x [N, C, ...]`` channels-first, fp32
-  statistics, FiLM and SiLU in registers, one rounding to bf16 at the store;
-  a slab of one sample's group of up to 768 KB is read from device memory
-  once and written once, a larger one read twice.  Launches counted in
-  :data:`LAUNCHES`.
+  (``csrc/group_norm_silu.cu``) on bf16 ``x [N, C, ...]``: fp32 statistics,
+  FiLM and SiLU in registers, one rounding to bf16 at the store.  Its mode
+  follows ``x``'s memory:
+
+  - contiguous (channels-first): a slab of one sample's group of up to
+    768 KB is read from device memory once and written once, a larger one
+    read twice;
+  - channels-last (4-d ``x`` with ``torch.channels_last`` strides: the
+    image U-Net's activations): rows of C channels (at most 4,096), each
+    sample read twice over a cluster of blocks; the output has the input's
+    strides;
+  - anything else: a contiguous copy, then the channels-first mode.
+
+  Launches counted in :data:`LAUNCHES`, one entry a mode.
 * :func:`group_norm_silu` -- what the models call, with a ``GroupNorm32``
   (or an ``MMNorm`` holding one).  The route follows the tensors, counted in
   :data:`ROUTES`:
@@ -20,6 +29,8 @@
     ``F.silu``, the code and the backward these paths always ran;
   - ``"fused"``: a bf16 CUDA tensor otherwise (the samplers, which run under
     ``inference_mode`` or ``no_grad``): the kernel;
+  - ``"fused_cl"``: the same, with ``x`` channels-last: the kernel's
+    channels-last mode;
   - ``"cpu"``: a CPU tensor: the plain version;
   - ``"eager"``: a CUDA tensor of another dtype (fp32 models on the card):
     the norm module then ``F.silu``, as the kernel takes bf16 only.
@@ -41,6 +52,8 @@ Film = Optional[Tuple[torch.Tensor, torch.Tensor]]
 # The kernel's symbol as the profiler names it (the "group norm" kind of
 # benchmark/trace.py's KINDS, which none of the earlier kinds' keys match).
 KERNEL_NAME = "mmdiff::gn::group_norm_silu_kernel"
+# The channels-last mode's kernel.
+CL_KERNEL_NAME = "mmdiff::gn::group_norm_silu_cl_kernel"
 # The kernel against its plain version, both rounded to bf16 once: the fp32
 # sums and coefficients are taken in another order, so a value next to a
 # rounding boundary may round the other way, one bf16 step (2^-8 of the
@@ -48,22 +61,31 @@ KERNEL_NAME = "mmdiff::gn::group_norm_silu_kernel"
 # outputs near zero, where fp32's own error over |x * w| ~ 10 is ~1e-6.
 GN_TOL = Tolerance(1e-4, 2**-7)
 
-# Launches on the main path (the forced two-read mode of the same-run
-# comparison is not counted).
-LAUNCHES = {"group_norm_silu": 0}
+# Launches on the main path by mode: channels-first, channels-last (the
+# forced two-read mode of the same-run comparison is not counted).
+LAUNCHES = {"group_norm_silu": 0, "group_norm_silu_cl": 0}
 # Calls of group_norm_silu by route (see the module docstring).
 ROUTES: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["group_norm_silu"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
     ROUTES.clear()
+
+
+def channels_last(x: torch.Tensor) -> bool:
+    """Whether ``x [N, C, H, W]`` is held channels-last: ``torch.channels_last``
+    strides (its memory a contiguous ``[N, H, W, C]``), and not also
+    contiguous channels-first (as a tensor of one pixel or one channel is)."""
+    return x.dim() == 4 and not x.is_contiguous() and x.is_contiguous(memory_format=torch.channels_last)
 
 
 def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
                               eps: float = 1e-5, film: Film = None, silu: bool = True) -> torch.Tensor:
     """``silu(group_norm(x) * (1 + scale) + shift)`` in fp32, cast once to
-    ``x``'s dtype; ``x [N, C, ...]``, ``film`` = (scale, shift), [N, C] each."""
+    ``x``'s dtype; ``x [N, C, ...]``, ``film`` = (scale, shift), [N, C]
+    each.  On the CPU a channels-last ``x`` gives a channels-last result."""
     y = F.group_norm(x.float(), groups, weight.float(), bias.float(), eps)
     if film is not None:
         scale, shift = film
@@ -103,41 +125,48 @@ def _launch(x, weight, bias, groups, eps, film, silu, two_read):
     n, c = x.shape[:2]
     if c % groups:
         raise ValueError(f"group_norm_silu: {c} channels in {groups} groups")
-    x = x.contiguous()
+    rows = channels_last(x)
+    if not rows:
+        x = x.contiguous()
     w = weight.float().contiguous()
     b = bias.float().contiguous()
     if w.shape != (c,) or b.shape != (c,) or w.device != x.device or b.device != x.device:
         raise ValueError(f"group_norm_silu: weight / bias of shapes {tuple(w.shape)}, {tuple(b.shape)} on "
                          f"{w.device}; expected ({c},) on {x.device}")
     scale, shift, film_stride, film_bf16 = _film_rows(film, x)
-    out = torch.empty_like(x)
+    out = torch.empty_like(x)  # x's strides: channels-last in, channels-last out
     if x.numel() == 0:
         return out
     lib = cuda_build.load().lib
-    with torch.cuda.device(x.device):
-        err = lib.mmdiff_group_norm_silu(
-            x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(),
+    args = (x.data_ptr(), out.data_ptr(), w.data_ptr(), b.data_ptr(),
             scale.data_ptr() if scale is not None else None, shift.data_ptr() if shift is not None else None,
-            film_stride, film_bf16, n, c, groups, x[0, 0].numel(), float(eps), int(silu), int(two_read),
-            torch.cuda.current_stream().cuda_stream,
-        )
+            film_stride, film_bf16, n, c, groups, x[0, 0].numel(), float(eps), int(silu))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        # The channels-last mode always reads twice: it takes no two-read flag.
+        err = (lib.mmdiff_group_norm_silu_cl(*args, stream) if rows
+               else lib.mmdiff_group_norm_silu(*args, int(two_read), stream))
     if err:
         raise RuntimeError(f"group_norm_silu kernel launch failed (cuda error {err}) at {tuple(x.shape)}, "
-                           f"{groups} groups")
+                           f"{groups} groups, {'channels-last' if rows else 'channels-first'}")
     if not two_read:
-        LAUNCHES["group_norm_silu"] += 1
+        LAUNCHES["group_norm_silu_cl" if rows else "group_norm_silu"] += 1
     return out
 
 
 def group_norm_silu_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
                          eps: float = 1e-5, film: Film = None, silu: bool = True) -> torch.Tensor:
     """The kernel: bf16 ``x [N, C, ...]`` on the card -> bf16 of the same
-    shape (a non-contiguous ``x`` is copied first)."""
+    shape and memory format; the mode follows ``x``'s layout (module
+    docstring), and an ``x`` neither contiguous nor channels-last is copied
+    first."""
     return _launch(x, weight, bias, groups, eps, film, silu, two_read=False)
 
 
 def _group_norm_silu_two_read_cuda(x, weight, bias, groups, eps=1e-5, film=None, silu=True):
-    """The kernel forced into its two-read mode (the same-run comparison)."""
+    """The kernel forced into its two-read mode (the same-run comparison):
+    the channels-first mode's; a channels-last ``x`` takes its one mode,
+    uncounted."""
     return _launch(x, weight, bias, groups, eps, film, silu, two_read=True)
 
 
@@ -146,7 +175,9 @@ def _route(x: torch.Tensor, tensors) -> str:
         return "autograd"
     if x.device.type == "cpu":
         return "cpu"
-    return "fused" if x.dtype == torch.bfloat16 else "eager"
+    if x.dtype != torch.bfloat16:
+        return "eager"
+    return "fused_cl" if channels_last(x) else "fused"
 
 
 def group_norm_silu(norm: torch.nn.Module, x: torch.Tensor, film: Film = None, silu: bool = True) -> torch.Tensor:
@@ -158,7 +189,7 @@ def group_norm_silu(norm: torch.nn.Module, x: torch.Tensor, film: Film = None, s
     ROUTES[route] += 1
     if route == "cpu":
         return group_norm_silu_reference(x, gn.weight, gn.bias, gn.num_groups, gn.eps, film, silu)
-    if route == "fused":
+    if route in ("fused", "fused_cl"):
         return group_norm_silu_cuda(x, gn.weight, gn.bias, gn.num_groups, gn.eps, film, silu)
     y = gn(x, film=film)
     return F.silu(y) if silu else y
