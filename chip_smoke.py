@@ -9,46 +9,39 @@ Phases, each printed as it runs; any failure exits non-zero:
   2. build: the hand-written kernels from ops/csrc with nvcc (sm_90a),
      timed, with each kernel's registers and spills as ptxas reports them.
   3. kernels vs their plain PyTorch versions on the card, in bf16, at every
-     main-path shape of the flagship sampler (several RS-MMA shifts, the
-     wrap included) and K1 at the text-to-image cell's (SDXL, 8 rows, T =
-     4096 and 1024); max |error| against the stated tolerance, the kernel's,
-     the plain version's and, where one PyTorch call computes the same
-     function, that call's device time, and the bound: the least time the
-     card could take for the same work.  The self-attention forward (K1) and
-     the banded forward (K2/K3), both the Hopper design, are also timed and
-     checked in their previous design (mma.sync) at each shape; K1 is
-     checked at ragged T with N >= 2, at T = 16 with a partial pack and at
-     head dims 32 and 48; beside each banded shape, as a yardstick and not
-     one call for the same function, SDPA's forward on the window gathered
-     into [N*F, H, lw*Tk, d] (the gather untimed).  Both forwards also run
-     at head dims 12, 36, 136 and 200, which take the wrappers' explicit
-     routes (a zero-padded copy, the flash kernels K8 above 128), each
-     checked with the launch counters showing the kernel that ran.  Every
-     time here and in 3b and 7 is device time: a fixed number of calls
-     captured in one CUDA graph and replayed between CUDA events
+     main-path shape of the flagship sampler (several RS-MMA shifts, the wrap
+     included) and K1 at the text-to-image cell's (SDXL, 8 rows, T = 4096 and
+     1024); max |error| against the stated tolerance, the kernel's, the plain
+     version's and, where one PyTorch call computes the same function, that
+     call's device time, and the bound: the least time the card could take
+     for the same work.  K1 is checked at ragged T with N >= 2, at T = 16 with
+     a partial pack and at head dims 32 and 48; beside each banded shape, as
+     a yardstick and not one call for the same function, SDPA's forward on
+     the window gathered into [N*F, H, lw*Tk, d] (the gather untimed).  Both
+     forwards also run at head dims 12, 36, 136 and 200, which take the
+     wrappers' explicit routes (a zero-padded copy, the flash kernels K8
+     above 128), each checked with the launch counters showing the kernel
+     that ran.  Every time here and in 3b and 7 is device time: a fixed number
+     of calls captured in one CUDA graph and replayed between CUDA events
      (mm_diffusion_tpu_torch/utils/timing.py).
   3b. the backward kernels the same way, at every main-path shape of the
      flagship training step (batch 4; banded shifts 0, the middle and the
-     last of the span, where the window wraps), and the forward kernels'
-     out and lse that they take, held to phase 3's tolerance at those
-     shapes; the self-attention backward (K4/K5) and the banded backward
-     (K6/K7) beside their previous designs (both checked, both timed, two
-     runs bitwise equal), K4/K5 also at phase 3's extra cases, the banded
-     forward (K2/K3) timed per training shape beside its previous design,
-     and the banded forward and backward at phase 3's head-dim cases.  The
-     library
+     last of the span, where the window wraps), and the forward kernels' out
+     and lse that they take, held to phase 3's tolerance at those shapes; the
+     self-attention backward (K4/K5) and the banded backward (K6/K7) checked,
+     timed and bitwise equal over two runs, K4/K5 also at phase 3's extra
+     cases, the banded forward (K2/K3) timed per training shape, and the
+     banded forward and backward at phase 3's head-dim cases.  The library
      call timed for the self-attention backward is PyTorch's fused
-     attention's backward alone, one autograd.grad replayed in the graph
-     (its forward+backward is printed beside it); beside each banded shape,
-     as a yardstick and not one call for the same function, the same SDPA
-     backward on the window gathered into [N*F, H, lw*Tk, d] (the gather
-     untimed).  At T = 1024 the Hopper K1 and K5, and at both ds2 shapes
-     the Hopper K6, must beat their previous design.  Then K1 and K4/K5 at
-     the SR U-Net's training shapes (the per-head qkv order, 6 and 12
-     heads) and the single-modal audio U-Net's (T = 6400, 1600 and 400 at
-     head dims 64, 96 and 128), batch 4: out, lse and gradient against the
-     plain versions, the gradient bitwise over two runs, timed beside the
-     plain version, SDPA and the bound.
+     attention's backward alone, one autograd.grad replayed in the graph (its
+     forward+backward is printed beside it); beside each banded shape, as a
+     yardstick and not one call for the same function, the same SDPA backward
+     on the window gathered into [N*F, H, lw*Tk, d] (the gather untimed).
+     Then K1 and K4/K5 at the SR U-Net's training shapes (the per-head qkv
+     order, 6 and 12 heads) and the single-modal audio U-Net's (T = 6400,
+     1600 and 400 at head dims 64, 96 and 128), batch 4: out, lse and
+     gradient against the plain versions, the gradient bitwise over two runs,
+     timed beside the plain version, SDPA and the bound.
   4. one model evaluation on the card (bf16, kernels) against the CPU (fp32,
      plain versions) with the same random non-zero weights: the stock
      MM-UNet at batch 1, and the SR U-Net on 2 frames; relative L2 error.
@@ -59,33 +52,27 @@ Phases, each printed as it runs; any failure exits non-zero:
   6. training: one loss-and-gradient evaluation on the card (bf16, kernels)
      against the CPU (fp32, plain versions) with the same random non-zero
      weights, at full widths and one ResBlock per level; then the train
-     CLI, scripts/multimodal_train.py, end to end at the bench config
-     (batch 4, remat, bf16, synthetic data) for TRAIN_STEPS steps: finite
-     loss and gradient norm, the median step time after two warm-up steps,
-     peak device memory, the kernels' launch counts; then a resume from its
-     checkpoint for one more step.
+     CLI, scripts/multimodal_train.py, end to end at the flagship training
+     config (batch 4, remat, bf16, synthetic data) for TRAIN_STEPS steps:
+     finite loss and gradient norm, the median step time after two warm-up
+     steps, peak device memory, the kernels' launch counts; then a resume
+     from its checkpoint for one more step.
   7. the kernels of the remaining entry points: 7.1 the flash MHA forward
      and backward (K8, ops/fused_attention.py) at its hot shapes in both
-     layouts (SDXL's cross-attention, Tk = 77, among them) (and at head dims 32, 256, and 12 and 36 on zero-padded
-     copies), the K1 variants of the A/B tool
-     (S1/S2: rows, nomax, noexp; also at head dims 12, 36, 136 and 200
-     through their routes, checked with the route and launch counters),
+     layouts (SDXL's cross-attention, Tk = 77, among them) (and at head dims
+     32, 256, and 12 and 36 on zero-padded copies), the K1 variants of the
+     A/B tool (S1/S2: rows, nomax, noexp; also at head dims 12, 36, 136 and
+     200 through their routes, checked with the route and launch counters),
      the two-part skip GEMM (S3), the direct 3x3 conv and its GEMM core
      (S4), each against its plain version as in phase 3 with its device
-     time, plain time, library time and bound, and planted faults that
-     the lse and noexp limits must reject (for the K8 forward, the zero
-     keys that pad Tk to 128 and to 64 let into the softmax); the K8
-     forward and backward, the K1 variants, the GEMM (S3 and the S4 core)
-     and the conv, each the Hopper design, also checked and timed in their
-     previous design (mma.sync), which they must beat at each K8 hot shape,
-     at each variant's main case, at the S3 shape, at each S4-core case
-     and at the conv's bench shape (the
-     conv's time includes its input copy, conv3x3_chw[halo], also checked
-     and timed alone), and the Hopper K8 backward must give bitwise equal
-     gradients in two runs; 7.2 the entry points
-     themselves -- flash_mha and flash_mha_bhtd forward and backward
-     through autograd at 7.1's hot shapes against the plain versions,
-     then each A/B tool under
+     time, plain time, library time and bound, and planted faults that the
+     lse and noexp limits must reject (for the K8 forward, the zero keys
+     that pad Tk to 128 and to 64 let into the softmax); the conv's time
+     includes its input copy, conv3x3_chw[halo], also checked and timed
+     alone, and the Hopper K8 backward must give bitwise equal gradients in
+     two runs; 7.2 the entry points themselves -- flash_mha and
+     flash_mha_bhtd forward and backward through autograd at 7.1's hot
+     shapes against the plain versions, then each A/B tool under
      mm_diffusion_tpu_torch/tools/ once with few iterations -- with the
      kernels' launch counts over that run, which must show the Hopper
      forward and the Hopper backward alone.
@@ -148,22 +135,17 @@ Phases, each printed as it runs; any failure exits non-zero:
      protocol "reference"), image_eval.py (--clip_checkpoint) and
      video_is.py (C3D at the published widths) on random-weight checkpoints
      in the original key layouts: finite metrics, wall seconds, peak memory.
-  12. the bench's batch-8 path (mm_diffusion_tpu_torch/bench.py): 12.1 K1-K3
+  12. the batch-8 path (the benchmark's base-dpm20-b8 cell): 12.1 K1-K3
      at the base MM-UNet's shapes at batch 8 (N = 128 at T = 1024 / 256 /
      64, N = 8192 / 2048 / 512 at T = 16, N = 8 at T = 400; the banded
      shapes at N = 8, shifts 0, the middle and the last of the span)
      against their plain versions, each timed with its bound (K1 beside
-     SDPA's forward); 12.2 one evaluation of the bench's base MM-UNet at
+     SDPA's forward); 12.2 one evaluation of the flagship base MM-UNet at
      batch 8 against eight batch-1 evaluations of its rows (random
      non-zero weights, one timestep per row, a fixed shift), in bf16 and
-     in fp32, with K1-K3 launched; 12.3 ``python -m
-     mm_diffusion_tpu_torch.bench`` at the full protocol in a subprocess:
-     both headline lines with finite, positive numbers, the train step
-     and the pipeline run, no probe skipped but the real-data one for
-     want of OpenCV, K1-K3 launched in a base evaluation and K4-K7 in a
-     train step.
+     in fp32, with K1-K3 launched.
   13. the GroupNorm + FiLM + SiLU kernel (ops/group_norm.py): 13.1 one
-     evaluation of each benchmark sampling model (FLAGSHIP's SR U-Net on 16
+     evaluation of each benchmark sampling model (the flagship SR U-Net on 16
      frames at 256^2, the base MM-UNet at batch 8, SDXL base's U-Net at 8
      rows of 128^2 latents) under inference_mode, every ResBlock, out-head
      and SpatialTransformer norm on the fused route (the attention norms
@@ -188,9 +170,7 @@ error and the per-evaluation sums), then three lines: the kernels' JSON record
 phase 6's training run, K8 and S1-S4 in phase 7.2's entry-point run, where a
 graph replay re-runs captured launches without counting them -- and the
 per-call numbers of phases 3, 3b and 7.1 summed over each kernel's main-path
-or hot shapes; K1-K7, the K8 forward and backward, S1, S2, S3, the conv
-and the S4 core also carry ``previous_ms``, their previous design's time in
-the same run; K1-K7 carry ``a2v_launches``, their launches in phase 8.3's
+or hot shapes; K1-K7 carry ``a2v_launches``, their launches in phase 8.3's
 a2v run (K1's include the SR stage's), and K4-K7 ``a2v_ms`` and
 ``a2v_bound_ms``, phase 8.2's per-call numbers summed over the sampler's
 batch-1 shapes; K1, K4 and K5 carry ``sr_train_launches``,
@@ -201,9 +181,7 @@ summed over the SR and audio training shapes; K1-K3 carry
 ``eval_cli_launches``, their launches in phase 11.2's sampling run with the
 evaluation, and ``b8_ms``, ``b8_bound_ms`` and ``b8_library_ms`` (K1's
 SDPA; null for K2/K3), phase 12.1's per-call numbers summed over the
-batch-8 shapes, and ``bench_eval_launches``, their launches per base
-evaluation in the bench; K1-K7 carry ``bench_train_step_launches``, their
-launches per train step there), the card's ``nvidia-smi`` name and power limit, and
+batch-8 shapes), the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -218,6 +196,10 @@ import sys
 import tempfile
 import time
 
+from mm_diffusion_tpu_torch.tools.ab_self_attention import (
+    BANDED_SHAPES, FLASH_SHAPES, SELF_SHAPES, TRAIN_BANDED_SHAPES, TRAIN_SELF_SHAPES,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 START = time.perf_counter()  # the script's own clock, printed with each phase
 
@@ -229,57 +211,6 @@ START = time.perf_counter()  # the script's own clock, printed with each phase
 MODEL_REL_L2_TOL = 5e-2
 BANDED_SHIFTS = 3  # shifts per banded shape: 0, the middle and the last of the span
 
-# Main-path shapes at batch 1 of the flagship config (16x64x64 video, 25600
-# audio samples, 128 channels, mult 1,2,3,4; SR 192 channels, head dim 64),
-# and of the text-to-image cell.
-SELF_SHAPES = [  # (label, N, T, C, heads, layout)
-    ("mm spatial ds2", 16, 1024, 256, 4, "thirds"),
-    ("mm spatial ds4", 16, 256, 384, 4, "thirds"),
-    ("mm spatial ds8", 16, 64, 512, 4, "thirds"),
-    ("mm temporal ds2", 1024, 16, 256, 4, "thirds"),
-    ("mm temporal ds4", 256, 16, 384, 4, "thirds"),
-    ("mm temporal ds8", 64, 16, 512, 4, "thirds"),
-    ("mm middle audio", 1, 400, 512, 4, "thirds"),
-    ("sr ds8", 16, 1024, 384, 6, "per_head"),
-    ("sr ds16", 16, 256, 768, 12, "per_head"),
-    ("sr ds32", 16, 64, 768, 12, "per_head"),
-    # Stable Diffusion XL base's self-attention in the benchmark's
-    # text-to-image cell: 8 rows an evaluation (4 images with guidance),
-    # 64x64 and 32x32 latent tokens, 64-wide heads.
-    ("sdxl 64x64", 8, 4096, 640, 10, "thirds"),
-    ("sdxl 32x32", 8, 1024, 1280, 20, "thirds"),
-]
-BANDED_SHAPES = [  # (label, F, Tq, Tk, C, heads, lw)
-    ("ds2 video->audio", 16, 1024, 400, 256, 4, 1),
-    ("ds2 audio->video", 16, 400, 1024, 256, 4, 1),
-    ("ds4 video->audio", 16, 256, 100, 384, 6, 4),
-    ("ds4 audio->video", 16, 100, 256, 384, 6, 4),
-    ("ds8 video->audio", 16, 64, 25, 512, 8, 8),
-    ("ds8 audio->video", 16, 25, 64, 512, 8, 8),
-    ("middle video->audio", 16, 64, 25, 512, 8, 16),
-    ("middle audio->video", 16, 25, 64, 512, 8, 16),
-]
-# Main-path shapes of the flagship training step (bench config, batch 4):
-# the sampler's shapes with N scaled by 4.
-TRAIN_SELF_SHAPES = [  # (label, N, T, C, heads, layout)
-    ("spatial ds2", 64, 1024, 256, 4, "thirds"),
-    ("spatial ds4", 64, 256, 384, 4, "thirds"),
-    ("spatial ds8", 64, 64, 512, 4, "thirds"),
-    ("temporal ds2", 4096, 16, 256, 4, "thirds"),
-    ("temporal ds4", 1024, 16, 384, 4, "thirds"),
-    ("temporal ds8", 256, 16, 512, 4, "thirds"),
-    ("middle audio", 4, 400, 512, 4, "thirds"),
-]
-TRAIN_BANDED_SHAPES = [  # (label, N, F, Tq, Tk, C, heads, lw)
-    ("ds2 video->audio", 4, 16, 1024, 400, 256, 4, 1),
-    ("ds2 audio->video", 4, 16, 400, 1024, 256, 4, 1),
-    ("ds4 video->audio", 4, 16, 256, 100, 384, 6, 4),
-    ("ds4 audio->video", 4, 16, 100, 256, 384, 6, 4),
-    ("ds8 video->audio", 4, 16, 64, 25, 512, 8, 8),
-    ("ds8 audio->video", 4, 16, 25, 64, 512, 8, 8),
-    ("middle video->audio", 4, 16, 64, 25, 512, 8, 16),
-    ("middle audio->video", 4, 16, 25, 64, 512, 8, 16),
-]
 # Main-path shapes of the SR U-Net's and the single-modal audio U-Net's
 # training steps at batch 4 (phase 3b's extra backward cases, checked and
 # timed with their bounds, not in the sums): the SR U-Net's attention at
@@ -336,17 +267,8 @@ REPLACES = {  # the Pallas kernel bodies in the JAX package
     "banded_attention_bwd[lw>1]": "mm_diffusion_tpu/ops/block_attention.py:877",  # K7
 }
 
-# Phase 7: the kernels of the fused_attention API (K8) and of the A/B tools
-# (S1-S4), at the hot shapes of ops/fused_attention.py's docstring and of the
-# JAX tools.  (label, B, H, Tq, Tk, D, layout); B = batch * frames.
-FLASH_SHAPES = [
-    ("self", 128, 4, 1024, 1024, 64, "bhtd"),
-    ("video->audio", 128, 4, 1024, 400, 64, "bthd"),
-    ("audio->video", 128, 4, 100, 1024, 64, "bthd"),
-    # SDXL's cross-attention to the 77-token text context, 8 rows.
-    ("sdxl 64x64 cross", 8, 10, 4096, 77, 64, "bthd"),
-    ("sdxl 32x32 cross", 8, 20, 1024, 77, 64, "bthd"),
-]
+# Phase 7: K8 and the A/B tools' kernels (S1-S4); FLASH_SHAPES are K8's hot
+# shapes.
 # K8 at head dims 32 and 256, and 12 and 36 on zero-padded copies (checked
 # and timed, not in the sums).
 FLASH_EXTRA_SHAPES = [
@@ -509,7 +431,7 @@ def toolchain() -> str:
     print(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
     print(f"nvidia-smi: {smi}")
     print("TF32: matmul off, cudnn off")
-    try:  # the datasets' decoder: the bench's real-data probe needs it
+    try:  # the datasets' decoder
         import cv2
 
         print(f"OpenCV: {cv2.__version__}")
@@ -610,25 +532,15 @@ def kernel_parity():
         plain_ms = time_ms(lambda: ba.self_attention_reference(qkv, h, layout))
         lib_ms = library_attention_ms(packed_views(layout, h), [qkv])
         bound = bound_ms(*self_attention_work(n, t, c, h))
-        prev = ""
-        if head_dim_route(d) == "kernel":
-            prev_out, prev_lse = ba._self_attention_previous_cuda(qkv, h, layout)
-            prev_err, prev_lse_err, prev_ok = self_forward_check(qkv, h, layout, prev_out, prev_lse)
-            check(prev_ok, f"self_attention previous design {label}: err {prev_err}, lse {prev_lse_err}")
-            prev_ms = time_ms(lambda: ba._self_attention_previous_cuda(qkv, h, layout))
-            prev = f" previous design={prev_ms:.4f} ms (err={prev_err:.3e}, x{ms / prev_ms:.2f})"
-            if t >= ba.K5_MIN_T:
-                check(ms < prev_ms, f"self_attention {label}: {ms} ms, not faster than the previous design")
         print(
             f"self_attention {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {layout:8s} "
-            f"err={err:.3e} lse_err={lse_err:.3e} kernel={ms:.4f} ms{prev} plain={plain_ms:.4f} ms "
+            f"err={err:.3e} lse_err={lse_err:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
             f"library (SDPA fwd)={lib_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})"
             + ("" if main else f" [extra case, not summed; {ran}]")
         )
         if main:
-            record("self_attention", max(err, lse_err), ms, plain_ms, bound, lib_ms, prev_ms)
+            record("self_attention", max(err, lse_err), ms, plain_ms, bound, lib_ms)
 
-    k2_ms = k2_prev_ms = 0.0
     for label, f, tq, tk, c, h, lw in BANDED_SHAPES + BANDED_EXTRA_SHAPES:
         main = (label, f, tq, tk, c, h, lw) in BANDED_SHAPES
         d = c // h
@@ -637,7 +549,7 @@ def kernel_parity():
         span = f - lw
         shifts = sorted({0, span // 2, span})[:BANDED_SHIFTS]
         name = "banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]"
-        worst = prev_worst = 0.0
+        worst = 0.0
         for s in shifts:
             (out, lse), ran = routed_call(
                 "banded_attention", d, lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
@@ -645,11 +557,6 @@ def kernel_parity():
             err, lse_err, ok = banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse)
             check(ok, f"banded {label} shift {s}: err {err}, lse {lse_err}")
             worst = max(worst, err, lse_err)
-            if main:
-                prev_out, prev_lse = ba._banded_attention_previous_cuda(q_src, kv_src, s, lw, h, c)
-                err, lse_err, ok = banded_forward_check(q_src, kv_src, s, lw, h, c, prev_out, prev_lse)
-                check(ok, f"banded previous design {label} shift {s}: err {err}, lse {lse_err}")
-                prev_worst = max(prev_worst, err, lse_err)
         s = shifts[-1]
         ms = time_ms(lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
         plain_ms = time_ms(lambda: ba.banded_cross_attention_reference(q_src, kv_src, s, lw, h, c))
@@ -657,26 +564,15 @@ def kernel_parity():
         window, _ = gathered_window(q_src, kv_src, q_src[..., :c], s, lw, h, c)
         sdpa_ms = library_attention_ms(lambda *xs: xs, window)
         del window
-        prev = ""
-        if main:
-            prev_ms = time_ms(lambda: ba._banded_attention_previous_cuda(q_src, kv_src, s, lw, h, c))
-            prev = f" previous design={prev_ms:.4f} ms (err={prev_worst:.3e}, x{ms / prev_ms:.2f})"
         print(
             f"banded_attention {label:20s} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} lw={lw:2d} "
-            f"shifts={shifts} err={worst:.3e} kernel={ms:.4f} ms{prev} plain={plain_ms:.4f} ms "
+            f"shifts={shifts} err={worst:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
             f"bound={bound[0]:.4f} ms ({bound[1]}); yardstick, not the same function: "
             f"library (SDPA fwd, gathered window)={sdpa_ms:.4f} ms"
             + ("" if main else f" [extra case, not summed; {ran}]")
         )
-        if not main:
-            continue
-        if lw == 1:
-            check(ms < prev_ms, f"banded_attention {label}: {ms} ms, not faster than the previous design")
-        else:
-            k2_ms, k2_prev_ms = k2_ms + ms, k2_prev_ms + prev_ms
-        record(name, worst, ms, plain_ms, bound, None, prev_ms)
-    print(f"banded_attention[lw>1] summed over its shapes: {k2_ms:.4f} ms, previous design {k2_prev_ms:.4f} ms")
-    check(k2_ms < k2_prev_ms, "banded_attention[lw>1]: not faster than the previous design summed")
+        if main:
+            record(name, worst, ms, plain_ms, bound, None)
     return summary
 
 
@@ -714,20 +610,17 @@ def banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse):
 
 
 def recorder(summary):
-    """``record(name, err, ms, plain_ms, (bound_ms, bound_by), library_ms,
-    previous_ms=None)`` into ``summary``: the worst error, per-call times
-    summed over the shapes (the previous design's too, where given), the
-    limiter of the largest bound share."""
+    """``record(name, err, ms, plain_ms, (bound_ms, bound_by), library_ms)``
+    into ``summary``: the worst error, per-call times summed over the
+    shapes, the limiter of the largest bound share."""
 
-    def record(name, err, ms, plain_ms, bound, lib_ms, prev_ms=None):
+    def record(name, err, ms, plain_ms, bound, lib_ms):
         s = summary.setdefault(name, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
             "by": {"bytes": 0.0, "operations": 0.0}, "library_ms": 0.0,
         })
         s["max_abs_err"] = max(s["max_abs_err"], err)
         s["ms"] += ms
-        if prev_ms is not None:
-            s["previous_ms"] = s.get("previous_ms", 0.0) + prev_ms
         s["plain_ms"] += plain_ms
         s["bound_ms"] += bound[0]
         s["by"][bound[1]] += bound[0]
@@ -772,15 +665,6 @@ def backward_parity(forward_summary):
         err, ok = ba.BACKWARD_TOL.check(dqkv, ref)
         check(ok, f"self_attention_bwd {label}: err {err}")
         ms = time_ms(lambda: ba.self_attention_bwd_cuda(qkv, out, lse, dout, h, layout))
-        prev = ""
-        if head_dim_route(c // h) == "kernel":
-            prev_err, prev_ok = ba.BACKWARD_TOL.check(
-                ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout), ref)
-            check(prev_ok, f"self_attention_bwd previous design {label}: err {prev_err}")
-            prev_ms = time_ms(lambda: ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, h, layout))
-            prev = f" previous design={prev_ms:.4f} ms (err={prev_err:.3e}, x{ms / prev_ms:.2f})"
-            if t >= ba.K5_MIN_T:
-                check(ms < prev_ms, f"self_attention_bwd {label}: {ms} ms, not faster than the previous design")
         scale = ref.float().abs().max().item()
         del ref
         plain_ms = time_ms(lambda: ba.self_attention_backward_reference(qkv, dout, h, layout))
@@ -790,13 +674,13 @@ def backward_parity(forward_summary):
         print(
             f"self_attention_bwd {label:18s} N={n:5d} T={t:5d} C={c} H={h} {layout:8s} "
             f"forward err={fwd_err:.3e} lse_err={lse_err:.3e}; err={err:.3e} "
-            f"(max|plain| {scale:.3e}) kernel={ms:.4f} ms{prev} plain={plain_ms:.4f} ms "
+            f"(max|plain| {scale:.3e}) kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
             f"library bwd={lib_ms:.4f} ms (fwd+bwd {lib_fwd_bwd_ms:.4f} ms) "
             f"bound={bound[0]:.4f} ms ({bound[1]})" + ("" if main else f" [extra case, not summed; {ran}]")
         )
         name = "self_attention_bwd[T>512]" if t >= ba.K5_MIN_T else "self_attention_bwd[T<=512]"
         if main:
-            record(name, err, ms, plain_ms, bound, lib_ms, prev_ms)
+            record(name, err, ms, plain_ms, bound, lib_ms)
 
     fwd_sums = {}
     for label, n, f, tq, tk, c, h, lw in TRAIN_BANDED_SHAPES:
@@ -805,7 +689,7 @@ def backward_parity(forward_summary):
         dout = torch.randn((n, f, tq, c), generator=g, device=dev, dtype=torch.bfloat16)
         span = f - lw
         shifts = sorted({0, span // 2, span})
-        worst = prev_worst = fwd_worst = 0.0
+        worst = fwd_worst = 0.0
         for s in shifts:
             out, lse = ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c)
             fwd_err, lse_err, fwd_ok = banded_forward_check(q_src, kv_src, s, lw, h, c, out, lse)
@@ -814,35 +698,23 @@ def backward_parity(forward_summary):
             worst_fwd("banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]",
                       fwd_err, lse_err)
             got = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
-            prev = ba._banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
             ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
-            for name_, a, p, b in zip(("dq_src", "dkv_src"), got, prev, ref):
-                (err, ok), (prev_err, prev_ok) = ba.BACKWARD_TOL.check(a, b), ba.BACKWARD_TOL.check(p, b)
+            for name_, a, b in zip(("dq_src", "dkv_src"), got, ref):
+                err, ok = ba.BACKWARD_TOL.check(a, b)
                 check(ok, f"banded_attention_bwd {label} shift {s} {name_}: err {err}")
-                check(prev_ok, f"banded_attention_bwd previous design {label} shift {s} {name_}: err {prev_err}")
-                worst, prev_worst = max(worst, err), max(prev_worst, prev_err)
+                worst = max(worst, err)
             check(not got[0][..., c:].any() and not got[1][..., :c].any(),
                   f"banded_attention_bwd {label} shift {s}: non-zero lanes outside q / k|v")
             check(all(torch.equal(a, b) for a, b in zip(
                 got, ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))),
                 f"banded_attention_bwd {label} shift {s}: two runs differ")
-            del got, prev, ref
-        prev_out, prev_lse = ba._banded_attention_previous_cuda(q_src, kv_src, s, lw, h, c)
-        prev_fwd_err, prev_lse_err, prev_fwd_ok = banded_forward_check(
-            q_src, kv_src, s, lw, h, c, prev_out, prev_lse)
-        check(prev_fwd_ok, f"banded previous design {label} (training shape): err {prev_fwd_err}")
+            del got, ref
         fwd_ms = time_ms(lambda: ba.banded_attention_cuda(q_src, kv_src, s, lw, h, c))
-        fwd_prev_ms = time_ms(lambda: ba._banded_attention_previous_cuda(q_src, kv_src, s, lw, h, c))
         kind = "banded_attention[lw=1]" if lw == 1 else "banded_attention[lw>1]"
-        sums = fwd_sums.setdefault(kind, [0.0, 0.0])
-        sums[0], sums[1] = sums[0] + fwd_ms, sums[1] + fwd_prev_ms
+        fwd_sums[kind] = fwd_sums.get(kind, 0.0) + fwd_ms
         print(f"banded_attention {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} lw={lw:2d} (training "
-              f"shape, shift {s}): kernel={fwd_ms:.4f} ms previous design={fwd_prev_ms:.4f} ms "
-              f"(err={max(prev_fwd_err, prev_lse_err):.3e}, x{fwd_ms / fwd_prev_ms:.2f})")
+              f"shape, shift {s}): kernel={fwd_ms:.4f} ms")
         ms = time_ms(lambda: ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c))
-        prev_ms = time_ms(
-            lambda: ba._banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, dout, s, lw, h, c)
-        )
         plain_ms = time_ms(
             lambda: ba.banded_attention_backward_reference(q_src, kv_src, dout, s, lw, h, c)
         )
@@ -853,16 +725,13 @@ def backward_parity(forward_summary):
         print(
             f"banded_attention_bwd {label:20s} N={n} F={f} Tq={tq:5d} Tk={tk:5d} C={c} H={h} "
             f"lw={lw:2d} shifts={shifts} forward err={fwd_worst:.3e}; err={worst:.3e} kernel={ms:.4f} ms "
-            f"previous design={prev_ms:.4f} ms (err={prev_worst:.3e}, x{ms / prev_ms:.2f}) "
             f"plain={plain_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]}); yardstick, not the same "
             f"function: SDPA bwd on the gathered window {sdpa_ms:.4f} ms (fwd+bwd {sdpa_fwd_bwd_ms:.4f} ms)"
         )
-        if lw == 1:
-            check(ms < prev_ms, f"banded_attention_bwd {label}: {ms} ms, not faster than the previous design")
         name = "banded_attention_bwd[lw=1]" if lw == 1 else "banded_attention_bwd[lw>1]"
-        record(name, worst, ms, plain_ms, bound, None, prev_ms)
-    for kind, (ms, prev_ms) in fwd_sums.items():
-        print(f"{kind} at the training shapes, summed: {ms:.4f} ms, previous design {prev_ms:.4f} ms")
+        record(name, worst, ms, plain_ms, bound, None)
+    for kind, ms in fwd_sums.items():
+        print(f"{kind} at the training shapes, summed: {ms:.4f} ms")
     banded_head_dims(g)
     return summary
 
@@ -1034,12 +903,21 @@ def model_parity() -> None:
     check(e <= MODEL_REL_L2_TOL, "SR U-Net card vs CPU")
 
 
+def flagship_configs():
+    """``(base MM-UNet config, SR U-Net config)`` of the sampling CLI's
+    LAUNCH_SCRIPT_ARGS, the flagship flags that users run."""
+    from mm_diffusion_tpu_torch import configs
+    from mm_diffusion_tpu_torch.scripts import multimodal_sample_sr as cli
+
+    args = vars(cli.create_argparser().parse_args(cli.LAUNCH_SCRIPT_ARGS))
+    return configs.create_model_config(**args), configs.create_image_sr_config(**args)
+
+
 def flagship(tmp: str):
     """Phase 5; returns the launch counts of the main path's run."""
     import numpy as np
     import torch
 
-    from mm_diffusion_tpu_torch import configs
     from mm_diffusion_tpu_torch.models.image_unet import ImageSuperResModel
     from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
     from mm_diffusion_tpu_torch.ops import block_attention as ba
@@ -1048,9 +926,7 @@ def flagship(tmp: str):
 
     phase("5. flagship CLI: scripts/multimodal_sample_sr.py, 20-NFE DPM-Solver + ddim25 SR")
     flagship_args = cli.LAUNCH_SCRIPT_ARGS
-    args = cli.create_argparser().parse_args(flagship_args)
-    base_cfg = configs.create_model_config(**vars(args))
-    sr_cfg = configs.create_image_sr_config(**vars(args))
+    base_cfg, sr_cfg = flagship_configs()
     base_pt, sr_pt = os.path.join(tmp, "base.pt"), os.path.join(tmp, "sr.pt")
     torch.save(randomize_(MultimodalUNet(base_cfg), seed=21).state_dict(), base_pt)
     torch.save(randomize_(ImageSuperResModel(sr_cfg), seed=22).state_dict(), sr_pt)
@@ -1081,7 +957,7 @@ def flagship(tmp: str):
     return {k: v for k, v in ba.kernel_launches().items() if "_bwd" not in k}
 
 
-TRAIN_FLAGS = (  # the bench's training config (bench.py), synthetic data
+TRAIN_FLAGS = (  # the flagship training config (batch 4, remat, bf16), synthetic data
     "--video_size 16,3,64,64 --audio_size 1,25600 --num_channels 128 --num_res_blocks 2 "
     "--num_head_channels 64 --cross_attention_resolutions 2,4,8 --cross_attention_windows 1,4,8 "
     "--cross_attention_shift True --video_attention_resolutions 2,4,8 "
@@ -1161,7 +1037,7 @@ def training(tmp: str):
     from mm_diffusion_tpu_torch.ops import block_attention as ba
     from mm_diffusion_tpu_torch.scripts import multimodal_train as cli
 
-    phase(f"6.2 train CLI: scripts/multimodal_train.py, bench config, {TRAIN_STEPS} steps")
+    phase(f"6.2 train CLI: scripts/multimodal_train.py, flagship training config, {TRAIN_STEPS} steps")
     out_dir = os.path.join(tmp, "train")
     argv = TRAIN_FLAGS + [
         "--output_dir", out_dir, "--device", "cuda", "--log_interval", "1",
@@ -1259,13 +1135,6 @@ def flash_parity(record):
         lse_ref = torch.logsumexp(logits, -1)
         (err, ok), (lse_err, lse_ok) = fa.FORWARD_TOL.check(out, ref), fa.LSE_TOL.check(lse, lse_ref)
         check(ok and lse_ok, f"flash_mha_fwd {label}: err {err}, lse {lse_err}")
-        # The previous design beside the Hopper one, where the Hopper one runs.
-        previous = design == "sm90" and d % 8 == 0
-        if previous:
-            prev_out, prev_lse = fa._flash_mha_fwd_previous_cuda(q, k, v)
-            (perr, pok), (plse_err, plse_ok) = fa.FORWARD_TOL.check(prev_out, ref), fa.LSE_TOL.check(prev_lse, lse_ref)
-            check(pok and plse_ok, f"flash_mha_fwd {label} previous design: err {perr}, lse {plse_err}")
-            del prev_out, prev_lse
         del ref, logits
         # Planted faults: the logsumexp a kernel would give if it let the
         # zero keys that pad Tk to a 128-key (the TPU path) or a 64-key (this
@@ -1277,16 +1146,11 @@ def flash_parity(record):
             check(not fault_ok, f"flash_mha_fwd {label}: the lse limit lets {pad} stray keys pass")
         fwd = dict(
             ms=time_ms(lambda: fa.flash_mha_fwd_cuda(q, k, v)),
-            prev=time_ms(lambda: fa._flash_mha_fwd_previous_cuda(q, k, v)) if previous else None,
             plain=time_ms(lambda: fa.mha_reference(*bthd(q, k, v))),
             lib=library_attention_ms(lambda *xs: xs, [q, k, v]),
             bound=bound_ms(*flash_work(b, h, tq, tk, d)),
         )
-        if main:
-            check(fwd["prev"] is not None and fwd["ms"] < fwd["prev"],
-                  f"flash_mha_fwd {label}: the Hopper design ({fwd['ms']:.4f} ms) is not faster "
-                  f"than the previous one ({fwd['prev']} ms)")
-        rec("flash_mha_fwd", max(err, lse_err), fwd["ms"], fwd["plain"], fwd["bound"], fwd["lib"], fwd["prev"])
+        rec("flash_mha_fwd", max(err, lse_err), fwd["ms"], fwd["plain"], fwd["bound"], fwd["lib"])
 
         bdesign = fa.backward_design(d, q.dtype)[0]
         fa.reset_launch_counts()
@@ -1298,13 +1162,8 @@ def flash_parity(record):
             e, ok = fa.BACKWARD_TOL.check(a, r.transpose(1, 2))
             check(ok, f"flash_mha_bwd {label} {name}: err {e}")
             bwd_err = max(bwd_err, e)
-        # The previous design beside the Hopper one, where the Hopper one
-        # runs; the Hopper backward bitwise equal over two runs.
-        bwd_previous = bdesign == "sm90" and d % 8 == 0
-        if bwd_previous:
-            for name, a, r in zip(("dq", "dk", "dv"), fa._flash_mha_bwd_previous_cuda(q, k, v, out, lse, dout), refs):
-                e, ok = fa.BACKWARD_TOL.check(a, r.transpose(1, 2))
-                check(ok, f"flash_mha_bwd {label} {name} previous design: err {e}")
+        # The Hopper backward bitwise equal over two runs.
+        if bdesign == "sm90":
             again = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
             check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                   f"flash_mha_bwd {label}: two runs of the Hopper backward differ")
@@ -1312,21 +1171,14 @@ def flash_parity(record):
         del grads, refs
         bwd = dict(
             ms=time_ms(lambda: fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)),
-            prev=time_ms(lambda: fa._flash_mha_bwd_previous_cuda(q, k, v, out, lse, dout)) if bwd_previous else None,
             plain=time_ms(lambda: fa.mha_backward_reference(*bthd(q, k, v, dout))),
             bound=bound_ms(*flash_work(b, h, tq, tk, d, backward=True)),
         )
         bwd["lib"], lib_fwd_bwd = library_attention_ms(lambda *xs: xs, [q, k, v], dout)
-        if main:
-            check(bwd["prev"] is not None and bwd["ms"] < bwd["prev"],
-                  f"flash_mha_bwd {label}: the Hopper design ({bwd['ms']:.4f} ms) is not faster "
-                  f"than the previous one ({bwd['prev']} ms)")
-        rec("flash_mha_bwd", bwd_err, bwd["ms"], bwd["plain"], bwd["bound"], bwd["lib"], bwd["prev"])
+        rec("flash_mha_bwd", bwd_err, bwd["ms"], bwd["plain"], bwd["bound"], bwd["lib"])
         for name, r, e, dsg in (("fwd", fwd, max(err, lse_err), design), ("bwd", bwd, bwd_err, bdesign)):
             print(f"flash_mha_{name} {label:13s} {layout} B={b} H={h} Tq={tq:5d} Tk={tk:5d} D={d} "
-                  f"err={e:.3e} kernel={r['ms']:.4f} ms ({dsg}) "
-                  + (f"previous={r['prev']:.4f} ms " if r.get("prev") is not None else "")
-                  + f"plain={r['plain']:.4f} ms "
+                  f"err={e:.3e} kernel={r['ms']:.4f} ms ({dsg}) plain={r['plain']:.4f} ms "
                   f"library={r['lib']:.4f} ms bound={r['bound'][0]:.4f} ms ({r['bound'][1]})"
                   + (f" (library fwd+bwd {lib_fwd_bwd:.4f} ms)" if name == "bwd" else "")
                   + ("" if main else " [extra case, not summed]"))
@@ -1346,8 +1198,7 @@ VARIANT_EXTRA_CASES = [
 def variant_parity(record):
     """Phase 7.1 (S1, S2): the K1 variants that are kernels of their own
     (rows, nomax, noexp), each the Hopper design, against their plain
-    versions and their previous design (mma.sync, which they must beat) at
-    the JAX tools' cases (rows: S1's four; nomax, noexp: S2's three), and
+    versions at the JAX tools' cases (rows: S1's four; nomax, noexp: S2's three), and
     at VARIANT_EXTRA_CASES' head dims through their routes, with the
     counters showing the route and the kernel.  noexp's limit must also
     reject two planted faults: the plain output with each sequence's keys
@@ -1372,7 +1223,7 @@ def variant_parity(record):
             routes = {k: v for k, v in {"self_attention_variant:pad": int(dp != d),
                                         "self_attention_variant:wide": int(dp > 128)}.items() if v}
             check(dict(ba.VARIANT_LAUNCHES) == {variant: 1} and dict(ba.HEAD_DIM_ROUTES) == routes
-                  and not ba.PREVIOUS_LAUNCHES and ba.LAUNCHES["self_attention"] == 0,
+                  and ba.LAUNCHES["self_attention"] == 0,
                   f"{name} {label}: launches {dict(ba.VARIANT_LAUNCHES)}, routes {dict(ba.HEAD_DIM_ROUTES)}")
             ref = ba.self_attention_variant_reference(qkv, h, variant)
             err, ok = tol.check(out, ref)
@@ -1389,25 +1240,16 @@ def variant_parity(record):
                       + ", ".join(f"{k} err {e:.3e} rejected {not o}" for k, (e, o) in readings.items()))
                 check(not any(o for _, o in readings.values()), f"{name} {label}: a planted fault passes")
             ms = time_ms(lambda: ba.self_attention_variant_cuda(qkv, h, variant))
-            prev = ""
-            if main:
-                previous = lambda: ba._self_attention_variant_previous_cuda(qkv, h, variant)  # noqa: E731
-                prev_err, prev_ok = tol.check(previous(), ref)
-                check(prev_ok, f"{name} {label} (previous design): err {prev_err}")
-                prev_ms = time_ms(previous)
-                prev = f"previous={prev_ms:.4f} ms (err {prev_err:.3e}) "
             del out, ref
             plain_ms = time_ms(lambda: ba.self_attention_variant_reference(qkv, h, variant))
             lib_ms = library_attention_ms(packed_views("thirds", h), [qkv])
             bound = bound_ms(*self_attention_work(n, t, c, h, lse=False))
             print(f"{name:30s} {label:13s} N={n:5d} T={t:5d} C={c} H={h:2d} err={err:.3e} "
-                  f"kernel={ms:.4f} ms {prev}plain={plain_ms:.4f} ms library (SDPA fwd)={lib_ms:.4f} ms "
+                  f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms library (SDPA fwd)={lib_ms:.4f} ms "
                   f"bound={bound[0]:.4f} ms ({bound[1]})"
                   + ("" if main else f" [extra case, route {routes or 'kernel'}, not summed]"))
             if main:
-                check(ms < prev_ms, f"{name} {label}: the Hopper design ({ms:.4f} ms) is not faster than "
-                                    f"the previous one ({prev_ms:.4f} ms)")
-                record(name, err, ms, plain_ms, bound, lib_ms, prev_ms)
+                record(name, err, ms, plain_ms, bound, lib_ms)
             del qkv
 
 
@@ -1431,24 +1273,19 @@ def gemm_conv_parity(record):
     plain = gc.skip_gemm_reference(x1, x2, wt)
     err, ok = gc.GEMM_TOL.check(gc.skip_gemm_cuda(x1, x2, wt), plain)
     check(ok, f"skip_gemm: err {err}")
-    prev_err, prev_ok = gc.GEMM_TOL.check(gc._skip_gemm_previous_cuda(x1, x2, wt), plain)
-    check(prev_ok, f"skip_gemm previous design: err {prev_err}")
     del plain
     wb = wt.to(bf)
     ms = time_ms(lambda: gc.skip_gemm_cuda(x1, x2, wt))
-    prev_ms = time_ms(lambda: gc._skip_gemm_previous_cuda(x1, x2, wt))
     plain_ms = time_ms(lambda: gc.skip_gemm_reference(x1, x2, wt))
     split_ms = time_ms(lambda: x1 @ wb[:c] + x2 @ wb[c:])
     concat_ms = time_ms(lambda: torch.cat([x1, x2], dim=-1) @ wb)
     m = b * h * w
     bound = bound_ms(*gemm_work(m, co, 2 * c, 2 * m * c * 2, wt.numel() * 4))
-    print(f"skip_gemm B={b} {h}x{w} C={c}+{c} -> {co}: err={err:.3e} (previous {prev_err:.3e}) "
-          f"kernel={ms:.4f} ms previous={prev_ms:.4f} ms tiles {gc.gemm_tiles(m, co)} "
+    print(f"skip_gemm B={b} {h}x{w} C={c}+{c} -> {co}: err={err:.3e} "
+          f"kernel={ms:.4f} ms tiles {gc.gemm_tiles(m, co)} "
           f"plain={plain_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]}); no single library "
           f"call: split (two matmuls summed) {split_ms:.4f} ms, concat + matmul {concat_ms:.4f} ms")
-    check(ms < prev_ms, f"skip_gemm: the Hopper design ({ms:.4f} ms) is not faster than the "
-                        f"previous one ({prev_ms:.4f} ms)")
-    record("skip_gemm", err, ms, plain_ms, bound, None, prev_ms)
+    record("skip_gemm", err, ms, plain_ms, bound, None)
     del x1, x2
 
     b, ci, co, h, w = conv_chw_spike.BENCH_SHAPE
@@ -1468,20 +1305,15 @@ def gemm_conv_parity(record):
     plain = gc.conv3x3_chw_reference(x[:n], wt)
     err, ok = gc.GEMM_TOL.check(gc.conv3x3_chw_cuda(x[:n], wt), plain)
     check(ok, f"conv3x3_chw: err {err}")
-    prev_err, prev_ok = gc.GEMM_TOL.check(gc._conv3x3_chw_previous_cuda(x[:n], wt), plain)
-    check(prev_ok, f"conv3x3_chw previous design: err {prev_err}")
     del plain
     ms = time_ms(lambda: gc.conv3x3_chw_cuda(x, wt))
-    prev_ms = time_ms(lambda: gc._conv3x3_chw_previous_cuda(x, wt))
     plain_ms = time_ms(lambda: gc.conv3x3_chw_reference(x, wt))
     lib_ms = time_ms(lambda: F.conv2d(x, wt, padding=1))
     bound = bound_ms(*gemm_work(co, b * h * w, 9 * ci, x.numel() * 2, wt.numel() * 2))
-    print(f"conv3x3_chw B={b} Ci={ci} Co={co} {h}x{w}: err={err:.3e} (previous {prev_err:.3e}; on {n} "
-          f"images) kernel={ms:.4f} ms (the input copy included) previous={prev_ms:.4f} ms plain={plain_ms:.4f} ms "
+    print(f"conv3x3_chw B={b} Ci={ci} Co={co} {h}x{w}: err={err:.3e} (on {n} "
+          f"images) kernel={ms:.4f} ms (the input copy included) plain={plain_ms:.4f} ms "
           f"library (F.conv2d, cuDNN)={lib_ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]})")
-    check(ms < prev_ms, f"conv3x3_chw: the Hopper design ({ms:.4f} ms) is not faster than the "
-                        f"previous one ({prev_ms:.4f} ms)")
-    record("conv3x3_chw", err, ms, plain_ms, bound, lib_ms, prev_ms)
+    record("conv3x3_chw", err, ms, plain_ms, bound, lib_ms)
     del x
 
     co, k = conv_chw_spike.GEMM_CO, conv_chw_spike.GEMM_K
@@ -1491,21 +1323,16 @@ def gemm_conv_parity(record):
         plain = gc.gemm_blocks_reference(a, bb)
         err, ok = gc.GEMM_TOL.check(gc.gemm_blocks_cuda(a, bb), plain)
         check(ok, f"gemm_blocks npx={npx} nblk={nblk}: err {err}")
-        prev_err, prev_ok = gc.GEMM_TOL.check(gc._gemm_blocks_previous_cuda(a, bb), plain)
-        check(prev_ok, f"gemm_blocks npx={npx} nblk={nblk} previous design: err {prev_err}")
         del plain
         ms = time_ms(lambda: gc.gemm_blocks_cuda(a, bb))
-        prev_ms = time_ms(lambda: gc._gemm_blocks_previous_cuda(a, bb))
         plain_ms = time_ms(lambda: gc.gemm_blocks_reference(a, bb))
         lib_ms = time_ms(lambda: torch.matmul(a, bb))
         bound = bound_ms(*gemm_work(co, npx * nblk, k, a.numel() * 2, bb.numel() * 2))
-        print(f"gemm_blocks [{co}x{k}] x [{nblk}x{k}x{npx}]: err={err:.3e} (previous {prev_err:.3e}) "
-              f"kernel={ms:.4f} ms previous={prev_ms:.4f} ms tiles {gc.gemm_tiles(co, npx, nblk)} "
+        print(f"gemm_blocks [{co}x{k}] x [{nblk}x{k}x{npx}]: err={err:.3e} "
+              f"kernel={ms:.4f} ms tiles {gc.gemm_tiles(co, npx, nblk)} "
               f"plain={plain_ms:.4f} ms library (torch.matmul)={lib_ms:.4f} ms "
               f"bound={bound[0]:.4f} ms ({bound[1]})")
-        check(ms < prev_ms, f"gemm_blocks npx={npx} nblk={nblk}: the Hopper design ({ms:.4f} ms) is "
-                            f"not faster than the previous one ({prev_ms:.4f} ms)")
-        record("gemm_blocks", err, ms, plain_ms, bound, lib_ms, prev_ms)
+        record("gemm_blocks", err, ms, plain_ms, bound, lib_ms)
         del bb
 
 
@@ -1569,11 +1396,9 @@ def entry_points():
         conv_chw_spike.main([mode] + few)
     torch.cuda.synchronize()
     designs = {"flash_mha_fwd": dict(fa.FORWARD_DESIGNS), "flash_mha_bwd": dict(fa.BACKWARD_DESIGNS),
-               "conv3x3_chw routes": dict(gc.CONV_ROUTES),
-               "previous (the tools time it)": {**fa.PREVIOUS_LAUNCHES, **gc.PREVIOUS_LAUNCHES,
-                                                **ba.PREVIOUS_LAUNCHES}}
+               "conv3x3_chw routes": dict(gc.CONV_ROUTES)}
     print(f"designs over the entry points' run: {designs}")
-    check(fa.FORWARD_DESIGNS == {"sm90": fa.LAUNCHES["flash_mha_fwd"]} and not fa.PREVIOUS_LAUNCHES,
+    check(fa.FORWARD_DESIGNS == {"sm90": fa.LAUNCHES["flash_mha_fwd"]},
           f"the flash MHA API did not run the Hopper forward alone: {designs}")
     check(fa.BACKWARD_DESIGNS == {"sm90": fa.LAUNCHES["flash_mha_bwd"]},
           f"the flash MHA API did not run the Hopper backward alone: {designs}")
@@ -2734,11 +2559,10 @@ def eval_clis(tmp: str, sample: str, real: str):
     return out
 
 
-# Phase 12: the bench's batch-8 path (mm_diffusion_tpu_torch/bench.py, its
-# FLAGSHIP protocol): 12.1 K1-K3 at the base MM-UNet's shapes at batch 8
-# (the sampler's N times 8; the SR U-Net's shapes do not depend on the
-# batch), 12.2 one batch-8 evaluation against eight batch-1 evaluations of
-# its rows, 12.3 the bench itself at the full protocol.
+# Phase 12: the batch-8 path (the benchmark's base-dpm20-b8 cell): 12.1
+# K1-K3 at the base MM-UNet's shapes at batch 8 (the sampler's N times 8;
+# the SR U-Net's shapes do not depend on the batch), 12.2 one batch-8
+# evaluation against eight batch-1 evaluations of its rows.
 B8 = 8
 B8_SELF_SHAPES = [(label, n * B8, t, c, h, layout) for label, n, t, c, h, layout in SELF_SHAPES
                   if label.startswith("mm ")]
@@ -2756,10 +2580,6 @@ B8_TIMESTEPS = (0, 130, 260, 390, 520, 650, 780, 999)
 # that gap layer by layer to its output.  Each limit leaves 3-4x over its
 # reading; a row or offset fault of a kernel at a large N moves a row by O(1).
 B8_ROW_REL_L2_TOL = {"bfloat16": 5e-2, "float32": 1e-3}
-BENCH_TIMEOUT_S = 600
-# the real-data probe's numbers, null where it is skipped for want of OpenCV
-BENCH_REAL_DATA_KEYS = {"train_steps_per_sec_real_data", "train_data_loader_batches_per_sec",
-                        "host_to_device_MBps"}
 
 
 def batch8_kernels(summary):
@@ -2772,7 +2592,7 @@ def batch8_kernels(summary):
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
 
-    phase(f"12.1 K1-K3 at the bench's batch-{B8} shapes vs plain versions (bf16; out {ba.FORWARD_TOL}, "
+    phase(f"12.1 K1-K3 at the batch-{B8} shapes vs plain versions (bf16; out {ba.FORWARD_TOL}, "
           f"lse {ba.LSE_TOL})")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(12)
@@ -2846,29 +2666,29 @@ def row0_outputs(model):
 
 
 def batch8_eval():
-    """Phase 12.2: the bench's base MM-UNet (random non-zero weights) on the
-    card at batch 8 against eight batch-1 evaluations of the same rows: the
-    same weights, inputs, timesteps and shift; in bf16 (the bench's path)
-    and in fp32 (TF32 off), whose gap is rounding alone."""
+    """Phase 12.2: the flagship base MM-UNet (random non-zero weights) on
+    the card at batch 8 against eight batch-1 evaluations of the same rows:
+    the same weights, inputs, timesteps and shift; in bf16 (the sampling
+    path) and in fp32 (TF32 off), whose gap is rounding alone."""
     import dataclasses
 
     import torch
 
-    from mm_diffusion_tpu_torch.bench import FLAGSHIP
     from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
     from mm_diffusion_tpu_torch.ops import block_attention as ba
     from mm_diffusion_tpu_torch.weights import randomize_
 
-    phase(f"12.2 the bench's base MM-UNet: one batch-{B8} evaluation vs {B8} batch-1 evaluations of its rows "
+    phase(f"12.2 the base MM-UNet: one batch-{B8} evaluation vs {B8} batch-1 evaluations of its rows "
           f"(on the card, shift {B8_SHIFT}; max row rel L2 {B8_ROW_REL_L2_TOL})")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(42)
-    f, c, h, w = FLAGSHIP.base.video_size
+    base, _ = flagship_configs()
+    f, c, h, w = base.video_size
     video = torch.randn((B8, f, h, w, c), generator=g).to(dev)
-    audio = torch.randn((B8, FLAGSHIP.base.audio_size[1], FLAGSHIP.base.audio_size[0]), generator=g).to(dev)
+    audio = torch.randn((B8, base.audio_size[1], base.audio_size[0]), generator=g).to(dev)
     t = torch.tensor(B8_TIMESTEPS, device=dev)
     for dtype, tol in B8_ROW_REL_L2_TOL.items():
-        model = randomize_(MultimodalUNet(dataclasses.replace(FLAGSHIP.base, dtype=dtype)), seed=41)
+        model = randomize_(MultimodalUNet(dataclasses.replace(base, dtype=dtype)), seed=41)
         model.to(dev).eval()
         one = lambda i: model(video[i : i + 1], audio[i : i + 1], t[i : i + 1], shift=B8_SHIFT)  # noqa: E731
         with torch.inference_mode(), row0_outputs(model) as seen:
@@ -2898,53 +2718,9 @@ def batch8_eval():
         torch.cuda.empty_cache()
 
 
-def bench_run():
-    """Phase 12.3: ``python -m mm_diffusion_tpu_torch.bench`` at the full
-    protocol in a subprocess: both headline lines parse with finite,
-    positive numbers, the train step and the pipeline ran, no probe skipped
-    but the real-data one for want of OpenCV (its numbers null then, and
-    only then), and K1-K3 launched in a base evaluation and K4-K7 in a
-    train step.  Returns the launches."""
-    phase("12.3 python -m mm_diffusion_tpu_torch.bench (the FLAGSHIP protocol: base batch 8 at 20 NFE, "
-          "SR 16 frames at 256^2 ddim25, train step batch 4, the pipeline)")
-    out, wall = run_command([sys.executable, "-m", "mm_diffusion_tpu_torch.bench"], timeout=BENCH_TIMEOUT_S,
-                            label="bench")
-    lines = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
-    heads = [x for x in lines if "metric" in x]
-    (launch_line,) = [x for x in lines if "launches" in x]
-    check(len(heads) == 2 and heads[0]["detail"]["stage"] != "final" and heads[1]["detail"]["stage"] == "final",
-          f"bench headline lines: {[x.get('detail', {}).get('stage') for x in heads]}")
-    for line in heads:
-        print(json.dumps(line))
-    d = heads[1]["detail"]
-    for key in ("pipeline_pairs_per_sec", "train_step_ms_b4_remat", "train_examples_per_sec",
-                "pipeline_base_s", "pipeline_sr_s"):
-        check(d.get(key) is not None, f"bench: {key} is null")
-    skipped = d["skipped_probes"] or {}
-    check(set(skipped) <= {"train_real_data"} and all("OpenCV" in r and not r.startswith("error:")
-                                                        for r in skipped.values()),
-          f"bench skipped probes: {skipped}")
-    nullable = BENCH_REAL_DATA_KEYS if skipped else set()
-    for line in heads:
-        numbers = {"value": line["value"], "vs_baseline": line["vs_baseline"],
-                   **{k: v for k, v in line["detail"].items() if k not in nullable | {"skipped_probes"}
-                      and (v is None or isinstance(v, (int, float)) and not isinstance(v, bool))}}
-        bad = {k: v for k, v in numbers.items() if v is None or not (math.isfinite(v) and v > 0)}
-        check(not bad, f"bench ({line['detail']['stage']}): not finite and positive: {bad}")
-    launches = launch_line["launches"]
-    print(f"launches per base evaluation (batch {launch_line['batch']}): {launches['base_eval']}; per train "
-          f"step (batch {launch_line['train_batch']}): {launches['train_step']}; bench wall {wall:.1f} s")
-    check(launches["train_step"] is not None, "bench: no train-step launches")
-    for name in ("self_attention", "banded_attention[lw=1]", "banded_attention[lw>1]"):
-        check(launches["base_eval"][name] > 0, f"bench: {name} never launched in a base evaluation")
-    for name, n in launches["train_step"].items():
-        check(n > 0, f"bench: {name} never launched in a train step")
-    return launches
-
-
 # Phase 13: the GroupNorm + FiLM + SiLU kernel (ops/group_norm.py) at every
 # shape of one sampling evaluation of the benchmark's sampling
-# configurations (FLAGSHIP's: the SR U-Net on one clip's 16 frames at 256^2,
+# configurations (the flagship's: the SR U-Net on one clip's 16 frames at 256^2,
 # the base MM-UNet at batch 8; SDXL base's U-Net at 8 rows of 128^2
 # latents, whose transformer norms run with eps 1e-6 and the SiLU off),
 # against its plain version at GN_TOL (one bf16 step:
@@ -2973,7 +2749,6 @@ def group_norm_sites():
 
     from benchmark.weights import load_seeded_
     from mm_diffusion_tpu_torch import configs
-    from mm_diffusion_tpu_torch.bench import FLAGSHIP
     from mm_diffusion_tpu_torch.models.attention import RSMMACrossAttention, TokenSelfAttention
     from mm_diffusion_tpu_torch.models.image_unet import ImageResBlock, ImageSuperResModel, ImageUNet, sdxl_vector
     from mm_diffusion_tpu_torch.models.transformer import BasicTransformerBlock, SpatialTransformer
@@ -2988,8 +2763,7 @@ def group_norm_sites():
           "and of one train-style forward and backward")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(13)
-    sr = FLAGSHIP.sr
-    base = FLAGSHIP.base
+    base, sr = flagship_configs()
     f, c, h, w = base.video_size
     sdxl = configs.create_text2img_config(**configs.sdxl_base_flags())
 
@@ -3183,7 +2957,7 @@ def group_norm_kernel():
 
 
 def sr_layout_transposes():
-    """Phase 13.3: one SR evaluation (FLAGSHIP's U-Net, 16 frames at 256^2,
+    """Phase 13.3: one SR evaluation (the flagship SR U-Net, 16 frames at 256^2,
     bf16, inference_mode) under the profiler after a warm-up one: cuDNN's
     layout transposes (kernels named nchwToNhwc / nhwcToNchw), counted, with
     their device seconds, beside the evaluation's busy kernel seconds.
@@ -3192,14 +2966,13 @@ def sr_layout_transposes():
 
     import torch
 
-    from mm_diffusion_tpu_torch.bench import FLAGSHIP
     from mm_diffusion_tpu_torch.models.image_unet import ImageSuperResModel
     from mm_diffusion_tpu_torch.weights import randomize_
 
     phase("13.3 cuDNN layout transposes in one traced SR evaluation (16 frames at 256^2)")
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(15)
-    sr = FLAGSHIP.sr
+    _, sr = flagship_configs()
     model = randomize_(ImageSuperResModel(sr), seed=43).to(dev).eval()
     x = torch.randn((GN_SR_FRAMES, sr.image_size, sr.image_size, 3), generator=g).to(dev)
     ts = torch.full((GN_SR_FRAMES,), 500, device=dev)
@@ -3280,7 +3053,6 @@ def main() -> int:
             eval_clis(tmp, sample_npz, real_npz)
         b8_cases = batch8_kernels(summary)
         batch8_eval()
-        bench_launches = bench_run()
         gn_record = group_norm_kernel()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
@@ -3298,7 +3070,6 @@ def main() -> int:
             "bound_ms": summary[name]["bound_ms"],
             "bound_by": max(summary[name]["by"], key=summary[name]["by"].get),
             "library_ms": summary[name]["library_ms"],
-            **({"previous_ms": summary[name]["previous_ms"]} if "previous_ms" in summary[name] else {}),
             **({"a2v_launches": a2v_launches[name]} if name in a2v_launches else {}),
             **({"eval_cli_launches": eval_launches[name]} if name in eval_launches else {}),
             **({f"a2v_{k}": v for k, v in sampler_bwd[name].items()} if name in sampler_bwd else {}),
@@ -3307,10 +3078,6 @@ def main() -> int:
                 "single_audio_train_launches": single_launches["audio"][name]} if name in sr_launches else {}),
             **slice_cases.get(name, {}),
             **b8_cases.get(name, {}),
-            **({"bench_eval_launches": bench_launches["base_eval"][name]}
-               if name in bench_launches["base_eval"] else {}),
-            **({"bench_train_step_launches": bench_launches["train_step"][name]}
-               if name in bench_launches["train_step"] else {}),
         }
         for name in REPLACES
     ]

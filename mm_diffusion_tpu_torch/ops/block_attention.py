@@ -35,15 +35,11 @@ window gathered per query frame, its dk/dv summed back into the kv frames.
 ``d > 256`` raises ``ValueError`` on a CUDA tensor (the plain version on the
 CPU takes any ``d``).
 
-Every bf16 attention kernel runs the Hopper design (TMA, mbarrier rings,
-``wgmma``; ``csrc/attention_sm90.cuh``, and for the banded forward and
-backward the window tiling of ``csrc/banded_sm90.cuh``); fp32 runs the
-previous mma.sync design, whose bf16 build stays reachable through
-``_self_attention_previous_cuda``, ``_banded_attention_previous_cuda``,
-``_self_attention_bwd_previous_cuda`` and ``_banded_attention_bwd_previous_cuda``
-for the same-run comparison in ``chip_smoke.py``, the card tests and the A/B
-tool (counted in :data:`PREVIOUS_LAUNCHES`, never by the model; kernel head
-dims only).
+One design per kernel and dtype: bf16 runs the Hopper design (TMA,
+mbarrier rings, ``wgmma``; ``csrc/attention_sm90.cuh``, and for the banded
+forward and backward the window tiling of ``csrc/banded_sm90.cuh``), fp32
+the mma.sync design (``csrc/attention_common.cuh``,
+``csrc/attention_bwd_common.cuh``) through the same C entry points.
 
 :func:`self_attention_variant` serves the A/B tool
 ``tools/bench_attn_variants.py`` (the TPU spikes' K1 variants, see
@@ -53,9 +49,8 @@ variant in :data:`VARIANT_LAUNCHES`.  In bf16, ``rows``, ``nomax`` and
 persistent blocks, :func:`rows_launch_plan`), built for every head dim in
 :data:`VARIANT_HEAD_DIMS`, so a ``d`` above 128 needs no K8 route: it runs
 the variant kernel built at 192 or 256 (route ``wide``); ``d % 8 != 0``
-takes the zero-padded copy (route ``pad``).  fp32 runs the previous
-design, built up to 128.  The previous design's bf16 build stays reachable
-through ``_self_attention_variant_previous_cuda``.
+takes the zero-padded copy (route ``pad``).  fp32 runs the mma.sync
+design, built up to 128.
 """
 
 from __future__ import annotations
@@ -89,8 +84,6 @@ BANDED_WINDOWS: collections.Counter = collections.Counter()
 BANDED_BWD_WINDOWS: collections.Counter = collections.Counter()
 SELF_BWD_LENGTHS: collections.Counter = collections.Counter()
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
-# Launches of the previous designs (same-run comparison only).
-PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
 # Calls that took a head-dim route, by "<wrapper>:<route>": "pad" (the
 # kernel ran on a zero-padded copy), "flash" (the K8 kernels ran; their
 # launches count in fused_attention.LAUNCHES) and "wide" (a variant kernel
@@ -128,7 +121,7 @@ def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     for counter in (BANDED_WINDOWS, BANDED_BWD_WINDOWS, SELF_BWD_LENGTHS, VARIANT_LAUNCHES,
-                    PREVIOUS_LAUNCHES, HEAD_DIM_ROUTES):
+                    HEAD_DIM_ROUTES):
         counter.clear()
 
 
@@ -464,8 +457,8 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def _self_attention_launch(entry: str, qkv: torch.Tensor, num_heads: int, layout: str, d: int):
-    """Launch a self-attention forward entry on ``qkv`` whose head dim the
+def _self_attention_launch(qkv: torch.Tensor, num_heads: int, layout: str, d: int):
+    """Launch the self-attention forward on ``qkv`` whose head dim the
     kernels are built for, at the logit scale of head dim ``d``."""
     n, t, c, dk = _check_qkv(qkv, num_heads)
     _check_aligned(qkv)
@@ -474,7 +467,7 @@ def _self_attention_launch(entry: str, qkv: torch.Tensor, num_heads: int, layout
     out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((n, num_heads, t), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        err = getattr(lib, entry)(
+        err = lib.mmdiff_self_attention_fwd(
             qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), n, t, num_heads, dk,
             kernel_head_dim(dk), 1.0 / math.sqrt(d), head_stride, k_off, v_off,
             int(qkv.dtype == torch.float32), _stream(),
@@ -488,7 +481,7 @@ def self_attention_cuda(
     qkv: torch.Tensor, num_heads: int, layout: str = "thirds"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the self-attention kernel (bf16: the Hopper design; fp32: the
-    previous one); a head dim it is not built for takes its route (module
+    mma.sync one); a head dim it is not built for takes its route (module
     docstring).  Returns ``(out [N, T, C], lse [N, H, T] fp32)``."""
     from . import fused_attention as fa
 
@@ -503,24 +496,13 @@ def self_attention_cuda(
                                   _heads_view(out, num_heads), d)
         HEAD_DIM_ROUTES["self_attention:flash"] += 1
     else:
-        out, lse = _self_attention_launch("mmdiff_self_attention_fwd", x, num_heads, layout, d)
+        out, lse = _self_attention_launch(x, num_heads, layout, d)
         LAUNCHES["self_attention"] += 1
     return unpad_head_dim(out, num_heads, d, 1), lse
 
 
-def _self_attention_previous_cuda(
-    qkv: torch.Tensor, num_heads: int, layout: str = "thirds"
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The previous design (mma.sync) of :func:`self_attention_cuda` on the
-    same arguments, for the same-run comparison only."""
-    d = _check_qkv(qkv, num_heads)[3]
-    out, lse = _self_attention_launch("mmdiff_self_attention_fwd_mma", qkv, num_heads, layout, d)
-    PREVIOUS_LAUNCHES["self_attention"] += 1
-    return out, lse
-
-
-def _banded_attention_launch(entry, q_src, kv_src, shift, local_window, num_heads, channels, d):
-    """Launch a banded forward entry on sources whose head dim the kernels
+def _banded_attention_launch(q_src, kv_src, shift, local_window, num_heads, channels, d):
+    """Launch the banded forward on sources whose head dim the kernels
     are built for, at the logit scale of head dim ``d``."""
     n, f, tq, tk, dk = _check_banded(q_src, kv_src, local_window, num_heads, channels)
     _check_aligned(q_src, kv_src)
@@ -529,7 +511,7 @@ def _banded_attention_launch(entry, q_src, kv_src, shift, local_window, num_head
     out = torch.empty((n, f, tq, c), dtype=q_src.dtype, device=q_src.device)
     lse = torch.empty((n, f, num_heads, tq), dtype=torch.float32, device=q_src.device)
     with torch.cuda.device(q_src.device):
-        err = getattr(lib, entry)(
+        err = lib.mmdiff_banded_attention_fwd(
             q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), lse.data_ptr(), n, f, tq,
             tk, num_heads, dk, kernel_head_dim(dk), 1.0 / math.sqrt(d), int(shift) % f,
             local_window, int(q_src.dtype == torch.float32), _stream(),
@@ -577,7 +559,7 @@ def banded_attention_cuda(
     channels: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the banded RS-MMA kernel (bf16: the Hopper design; fp32: the
-    previous one); a head dim it is not built for takes its route (module
+    mma.sync one); a head dim it is not built for takes its route (module
     docstring).  Returns ``(out [N, F, Tq, C], lse [N, F, H, Tq] fp32)``."""
     from . import fused_attention as fa
 
@@ -594,28 +576,14 @@ def banded_attention_cuda(
         HEAD_DIM_ROUTES["banded_attention:flash"] += 1
     else:
         out, lse = _banded_attention_launch(
-            "mmdiff_banded_attention_fwd", q_p, kv_p, shift, local_window, num_heads,
-            num_heads * dp, d,
+            q_p, kv_p, shift, local_window, num_heads, num_heads * dp, d
         )
         LAUNCHES["banded_attention"] += 1
         BANDED_WINDOWS[local_window] += 1
     return unpad_head_dim(out, num_heads, d, 1), lse
 
 
-def _banded_attention_previous_cuda(q_src, kv_src, shift: int, local_window: int, num_heads: int,
-                                    channels: int):
-    """The previous design (mma.sync) of :func:`banded_attention_cuda` on
-    the same arguments, for the same-run comparison only."""
-    d = _check_banded(q_src, kv_src, local_window, num_heads, channels)[4]
-    out_lse = _banded_attention_launch(
-        "mmdiff_banded_attention_fwd_mma", q_src, kv_src, shift, local_window, num_heads,
-        channels, d,
-    )
-    PREVIOUS_LAUNCHES["banded_attention"] += 1
-    return out_lse
-
-
-def _self_attention_bwd_launch(entry, qkv, out, lse, g, num_heads, layout, d) -> torch.Tensor:
+def _self_attention_bwd_launch(qkv, out, lse, g, num_heads, layout, d) -> torch.Tensor:
     n, t, c, dk = _check_qkv(qkv, num_heads)
     head_stride, k_off, v_off = _layout_offsets(layout, c, dk)
     _check_like(out, qkv, "out", (n, t, c))
@@ -627,7 +595,7 @@ def _self_attention_bwd_launch(entry, qkv, out, lse, g, num_heads, layout, d) ->
     delta = torch.empty_like(lse)
     dqkv = torch.empty_like(qkv)
     with torch.cuda.device(qkv.device):
-        err = getattr(lib, entry)(
+        err = lib.mmdiff_self_attention_bwd(
             qkv.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dqkv.data_ptr(), n, t, num_heads, dk, kernel_head_dim(dk), 1.0 / math.sqrt(d),
             head_stride, k_off, v_off, int(qkv.dtype == torch.float32), _stream(),
@@ -646,7 +614,7 @@ def self_attention_bwd_cuda(
     layout: str = "thirds",
 ) -> torch.Tensor:
     """Launch the self-attention backward kernels (bf16: the Hopper design;
-    fp32: the previous one) on the forward's ``qkv``, ``out`` and ``lse`` and
+    fp32: the mma.sync one) on the forward's ``qkv``, ``out`` and ``lse`` and
     the output gradient ``g`` [N, T, C]; a head dim they are not built for
     takes its route (module docstring).  Returns ``dqkv`` [N, T, 3C] in
     ``layout``."""
@@ -667,23 +635,10 @@ def self_attention_bwd_cuda(
                             *packed_head_views(dqkv, num_heads, layout), d)
         HEAD_DIM_ROUTES["self_attention_bwd:flash"] += 1
     else:
-        dqkv = _self_attention_bwd_launch(
-            "mmdiff_self_attention_bwd", x, o, lse, gp, num_heads, layout, d
-        )
+        dqkv = _self_attention_bwd_launch(x, o, lse, gp, num_heads, layout, d)
         LAUNCHES["self_attention_bwd"] += 1
         SELF_BWD_LENGTHS[t] += 1
     return unpad_head_dim(dqkv, num_heads, d, 3, layout)
-
-
-def _self_attention_bwd_previous_cuda(qkv, out, lse, g, num_heads: int, layout: str = "thirds"):
-    """The previous design (mma.sync) of :func:`self_attention_bwd_cuda` on
-    the same arguments, for the same-run comparison only."""
-    d = _check_qkv(qkv, num_heads)[3]
-    dqkv = _self_attention_bwd_launch(
-        "mmdiff_self_attention_bwd_mma", qkv, out, lse, g, num_heads, layout, d
-    )
-    PREVIOUS_LAUNCHES["self_attention_bwd"] += 1
-    return dqkv
 
 
 def _check_banded_bwd(q_src, kv_src, out, lse, g, local_window, num_heads, channels):
@@ -695,8 +650,8 @@ def _check_banded_bwd(q_src, kv_src, out, lse, g, local_window, num_heads, chann
     return n, f, tq, tk, d
 
 
-def _banded_attention_bwd_launch(entry, q_src, kv_src, out, lse, g, shift, local_window,
-                                 num_heads, channels, d):
+def _banded_attention_bwd_launch(q_src, kv_src, out, lse, g, shift, local_window, num_heads,
+                                 channels, d):
     n, f, tq, tk, dk = _check_banded_bwd(q_src, kv_src, out, lse, g, local_window, num_heads,
                                          channels)
     _check_aligned(q_src, kv_src, out, g)
@@ -705,7 +660,7 @@ def _banded_attention_bwd_launch(entry, q_src, kv_src, out, lse, g, shift, local
     dq_src = torch.empty_like(q_src)
     dkv_src = torch.empty_like(kv_src)
     with torch.cuda.device(q_src.device):
-        err = getattr(lib, entry)(
+        err = lib.mmdiff_banded_attention_bwd(
             q_src.data_ptr(), kv_src.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq_src.data_ptr(), dkv_src.data_ptr(), n, f, tq, tk, num_heads, dk,
             kernel_head_dim(dk), 1.0 / math.sqrt(d), int(shift) % f, local_window,
@@ -761,7 +716,7 @@ def banded_attention_bwd_cuda(
     channels: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the banded backward kernels (bf16: the Hopper design; fp32:
-    the previous one) on the forward's sources, ``out`` and ``lse`` and the
+    the mma.sync one) on the forward's sources, ``out`` and ``lse`` and the
     output gradient ``g`` [N, F, Tq, C]; a head dim they are not built for
     takes its route (module docstring).  Returns the packed ``(dq_src,
     dkv_src)`` (zeros outside the q and k|v lanes)."""
@@ -776,25 +731,11 @@ def banded_attention_bwd_cuda(
         HEAD_DIM_ROUTES["banded_attention_bwd:flash"] += 1
     else:
         dq_src, dkv_src = _banded_attention_bwd_launch(
-            "mmdiff_banded_attention_bwd", q_p, kv_p, o, lse, gp, shift, local_window,
-            num_heads, num_heads * dp, d,
+            q_p, kv_p, o, lse, gp, shift, local_window, num_heads, num_heads * dp, d
         )
         LAUNCHES["banded_attention_bwd"] += 1
         BANDED_BWD_WINDOWS[local_window] += 1
     return tuple(unpad_head_dim(x, num_heads, d, 3) for x in (dq_src, dkv_src))
-
-
-def _banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, g, shift: int,
-                                        local_window: int, num_heads: int, channels: int):
-    """The previous design (mma.sync) of :func:`banded_attention_bwd_cuda`
-    on the same arguments, for the same-run comparison only."""
-    d = _check_banded(q_src, kv_src, local_window, num_heads, channels)[4]
-    grads = _banded_attention_bwd_launch(
-        "mmdiff_banded_attention_bwd_mma", q_src, kv_src, out, lse, g, shift, local_window,
-        num_heads, channels, d,
-    )
-    PREVIOUS_LAUNCHES["banded_attention_bwd"] += 1
-    return grads
 
 
 def banded_bwd_frames_per_tile(n: int, frames: int, length: int, num_heads: int) -> int:
@@ -856,26 +797,22 @@ def _rows_plan_on_card(qkv: torch.Tensor, n: int, t: int, heads: int, kernel_dim
     return rows_launch_plan(n, t, heads, kernel_dim, sms, _ROWS_BLOCKS_PER_SM[key])
 
 
-def _variant_launch(qkv: torch.Tensor, num_heads: int, variant: str, d: int, previous: bool):
-    """Launch a variant (Hopper, or with ``previous`` the mma.sync design) on
-    thirds-layout ``qkv`` whose head dim a kernel is built for, at the logit
-    scale of head dim ``d``."""
+def _variant_launch(qkv: torch.Tensor, num_heads: int, variant: str, d: int):
+    """Launch a variant on thirds-layout ``qkv`` whose head dim a kernel is
+    built for, at the logit scale of head dim ``d``."""
     n, t, c, dk = _check_qkv(qkv, num_heads)
     _check_aligned(qkv)
     fp32 = qkv.dtype == torch.float32
-    kd = kernel_head_dim(dk, HEAD_DIMS if previous or fp32 else VARIANT_HEAD_DIMS)
+    kd = kernel_head_dim(dk, HEAD_DIMS if fp32 else VARIANT_HEAD_DIMS)
     lib = cuda_build.load().lib
     out = torch.empty((n, t, c), dtype=qkv.dtype, device=qkv.device)
-    args = (qkv.data_ptr(), out.data_ptr(), n, t, num_heads, dk, kd, 1.0 / math.sqrt(d),
-            VARIANT_CODES[variant])
-    if previous:
-        entry, args = lib.mmdiff_self_attention_variant_fwd_mma, args + (int(fp32),)
-    else:
-        rows = variant == "rows" and not fp32
-        plan = _rows_plan_on_card(qkv, n, t, num_heads, kd) if rows else (0, 0, 0, 0)
-        entry, args = lib.mmdiff_self_attention_variant_fwd, args + (*plan, int(fp32))
+    rows = variant == "rows" and not fp32
+    plan = _rows_plan_on_card(qkv, n, t, num_heads, kd) if rows else (0, 0, 0, 0)
     with torch.cuda.device(qkv.device):
-        err = entry(*args, _stream())
+        err = lib.mmdiff_self_attention_variant_fwd(
+            qkv.data_ptr(), out.data_ptr(), n, t, num_heads, dk, kd, 1.0 / math.sqrt(d),
+            VARIANT_CODES[variant], *plan, int(fp32), _stream(),
+        )
     if err:
         raise RuntimeError(f"self-attention {variant} kernel launch failed: CUDA error {err}")
     return out
@@ -902,21 +839,9 @@ def self_attention_variant_cuda(qkv: torch.Tensor, num_heads: int, variant: str)
         HEAD_DIM_ROUTES["self_attention_variant:pad"] += 1
     if dp > HEAD_DIMS[-1]:
         HEAD_DIM_ROUTES["self_attention_variant:wide"] += 1
-    out = _variant_launch(pad_head_dim(qkv, num_heads, dp, 3), num_heads, variant, d, False)
+    out = _variant_launch(pad_head_dim(qkv, num_heads, dp, 3), num_heads, variant, d)
     VARIANT_LAUNCHES[variant] += 1
     return unpad_head_dim(out, num_heads, d, 1)
-
-
-def _self_attention_variant_previous_cuda(qkv: torch.Tensor, num_heads: int,
-                                          variant: str) -> torch.Tensor:
-    """The previous design (mma.sync) of :func:`self_attention_variant_cuda`
-    for rows / nomax / noexp on the same arguments, for the same-run
-    comparison only (kernel head dims only)."""
-    if variant not in VARIANT_CODES:
-        raise ValueError(f"no kernel of its own for variant {variant!r}: {tuple(VARIANT_CODES)}")
-    out = _variant_launch(qkv, num_heads, variant, _check_qkv(qkv, num_heads)[3], True)
-    PREVIOUS_LAUNCHES[f"self_attention_variant[{variant}]"] += 1
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 // backward (banded_attention_bwd.cu, replacing `_banded_bwd_lw1_kernel` and
 // `_banded_bwd_oneshot_kernel`, mm_diffusion_tpu/ops/block_attention.py:792,
 // :877), the flash MHA backward (flash_mha.cu) and the self-attention
-// backward's previous design for fp32 inputs (self_attention_bwd.cu; bf16
+// backward's design for fp32 inputs (self_attention_bwd.cu; bf16
 // runs attention_sm90.cuh): a flash-attention backward in two passes on
 // Hopper's warp-level bf16 tensor-core product (mma.sync m16n8k16, fp32
 // accumulate), with P recomputed from the logsumexp that the forward kernels

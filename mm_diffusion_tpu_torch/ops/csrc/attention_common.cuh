@@ -1,6 +1,6 @@
 // Shared pieces of the mma.sync attention forward kernels: the flash MHA
 // forward (flash_mha.cu), the K1 variants (self_attention.cu), and the
-// previous designs that fp32 inputs run of K1 (self_attention.cu) and of
+// designs that fp32 inputs run of K1 (self_attention.cu) and of
 // the banded RS-MMA forward (banded_attention.cu, replacing
 // `_banded_oneshot_kernel` and `_banded_fwd_kernel`,
 // mm_diffusion_tpu/ops/block_attention.py:609, :534; the bf16 K1 and banded

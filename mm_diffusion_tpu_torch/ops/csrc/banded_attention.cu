@@ -42,14 +42,12 @@
 // slower), and box j + 1's S = Q K^T issued before box j's softmax (10-15%
 // slower): a box waits on neither the K/V stream nor the products' latency
 // alone, and more blocks in flight per SM is what helped.
-// fp32 inputs keep the previous design (wgmma reads bf16 from shared
+// fp32 inputs run the mma.sync design (wgmma reads bf16 from shared
 // memory): the mma.sync loop of attention_common.cuh, one frame of the
-// window at a time, K and V staged through registers; its bf16 build stays
-// callable through mmdiff_banded_attention_fwd_mma for the same-run
-// comparison.
+// window at a time, K and V staged through registers.
 //
 // Grids: Hopper min(items, blocks that fit) x 160 threads (one consumer
-// warpgroup and the producer warp); previous design (N * F, H,
+// warpgroup and the producer warp); mma.sync design (N * F, H,
 // ceil(Tq / 64)) x 128 threads.
 
 #include "attention_common.cuh"
@@ -284,7 +282,7 @@ static int dispatch_sm90(const void* q_src, const void* kv_src, void* out, float
 }
 
 // ---------------------------------------------------------------------------
-// The previous design (mma.sync; fp32 inputs, and bf16 for the comparison)
+// The mma.sync design (fp32 inputs)
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
@@ -351,7 +349,7 @@ static bool head_dim_fits(int head_dim, int kernel_dim) {
 // (ops/block_attention.py::kernel_head_dim), with the logit scale `scale`
 // (1/sqrt(d) of the caller's real head dim d, which may be below a
 // zero-padded `head_dim`).  bf16 takes the Hopper kernel (q_src and kv_src
-// 16-byte aligned), fp32 the previous design.  Returns the launch's CUDA
+// 16-byte aligned), fp32 the mma.sync design.  Returns the launch's CUDA
 // error (0 on success).
 extern "C" int mmdiff_banded_attention_fwd(const void* q_src, const void* kv_src, void* out,
                                            float* lse, int n, int frames, int tq, int tk,
@@ -364,20 +362,4 @@ extern "C" int mmdiff_banded_attention_fwd(const void* q_src, const void* kv_src
                                    kernel_dim, scale, shift, window, s);
   return mmdiff::dispatch_sm90(q_src, kv_src, out, lse, n, frames, tq, tk, heads, head_dim,
                                kernel_dim, scale, shift, window, s);
-}
-
-// The previous design (mma.sync, attention_common.cuh) on the same
-// arguments, for the same-run comparison with the Hopper kernel.
-extern "C" int mmdiff_banded_attention_fwd_mma(const void* q_src, const void* kv_src, void* out,
-                                               float* lse, int n, int frames, int tq, int tk,
-                                               int heads, int head_dim, int kernel_dim,
-                                               float scale, int shift, int window, int is_fp32,
-                                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
-  if (is_fp32)
-    return mmdiff::dispatch<float>(q_src, kv_src, out, lse, n, frames, tq, tk, heads, head_dim,
-                                   kernel_dim, scale, shift, window, s);
-  return mmdiff::dispatch<mmdiff::bf16>(q_src, kv_src, out, lse, n, frames, tq, tk, heads,
-                                        head_dim, kernel_dim, scale, shift, window, s);
 }

@@ -40,9 +40,8 @@
 // +inf lse in the dkv pass.  The zero lanes of both packed gradients are
 // written by the same blocks: no zero-fill pass, no extra launch.  lw = 1 is
 // the same kernel with a one-frame window.
-// fp32 inputs keep the previous design (mma.sync, attention_bwd_common.cuh:
-// per-frame loops over 32-row tiles staged through registers); its bf16
-// build stays callable through mmdiff_banded_attention_bwd_mma.
+// fp32 inputs run the mma.sync design (attention_bwd_common.cuh:
+// per-frame loops over 32-row tiles staged through registers).
 //
 // Grids: both passes are persistent, as many blocks of 160 threads (one
 // consumer warpgroup and the producer warp) as fit on the card, each walking
@@ -410,7 +409,7 @@ static int dispatch_sm90(const void* q_src, const void* kv_src, const void* out,
 }
 
 // ---------------------------------------------------------------------------
-// The previous design (mma.sync; fp32 inputs, and bf16 for the comparison)
+// The mma.sync design (fp32 inputs)
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
@@ -536,7 +535,7 @@ static bool head_dim_fits(int head_dim, int kernel_dim) {
 // scratch of the same shape; `head_dim` runs on the kernels built for
 // `kernel_dim`, with the logit scale `scale` (1/sqrt(d) of the caller's real
 // head dim d, which may be below a zero-padded `head_dim`).  bf16 takes the Hopper kernels (q_src, kv_src and dout
-// 16-byte aligned), fp32 the previous design.  Every element of dq_src and
+// 16-byte aligned), fp32 the mma.sync design.  Every element of dq_src and
 // dkv_src is written.  Returns the first failing launch's CUDA error (0 on
 // success).
 extern "C" int mmdiff_banded_attention_bwd(const void* q_src, const void* kv_src, const void* out,
@@ -553,25 +552,6 @@ extern "C" int mmdiff_banded_attention_bwd(const void* q_src, const void* kv_src
                                    s);
   return mmdiff::dispatch_sm90(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n, frames,
                                tq, tk, heads, head_dim, kernel_dim, scale, shift, window, s);
-}
-
-// The previous design (mma.sync, attention_bwd_common.cuh) on the same
-// arguments, for the same-run comparison with the Hopper kernels.
-extern "C" int mmdiff_banded_attention_bwd_mma(const void* q_src, const void* kv_src,
-                                               const void* out, const void* dout, const float* lse,
-                                               float* delta, void* dq_src, void* dkv_src, int n,
-                                               int frames, int tq, int tk, int heads,
-                                               int head_dim, int kernel_dim, float scale, int shift,
-                                               int window, int is_fp32, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
-  if (is_fp32)
-    return mmdiff::dispatch<float>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src, n,
-                                   frames, tq, tk, heads, head_dim, kernel_dim, scale, shift, window,
-                                   s);
-  return mmdiff::dispatch<mmdiff::bf16>(q_src, kv_src, out, dout, lse, delta, dq_src, dkv_src,
-                                        n, frames, tq, tk, heads, head_dim, kernel_dim, scale,
-                                        shift, window, s);
 }
 
 // Frames per 64-row tile that the Hopper kernels pack for a [N, F, T] side

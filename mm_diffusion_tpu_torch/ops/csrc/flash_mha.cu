@@ -48,10 +48,9 @@
 //             / 64), H), 160 threads (a consumer warpgroup and the producer
 //             warp).
 //
-// The previous design (mma.sync, attention_common.cuh and
-// attention_bwd_common.cuh) stays for fp32, for kernel head dims 192 and
-// 256, and for the same-run comparison (mmdiff_flash_mha_fwd_mma,
-// mmdiff_flash_mha_bwd_mma): K and V staged through registers with no load
+// The mma.sync design (attention_common.cuh and attention_bwd_common.cuh;
+// mmdiff_flash_mha_fwd_mma, mmdiff_flash_mha_bwd_mma) runs fp32 and kernel
+// head dims 192 and 256: K and V staged through registers with no load
 // in flight during the products, two __syncthreads per 64-key tile, V
 // transposed with scalar stores, m16n8k16 products; the backward is the
 // same two-pass form, deterministic too.  Grids: (ceil(Tq / 64), H, B) for
@@ -632,8 +631,8 @@ static int dispatch_bwd_sm90(const void* q, const void* k, const void* v, const 
 }
 
 // ---------------------------------------------------------------------------
-// The previous design (mma.sync): the forward of fp32 and of kernel head
-// dims 192 / 256, and the bf16 same-run comparison; forward and backward
+// The mma.sync design: fp32 and kernel head dims 192 / 256; forward and
+// backward
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
@@ -799,7 +798,7 @@ static int dispatch_bwd(const void* q, const void* k, const void* v, const void*
 // mmdiff_flash_mha_bwd are the Hopper kernels, bf16 at kernel head dims
 // 32-128 (16-byte aligned operands and strides, for TMA); they refuse
 // anything else.  mmdiff_flash_mha_fwd_mma and mmdiff_flash_mha_bwd_mma are
-// the previous design, bf16 or fp32 at every kernel head dim.
+// the mma.sync design, bf16 or fp32 at every kernel head dim.
 extern "C" int mmdiff_flash_mha_fwd(const void* q, const void* k, const void* v, void* out,
                                     float* lse, int batch, int heads, int len_q, int len_k,
                                     int head_dim, int kernel_dim, float scale, long long q_sb,

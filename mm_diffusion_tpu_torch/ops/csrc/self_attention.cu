@@ -12,8 +12,8 @@
 // head dim 64/96/128), so one (sequence, head) pair is at most ~0.5 GFLOP;
 // at T = 1024 the call is bound by the tensor cores (4 T^2 d FLOPs per pair
 // against one read of qkv), at T <= 256 by the bytes of qkv and by the blocks
-// in flight.  The previous design (mma.sync, attention_common.cuh) ran at
-// 70-90 TFLOP/s at T = 1024 (PERF.md): its K/V staging went through
+// in flight.  The mma.sync design (attention_common.cuh; fp32 only now) ran
+// bf16 at 70-90 TFLOP/s at T = 1024 (PERF.md): its K/V staging went through
 // registers with no load in flight during the products, and warp-level
 // m16n8k16 products reach about two thirds of the card's dense rate at best.
 //
@@ -60,14 +60,12 @@
 //          caller (ops/block_attention.py::rows_launch_plan).
 //   nomax and noexp keep the main path's grid and pack_for at T <= 32, so
 //   rows against the main path at T = 16 isolates the persistence.
-// fp32 inputs keep the previous design (wgmma reads bf16 from shared
-// memory); its bf16 build stays callable through
-// mmdiff_self_attention_fwd_mma and mmdiff_self_attention_variant_fwd_mma
-// for the same-run comparison.
+// fp32 inputs run the mma.sync design (wgmma reads bf16 from shared
+// memory).
 //
 // Grids: Hopper (blocks, H), blocks = N * ceil(T / (64 * warpgroups)) or
 // ceil(N / pack); rows at T <= 32: the plan's blocks, one dimension;
-// previous design (N, H, ceil(T / 64)), 128 threads.
+// mma.sync design (N, H, ceil(T / 64)), 128 threads.
 
 #include "attention_common.cuh"
 #include "attention_sm90.cuh"
@@ -555,7 +553,7 @@ static int dispatch_variant_sm90(const void* qkv, void* out, int n, int len, int
 }
 
 // ---------------------------------------------------------------------------
-// The previous design (mma.sync; fp32 inputs, and bf16 for the comparison)
+// The mma.sync design (fp32 inputs)
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
@@ -607,15 +605,14 @@ static int dispatch(const void* qkv, void* out, float* lse, int n, int len, int 
 }
 
 // ---------------------------------------------------------------------------
-// The variants in the previous design (thirds layout, no lse): fp32 inputs,
-// and bf16 for the same-run comparison with the Hopper variants.  What each
-// means is above (Mode); the stock kernel already hoists a block's q rows
-// (hoist), multiplies by 1/l (recip) and folds log2(e) into the logit scale
-// (exp2), so those names launch the main path's kernel and no copy of it is
-// built.  Here rows packs floor(64 / T) short sequences into one 64-row query
-// tile of a (ceil(N / pack), H) grid at T <= 32, and K and V are staged
-// through registers between two __syncthreads, as in the main path's
-// previous design.
+// The variants in the mma.sync design (thirds layout, no lse; fp32
+// inputs).  What each means is above (Mode); the stock kernel already
+// hoists a block's q rows (hoist), multiplies by 1/l (recip) and folds
+// log2(e) into the logit scale (exp2), so those names launch the main
+// path's kernel and no copy of it is built.  Here rows packs floor(64 / T)
+// short sequences into one 64-row query tile of a (ceil(N / pack), H) grid
+// at T <= 32, and K and V are staged through registers between two
+// __syncthreads, as in the main path's mma.sync design.
 // Grid: rows at T <= 32: (ceil(N / pack), H, 1); otherwise (N, H, ceil(T / 64)).
 
 // One staged tile of `keys` valid keys for variant V.  `seg` > 0 masks keys
@@ -809,7 +806,7 @@ static bool head_dim_fits(int head_dim, int kernel_dim) {
 // (ops/block_attention.py::kernel_head_dim), with the logit scale `scale`
 // (1/sqrt(d) of the caller's real head dim d, which may be below a
 // zero-padded `head_dim`).  bf16 takes the Hopper kernel
-// (qkv 16-byte aligned), fp32 the previous design.  Returns the launch's
+// (qkv 16-byte aligned), fp32 the mma.sync design.  Returns the launch's
 // CUDA error (0 on success).
 extern "C" int mmdiff_self_attention_fwd(const void* qkv, void* out, float* lse, int n, int len,
                                          int heads, int head_dim, int kernel_dim, float scale,
@@ -824,25 +821,10 @@ extern "C" int mmdiff_self_attention_fwd(const void* qkv, void* out, float* lse,
                                head_stride, k_off, s);
 }
 
-// The previous design (mma.sync, attention_common.cuh) on the same
-// arguments, for the same-run comparison with the Hopper kernel.
-extern "C" int mmdiff_self_attention_fwd_mma(const void* qkv, void* out, float* lse, int n,
-                                             int len, int heads, int head_dim, int kernel_dim,
-                                             float scale, int head_stride, int k_off, int v_off,
-                                             int is_fp32, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
-  if (is_fp32)
-    return mmdiff::dispatch<float>(qkv, out, lse, n, len, heads, head_dim, kernel_dim, scale,
-                                   head_stride, k_off, v_off, s);
-  return mmdiff::dispatch<mmdiff::bf16>(qkv, out, lse, n, len, heads, head_dim, kernel_dim, scale,
-                                        head_stride, k_off, v_off, s);
-}
-
 // The variants over thirds-layout qkv [N, T, 3C] -> out [N, T, C], at the
 // logit scale `scale`; variant 1 = rows, 2 = nomax, 3 = noexp.  bf16 runs
 // the Hopper kernels (kernel head dims 32-256; qkv 16-byte aligned), fp32
-// the previous design (32-128).  rows takes the launch plan of
+// the mma.sync design (32-128).  rows takes the launch plan of
 // ops/block_attention.py::rows_launch_plan: `pack` sequences per 64-row
 // tile, `blocks`, `per_block` tiles a block and `warpgroups` (bf16 only; the
 // other variants ignore them).  Returns the launch's CUDA error (0 on
@@ -859,21 +841,6 @@ extern "C" int mmdiff_self_attention_variant_fwd(const void* qkv, void* out, int
                                            variant, s);
   return mmdiff::dispatch_variant_sm90(qkv, out, n, len, heads, head_dim, kernel_dim, scale,
                                        variant, pack, blocks, per_block, warpgroups, s);
-}
-
-// The variants in the previous design (mma.sync) on the same arguments but
-// the plan, for the same-run comparison (kernel head dims 32-128).
-extern "C" int mmdiff_self_attention_variant_fwd_mma(const void* qkv, void* out, int n, int len,
-                                                     int heads, int head_dim, int kernel_dim,
-                                                     float scale, int variant, int is_fp32,
-                                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
-  if (is_fp32)
-    return mmdiff::dispatch_variant<float>(qkv, out, n, len, heads, head_dim, kernel_dim, scale,
-                                           variant, s);
-  return mmdiff::dispatch_variant<mmdiff::bf16>(qkv, out, n, len, heads, head_dim, kernel_dim,
-                                                scale, variant, s);
 }
 
 // Resident blocks per SM of the persistent rows kernel at `kernel_dim` on

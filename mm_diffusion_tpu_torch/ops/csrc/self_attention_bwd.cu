@@ -12,8 +12,8 @@
 //
 // What bounds it on this card: at T = 1024 the five [T, T] products (10 T^2 d
 // FLOPs per (sequence, head)) bound it on the tensor cores; at T <= 400 the
-// bytes of qkv, out and dout, and the blocks in flight.  The previous design
-// (mma.sync, attention_bwd_common.cuh) staged every tile through registers
+// bytes of qkv, out and dout, and the blocks in flight.  The mma.sync design
+// (attention_bwd_common.cuh; fp32 only now) staged every tile through registers
 // with two __syncthreads per 32-row tile and read transposed operands as
 // 16-bit pairs; it ran at 2.5x the time of PyTorch's fused backward at
 // T = 1024.
@@ -39,11 +39,10 @@
 // At T <= 64 the block's tile holds every key and query its rows meet, and
 // one kernel does both passes' work from tiles loaded once (one launch, no
 // delta round trip).
-// fp32 inputs keep the previous design; its bf16 build stays callable
-// through mmdiff_self_attention_bwd_mma.
+// fp32 inputs run the mma.sync design.
 //
 // Grids: every kernel (blocks, H), blocks = N * ceil(T / 64) or ceil(N / pack),
-// 160 threads (one consumer warpgroup and the producer warp); previous design
+// 160 threads (one consumer warpgroup and the producer warp); mma.sync design
 // (N, H, ceil(T / 64)), 128 threads.  At T > 64 the dq pass writes delta,
 // which the dkv pass reads, so the two run in this order on the caller's
 // stream.
@@ -435,7 +434,7 @@ static int dispatch_sm90(const void* qkv, const void* out, const void* dout, con
 }
 
 // ---------------------------------------------------------------------------
-// The previous design (mma.sync; fp32 inputs, and bf16 for the comparison)
+// The mma.sync design (fp32 inputs)
 // ---------------------------------------------------------------------------
 
 template <int D, typename T>
@@ -547,7 +546,7 @@ static bool head_dim_fits(int head_dim, int kernel_dim) {
 // [N, H, T] fp32; `head_dim` runs on the kernels built for `kernel_dim`, with
 // the logit scale `scale` (1/sqrt(d) of the caller's real head dim d).
 // bf16 takes the Hopper kernels (qkv and dout 16-byte aligned), fp32 the
-// previous design.  Every element of dqkv is written.  Returns the first
+// mma.sync design.  Every element of dqkv is written.  Returns the first
 // failing launch's CUDA error (0 on success).
 extern "C" int mmdiff_self_attention_bwd(const void* qkv, const void* out, const void* dout,
                                          const float* lse, float* delta, void* dqkv, int n,
@@ -561,20 +560,4 @@ extern "C" int mmdiff_self_attention_bwd(const void* qkv, const void* out, const
                                    kernel_dim, scale, head_stride, k_off, v_off, s);
   return mmdiff::dispatch_sm90(qkv, out, dout, lse, delta, dqkv, n, len, heads, head_dim,
                                kernel_dim, scale, head_stride, k_off, v_off, s);
-}
-
-// The previous design (mma.sync, attention_bwd_common.cuh) on the same
-// arguments, for the same-run comparison with the Hopper kernels.
-extern "C" int mmdiff_self_attention_bwd_mma(const void* qkv, const void* out, const void* dout,
-                                             const float* lse, float* delta, void* dqkv, int n,
-                                             int len, int heads, int head_dim, int kernel_dim,
-                                             float scale, int head_stride, int k_off, int v_off,
-                                             int is_fp32, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!head_dim_fits(head_dim, kernel_dim)) return (int)cudaErrorInvalidValue;
-  if (is_fp32)
-    return mmdiff::dispatch<float>(qkv, out, dout, lse, delta, dqkv, n, len, heads, head_dim,
-                                   kernel_dim, scale, head_stride, k_off, v_off, s);
-  return mmdiff::dispatch<mmdiff::bf16>(qkv, out, dout, lse, delta, dqkv, n, len, heads,
-                                        head_dim, kernel_dim, scale, head_stride, k_off, v_off, s);
 }

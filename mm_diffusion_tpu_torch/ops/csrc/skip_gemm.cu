@@ -54,18 +54,11 @@
 //     (the conv core) or their B tile (the skip projection) in L2.
 // K0, K1, N, the row and batch strides must be multiples of 8 and the
 // pointers 16-byte aligned (TMA); M is any size.
-//
-// The previous design (mma.sync, kept for the same-run comparison:
-// mmdiff_gemm_bf16_mma): 64 x 64 output tiles, K in steps of 32, four warps
-// of m16n8k16 products, 16-byte global loads staged through registers one K
-// tile ahead of the products and two __syncthreads per K step; grid
-// (ceil(N / 64), ceil(M / 64), batch), so at the conv core every byte of B
-// crossed from L2 three times behind a pipeline one stage deep.
 
 #include <algorithm>
 #include <climits>
 
-#include "attention_bwd_common.cuh"
+#include "attention_common.cuh"
 #include "attention_sm90.cuh"
 
 namespace mmdiff {
@@ -317,120 +310,6 @@ static int gemm_bf16_sm90(const void* a0, long long lda0, long long a0_batch, in
                        : launch_gemm_sm90<256>(maps, a, stream);
 }
 
-// ---------------------------------------------------------------------------
-// The previous design (mma.sync)
-// ---------------------------------------------------------------------------
-
-constexpr int kGemmBM = 64, kGemmBN = 64, kGemmBK = 32;
-constexpr int kGemmThreads = 128;
-constexpr int kGemmLdA = kGemmBK + 8;  // bf16 elements per shared A row (80 bytes)
-constexpr int kGemmLdB = kGemmBN + 8;  // bf16 elements per shared B row (144 bytes)
-constexpr int kGemmChunks = 2;         // 16-byte chunks per thread per tile and operand
-
-struct GemmPart {
-  const bf16* a;
-  long long lda, a_batch;
-  int k;
-};
-
-// Load K tile `tile` (of part 0's tiles, then part 1's) of A and B into
-// registers, zeros outside the matrices.
-__device__ __forceinline__ void gemm_load_tile(uint4 (&ra)[kGemmChunks], uint4 (&rb)[kGemmChunks],
-                                               const GemmPart& p0, const GemmPart& p1,
-                                               const bf16* b, long long ldb, int tile,
-                                               int tiles0, int m0, int n0, int m, int n) {
-  const bool first = tile < tiles0;
-  const GemmPart& p = first ? p0 : p1;
-  const int k0 = (first ? tile : tile - tiles0) * kGemmBK;
-  const long long kb = (first ? 0 : p0.k) + k0;  // row of B
-#pragma unroll
-  for (int i = 0; i < kGemmChunks; ++i) {
-    const int id = threadIdx.x + i * kGemmThreads;
-    const int ar = id / (kGemmBK / 8), ac = (id % (kGemmBK / 8)) * 8;
-    ra[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + ar < m && k0 + ac < p.k)
-      ra[i] = *reinterpret_cast<const uint4*>(p.a + (m0 + ar) * p.lda + k0 + ac);
-    const int br = id / (kGemmBN / 8), bc = (id % (kGemmBN / 8)) * 8;
-    rb[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (k0 + br < p.k && n0 + bc < n)
-      rb[i] = *reinterpret_cast<const uint4*>(b + (kb + br) * ldb + n0 + bc);
-  }
-}
-
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_bf16_kernel(GemmPart p0, GemmPart p1, const bf16* __restrict__ b, long long ldb,
-                     long long b_batch, bf16* __restrict__ c, long long ldc, long long c_batch,
-                     int m, int n) {
-  __shared__ __align__(16) unsigned short sa[kGemmBM * kGemmLdA];
-  __shared__ __align__(16) unsigned short sb[kGemmBK * kGemmLdB];
-  const int z = blockIdx.z;
-  p0.a += z * p0.a_batch;
-  p1.a += z * p1.a_batch;
-  b += z * b_batch;
-  c += z * c_batch;
-  const int n0 = blockIdx.x * kGemmBN, m0 = blockIdx.y * kGemmBM;
-  const int warp = threadIdx.x >> 5, wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int tiles0 = (p0.k + kGemmBK - 1) / kGemmBK;
-  const int tiles = tiles0 + (p1.k + kGemmBK - 1) / kGemmBK;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    }
-  }
-
-  uint4 ra[kGemmChunks], rb[kGemmChunks];
-  if (tiles > 0) gemm_load_tile(ra, rb, p0, p1, b, ldb, 0, tiles0, m0, n0, m, n);
-  for (int tile = 0; tile < tiles; ++tile) {
-#pragma unroll
-    for (int i = 0; i < kGemmChunks; ++i) {
-      const int id = threadIdx.x + i * kGemmThreads;
-      const int ar = id / (kGemmBK / 8), ac = (id % (kGemmBK / 8)) * 8;
-      *reinterpret_cast<uint4*>(sa + ar * kGemmLdA + ac) = ra[i];
-      const int br = id / (kGemmBN / 8), bc = (id % (kGemmBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(sb + br * kGemmLdB + bc) = rb[i];
-    }
-    __syncthreads();
-    // The next tile's global loads are in flight during this tile's products.
-    if (tile + 1 < tiles) gemm_load_tile(ra, rb, p0, p1, b, ldb, tile + 1, tiles0, m0, n0, m, n);
-#pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) lds_a(af[i], sa, kGemmLdA, wm + i * 16, kk * 16);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t b0, b1;
-        lds_b_cols(b0, b1, sb, kGemmLdB, kk * 16, wn + j * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_16816(acc[i][j], af[i], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r0 = m0 + wm + i * 16 + g, r1 = r0 + 8;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn + j * 8 + 2 * t;
-      if (col >= n) continue;
-      if (r0 < m)
-        *reinterpret_cast<__nv_bfloat162*>(c + r0 * ldc + col) =
-            __floats2bfloat162_rn(acc[i][j][0], acc[i][j][1]);
-      if (r1 < m)
-        *reinterpret_cast<__nv_bfloat162*>(c + r1 * ldc + col) =
-            __floats2bfloat162_rn(acc[i][j][2], acc[i][j][3]);
-    }
-  }
-}
-
 }  // namespace mmdiff
 
 // See the note at the top.  a1 may be null with k1 = 0 (one part).  The
@@ -445,22 +324,4 @@ extern "C" int mmdiff_gemm_bf16(const void* a0, long long lda0, long long a0_bat
   return mmdiff::gemm_bf16_sm90(a0, lda0, a0_batch, k0, a1, lda1, a1_batch, k1, b, ldb, b_batch,
                                 c, ldc, c_batch, m, n, batch, tile_n,
                                 static_cast<cudaStream_t>(stream));
-}
-
-// The previous design on the same arguments (no tile_n), for the same-run
-// comparison.  Returns the launch's cudaGetLastError() (0 on success).
-extern "C" int mmdiff_gemm_bf16_mma(const void* a0, long long lda0, long long a0_batch, int k0,
-                                    const void* a1, long long lda1, long long a1_batch, int k1,
-                                    const void* b, long long ldb, long long b_batch, void* c,
-                                    long long ldc, long long c_batch, int m, int n, int batch,
-                                    void* stream) {
-  using mmdiff::bf16;
-  const mmdiff::GemmPart p0{static_cast<const bf16*>(a0), lda0, a0_batch, k0};
-  const mmdiff::GemmPart p1{static_cast<const bf16*>(a1), lda1, a1_batch, k1};
-  const dim3 grid((n + mmdiff::kGemmBN - 1) / mmdiff::kGemmBN,
-                  (m + mmdiff::kGemmBM - 1) / mmdiff::kGemmBM, batch);
-  mmdiff::gemm_bf16_kernel<<<grid, mmdiff::kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, static_cast<const bf16*>(b), ldb, b_batch, static_cast<bf16*>(c), ldc, c_batch, m,
-      n);
-  return (int)cudaGetLastError();
 }

@@ -55,25 +55,18 @@ _F = ctypes.c_float
 # entries take the logit scale after the head dims.
 SIGNATURES = {
     "mmdiff_self_attention_fwd": [_P, _P, _P] + [_I] * 5 + [_F] + [_I] * 4 + [_P],
-    "mmdiff_self_attention_fwd_mma": [_P, _P, _P] + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "mmdiff_banded_attention_fwd": [_P, _P, _P, _P] + [_I] * 7 + [_F] + [_I] * 3 + [_P],
-    "mmdiff_banded_attention_fwd_mma": [_P, _P, _P, _P] + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "mmdiff_self_attention_bwd": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
-    "mmdiff_self_attention_bwd_mma": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "mmdiff_banded_attention_bwd": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
-    "mmdiff_banded_attention_bwd_mma": [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "mmdiff_banded_attention_bwd_frames_per_tile": [_I] * 4,
     "mmdiff_self_attention_variant_fwd": [_P, _P] + [_I] * 5 + [_F] + [_I] * 6 + [_P],
-    "mmdiff_self_attention_variant_fwd_mma": [_P, _P] + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     "mmdiff_self_attention_rows_blocks_per_sm": [_I],
     "mmdiff_flash_mha_fwd": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_flash_mha_fwd_mma": [_P] * 5 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_flash_mha_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_flash_mha_bwd_mma": [_P] * 10 + [_I] * 6 + [_F] + [_L] * 9 + [_I, _P],
     "mmdiff_gemm_bf16": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 4 + [_P],
-    "mmdiff_gemm_bf16_mma": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 3 + [_P],
     "mmdiff_conv3x3_chw": [_P] * 3 + [_I] * 5 + [_P],
-    "mmdiff_conv3x3_chw_mma": [_P] * 3 + [_I] * 5 + [_P],
     "mmdiff_channels_last_halo": [_P] * 2 + [_I] * 5 + [_P],
     "mmdiff_group_norm_silu": [_P] * 6 + [_L] + [_I] * 4 + [_L, _F, _I, _I, _P],
     "mmdiff_group_norm_silu_cl": [_P] * 6 + [_L] + [_I] * 4 + [_L, _F, _I, _P],

@@ -16,14 +16,10 @@ Each direction has two designs, chosen by one rule (:func:`forward_design`,
 :func:`backward_design`): bf16 at kernel head dims 32-128 runs the Hopper
 kernels (TMA, mbarrier rings fed by a producer warp, ``wgmma``;
 ``csrc/attention_sm90.cuh``: the forward K1's, the backward the dq and dk/dv
-passes of K4/K5); fp32, and kernel head dims 192 and 256, run the previous
-mma.sync design.  Each launch counts in :data:`FORWARD_DESIGNS` or
-:data:`BACKWARD_DESIGNS` by design.  The previous design's bf16 builds stay
-reachable through ``_flash_mha_fwd_previous_cuda`` and
-``_flash_mha_bwd_previous_cuda`` for the same-run comparison in
-``chip_smoke.py`` and the card tests (counted in :data:`PREVIOUS_LAUNCHES`,
-never by the API).  Either backward takes either forward's output and
-logsumexp.
+passes of K4/K5); fp32, and kernel head dims 192 and 256, run the mma.sync
+design (``csrc/attention_common.cuh``, ``csrc/attention_bwd_common.cuh``).
+Each launch counts in :data:`FORWARD_DESIGNS` or :data:`BACKWARD_DESIGNS` by
+design.  Either backward takes either forward's output and logsumexp.
 
 Dispatch: a tensor on the CPU takes the plain version (:func:`mha_reference`
 and :func:`mha_backward_reference`); a CUDA tensor launches the kernels or
@@ -59,11 +55,9 @@ MAX_GRID_DIM = 65535  # B and H are grid dimensions of the kernels
 
 # Launches of each kernel since the last reset_launch_counts().
 LAUNCHES = {"flash_mha_fwd": 0, "flash_mha_bwd": 0}
-# Each direction's launches by design: "sm90" (Hopper) or "mma" (previous).
+# Each direction's launches by design: "sm90" (Hopper) or "mma" (mma.sync).
 FORWARD_DESIGNS: collections.Counter = collections.Counter()
 BACKWARD_DESIGNS: collections.Counter = collections.Counter()
-# Launches of the previous designs by kernel (same-run comparison only).
-PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
 # The C entry point of each design (csrc/flash_mha.cu).
 FORWARD_ENTRIES = {"sm90": "mmdiff_flash_mha_fwd", "mma": "mmdiff_flash_mha_fwd_mma"}
 BACKWARD_ENTRIES = {"sm90": "mmdiff_flash_mha_bwd", "mma": "mmdiff_flash_mha_bwd_mma"}
@@ -72,7 +66,7 @@ BACKWARD_ENTRIES = {"sm90": "mmdiff_flash_mha_bwd", "mma": "mmdiff_flash_mha_bwd
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for counter in (FORWARD_DESIGNS, BACKWARD_DESIGNS, PREVIOUS_LAUNCHES):
+    for counter in (FORWARD_DESIGNS, BACKWARD_DESIGNS):
         counter.clear()
 
 
@@ -85,7 +79,7 @@ def kernel_head_dim(d: int) -> int:
 def forward_design(d: int, dtype: torch.dtype) -> Tuple[str, int]:
     """``(design, kernel head dim)`` of the forward at head dim ``d`` (before
     the pad to a multiple of 8) and ``dtype``: ``"sm90"`` (the Hopper kernel)
-    for bf16 at kernel head dims up to 128, ``"mma"`` (the previous design)
+    for bf16 at kernel head dims up to 128, ``"mma"`` (the mma.sync design)
     for fp32 and for kernel head dims 192 and 256.  ``d > 256`` raises
     ``ValueError``."""
     kd = kernel_head_dim(block_attention.padded_head_dim(d))
@@ -96,7 +90,7 @@ def forward_design(d: int, dtype: torch.dtype) -> Tuple[str, int]:
 def backward_design(d: int, dtype: torch.dtype) -> Tuple[str, int]:
     """``(design, kernel head dim)`` of the backward: the rule of
     :func:`forward_design` (the Hopper passes for bf16 at kernel head dims
-    up to 128, the previous design for fp32 and 192 / 256)."""
+    up to 128, the mma.sync design for fp32 and 192 / 256)."""
     return forward_design(d, dtype)
 
 
@@ -283,17 +277,6 @@ def flash_mha_fwd_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     return _unpad_into(q, out), lse
 
 
-def _flash_mha_fwd_previous_cuda(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The previous design (mma.sync) of :func:`flash_mha_fwd_cuda` on the
-    same arguments, for the same-run comparison only (head dims that are
-    multiples of 8)."""
-    d = _check_operands(q, k, v)[4]
-    out = torch.empty_like(q)
-    lse = _launch_fwd(FORWARD_ENTRIES["mma"], q, k, v, out, d)
-    PREVIOUS_LAUNCHES["flash_mha_fwd"] += 1
-    return out, lse
-
-
 def _check_bwd(q, k, v, out, g) -> int:
     """Validate the backward's operands; returns the head dim."""
     d = _check_operands(q, k, v)[4]
@@ -321,17 +304,6 @@ def flash_mha_bwd_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor
         gp = torch.empty_like(op).copy_(gp)
     flash_launch_bwd(qp, kp, vp, op, gp, lse, dq, dk, dv, d)
     return _unpad_into(q, dq), _unpad_into(k, dk), _unpad_into(v, dv)
-
-
-def _flash_mha_bwd_previous_cuda(q, k, v, out, lse, g) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The previous design (mma.sync) of :func:`flash_mha_bwd_cuda` on the
-    same arguments, for the same-run comparison only (head dims that are
-    multiples of 8, ``g`` in ``out``'s strides)."""
-    d = _check_bwd(q, k, v, out, g)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd(BACKWARD_ENTRIES["mma"], q, k, v, out, g, lse, dq, dk, dv, d)
-    PREVIOUS_LAUNCHES["flash_mha_bwd"] += 1
-    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

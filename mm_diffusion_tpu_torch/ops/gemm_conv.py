@@ -14,9 +14,7 @@ versions and the hand-written CUDA kernels' wrappers.
   MN-major, a producer warpgroup feeding a 4-stage ring, ``wgmma``,
   persistent blocks), on block tiles of :func:`gemm_tiles`: 192 rows of A
   by 192 or 256 columns of B, so that a tile covers the short side whole at
-  both hot shapes.  Its previous mma.sync design stays reachable through
-  ``_skip_gemm_previous_cuda`` / ``_gemm_blocks_previous_cuda`` for the
-  same-run comparison (counted in :data:`PREVIOUS_LAUNCHES`).
+  both hot shapes.
 * :func:`conv3x3_chw` -- 3x3 SAME conv in channel-major layout, ``[B, Ci,
   H, W]`` and ``[Co, Ci, 3, 3]`` -> ``[B, Co, H, W]``, as a direct implicit
   GEMM that never writes the im2col matrix (``csrc/conv3x3_chw.cu``;
@@ -27,14 +25,12 @@ versions and the hand-written CUDA kernels' wrappers.
   into a channels-last layout with a one-pixel zero ring (plain version:
   :func:`channels_last_halo`; launches in :data:`HELPER_LAUNCHES`), on
   which a tap's shift is a box coordinate; ``Ci % 8 != 0`` runs on
-  zero-padded channels (counted in :data:`CONV_ROUTES`).  The previous
-  mma.sync design, which reads the channel-major input in place, stays
-  reachable through ``_conv3x3_chw_previous_cuda`` for the same-run
-  comparison (counted in :data:`PREVIOUS_LAUNCHES`).
+  zero-padded channels (counted in :data:`CONV_ROUTES`).
 
-The kernels take bf16 activations, accumulate in fp32 and return bf16 (the
-TPU kernels' contract); the weights are cast to bf16 by the wrapper, as the
-JAX tools cast them.  The plain versions compute in fp32 and return the
+The kernels take bf16 activations only, so each has one design, the
+Hopper one; they accumulate in fp32 and return bf16 (the TPU kernels'
+contract); the weights are cast to bf16 by the wrapper, as the JAX tools
+cast them.  The plain versions compute in fp32 and return the
 activations' dtype.  Dispatch: a tensor on the CPU takes the plain version;
 a CUDA tensor launches the kernel or raises on what it does not take.  No
 model calls these yet: the tools under ``mm_diffusion_tpu_torch/tools/`` are
@@ -53,7 +49,6 @@ import torch.nn.functional as F
 from . import cuda_build
 from .common import Tolerance, kernel_path
 
-MAX_GRID_DIM = 65535  # M / 64 and the batch (previous GEMM), Co / 64 and B (previous conv) are grid dimensions
 INT_MAX = 2**31 - 1  # the Hopper GEMM's tile count is an int
 GEMM_TILE_M = 192  # rows of A per block tile of the Hopper GEMM (three consumer warpgroups)
 # The three kernels against their fp32 plain versions: bf16 operands and a
@@ -68,14 +63,12 @@ LAUNCHES = {"skip_gemm": 0, "gemm_blocks": 0, "conv3x3_chw": 0}
 CONV_ROUTES: collections.Counter = collections.Counter()
 # Launches of the conv's input copy (channels_last_halo_cuda), by kernel.
 HELPER_LAUNCHES: collections.Counter = collections.Counter()
-# Launches of the previous designs by wrapper (same-run comparison only).
-PREVIOUS_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    for counter in (CONV_ROUTES, HELPER_LAUNCHES, PREVIOUS_LAUNCHES):
+    for counter in (CONV_ROUTES, HELPER_LAUNCHES):
         counter.clear()
 
 
@@ -175,35 +168,33 @@ def _weights(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_gemm(a0, lda0, a0_batch, k0, a1, lda1, a1_batch, k1, b, ldb, b_batch, c, ldc,
-                 c_batch, m, n, batch, name, previous=False):
-    """Launch the Hopper GEMM (or, with ``previous``, its mma.sync design)
-    on the operands' pointers and element strides; counts the launch."""
+                 c_batch, m, n, batch, name):
+    """Launch the Hopper GEMM on the operands' pointers and element
+    strides; counts the launch."""
     if any(x % 8 for x in (k0, k1, n, lda0, lda1, ldb, ldc, a0_batch, a1_batch, b_batch, c_batch)):
         raise ValueError(f"{name}: K of each part, N and the row strides must be multiples of 8")
     if min(m, n, k0 + k1) == 0:
         raise ValueError(f"{name}: empty GEMM (M = {m}, N = {n}, K = {k0 + k1})")
     tiles = gemm_tiles(m, n, batch)
-    if previous and ((m + 63) // 64 > MAX_GRID_DIM or batch > MAX_GRID_DIM):
-        raise ValueError(f"{name}: M = {m} or batch = {batch} is too large for the kernel's grid")
     if tiles.tiles > INT_MAX:
         raise ValueError(f"{name}: {tiles.tiles} tiles are too many for the kernel")
     lib = cuda_build.load().lib
-    tile_arg = () if previous else (tiles.cols,)
-    entry = lib.mmdiff_gemm_bf16_mma if previous else lib.mmdiff_gemm_bf16
     with torch.cuda.device(c.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = entry(
+        err = lib.mmdiff_gemm_bf16(
             a0.data_ptr(), lda0, a0_batch, k0,
             a1.data_ptr() if a1 is not None else None, lda1, a1_batch, k1,
-            b.data_ptr(), ldb, b_batch, c.data_ptr(), ldc, c_batch, m, n, batch, *tile_arg, stream,
+            b.data_ptr(), ldb, b_batch, c.data_ptr(), ldc, c_batch, m, n, batch, tiles.cols, stream,
         )
     if err:
-        raise RuntimeError(f"{name} kernel launch failed ({'previous design' if previous else 'Hopper'}): "
-                           f"CUDA error {err}")
-    (PREVIOUS_LAUNCHES if previous else LAUNCHES)[name] += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
 
 
-def _skip_gemm_launch(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, previous: bool) -> torch.Tensor:
+def skip_gemm_cuda(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the two-part GEMM (the Hopper design) on ``x1 [B, H, W, C1]``,
+    ``x2 [B, H, W, C2]`` and ``w [C1 + C2, CO]``; returns ``[B, H, W, CO]``
+    bf16."""
     _check_bf16(x1, "x1", 4)
     _check_bf16(x2, "x2", 4)
     c1, c2 = x1.shape[-1], x2.shape[-1]
@@ -215,11 +206,13 @@ def _skip_gemm_launch(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor, previ
     co = wb.shape[1]
     m = x1.numel() // c1
     out = torch.empty((*x1.shape[:-1], co), dtype=torch.bfloat16, device=x1.device)
-    _launch_gemm(x1, c1, 0, c1, x2, c2, 0, c2, wb, co, 0, out, co, 0, m, co, 1, "skip_gemm", previous)
+    _launch_gemm(x1, c1, 0, c1, x2, c2, 0, c2, wb, co, 0, out, co, 0, m, co, 1, "skip_gemm")
     return out
 
 
-def _gemm_blocks_launch(a: torch.Tensor, b: torch.Tensor, previous: bool) -> torch.Tensor:
+def gemm_blocks_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch the GEMM (the Hopper design) on ``a [Co, K]`` (shared) and
+    ``b [nblk, K, npx]``; returns ``[nblk, Co, npx]`` bf16."""
     _check_bf16(b, "b", 3)
     nblk, k, npx = b.shape
     if a.dim() != 2 or a.shape[1] != k:
@@ -228,33 +221,8 @@ def _gemm_blocks_launch(a: torch.Tensor, b: torch.Tensor, previous: bool) -> tor
     co = ab.shape[0]
     out = torch.empty((nblk, co, npx), dtype=torch.bfloat16, device=b.device)
     _launch_gemm(ab, k, 0, k, None, 0, 0, 0, b, npx, k * npx, out, npx, co * npx, co, npx, nblk,
-                 "gemm_blocks", previous)
+                 "gemm_blocks")
     return out
-
-
-def skip_gemm_cuda(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the two-part GEMM (the Hopper design) on ``x1 [B, H, W, C1]``,
-    ``x2 [B, H, W, C2]`` and ``w [C1 + C2, CO]``; returns ``[B, H, W, CO]``
-    bf16."""
-    return _skip_gemm_launch(x1, x2, w, previous=False)
-
-
-def gemm_blocks_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Launch the GEMM (the Hopper design) on ``a [Co, K]`` (shared) and
-    ``b [nblk, K, npx]``; returns ``[nblk, Co, npx]`` bf16."""
-    return _gemm_blocks_launch(a, b, previous=False)
-
-
-def _skip_gemm_previous_cuda(x1: torch.Tensor, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The previous design (mma.sync) of :func:`skip_gemm_cuda` on the same
-    arguments, for the same-run comparison only."""
-    return _skip_gemm_launch(x1, x2, w, previous=True)
-
-
-def _gemm_blocks_previous_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The previous design (mma.sync) of :func:`gemm_blocks_cuda` on the
-    same arguments, for the same-run comparison only."""
-    return _gemm_blocks_launch(a, b, previous=True)
 
 
 def _check_conv(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -302,27 +270,6 @@ def conv3x3_chw_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"conv3x3_chw kernel launch failed: CUDA error {err}")
     LAUNCHES["conv3x3_chw"] += 1
-    return out
-
-
-def _conv3x3_chw_previous_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The previous design (mma.sync) of :func:`conv3x3_chw_cuda` on the same
-    arguments, for the same-run comparison only."""
-    _check_conv(x, w)
-    b, ci, h, w_px = x.shape
-    if b > MAX_GRID_DIM or (w.shape[0] + 63) // 64 > MAX_GRID_DIM:
-        raise ValueError(f"batch {b} or Co {w.shape[0]} too large for the kernel's grid")
-    wb = _weights(w, x)
-    co = wb.shape[0]
-    out = torch.empty((b, co, h, w_px), dtype=torch.bfloat16, device=x.device)
-    lib = cuda_build.load().lib
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mmdiff_conv3x3_chw_mma(x.data_ptr(), wb.data_ptr(), out.data_ptr(), b, ci, co,
-                                         h, w_px, stream)
-    if err:
-        raise RuntimeError(f"conv3x3_chw previous kernel launch failed: CUDA error {err}")
-    PREVIOUS_LAUNCHES["conv3x3_chw"] += 1
     return out
 
 

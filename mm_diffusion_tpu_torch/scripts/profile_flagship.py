@@ -2,7 +2,7 @@
 flagship sampler (random non-zero weights, batch 1, bf16), in one step of
 zero-shot audio->video sampling by the gradient method (the same base
 model: a forward and an input-only backward), in one step of the
-flagship training (the bench config: batch 4, remat, bf16 compute, fp32
+flagship training (batch 4, remat, bf16 compute, fp32
 AdamW and EMA), and in one train step of the SR U-Net (the sampler's SR
 config) and of the single-modal video and audio U-Nets (the single-modal
 CLI's defaults), each at batch 4 with use_checkpoint, by kernel kind, with
@@ -114,7 +114,7 @@ def _train_step_closure(model, diffusion, batch, dev: torch.device, seed: int, *
 
 
 def train_step_call(dev: torch.device, seed: int):
-    """One bench-config train step as a closure (the CLI's default
+    """One flagship train step (batch 4) as a closure (the CLI's default
     initialisation, synthetic data, uniform timesteps)."""
     from ..data.synthetic import load_synthetic_data
     from .multimodal_train import create_argparser as train_argparser
@@ -192,7 +192,7 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0))
     torch.cuda.reset_peak_memory_stats()
-    report("train step, bench config, batch 4 (remat, bf16)",
+    report("train step, flagship config, batch 4 (remat, bf16)",
            *profile_call(train_step_call(dev, args.seed), grad=True))
     print(f"   peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for stage, call in (("SR U-Net train step, batch 4 (use_checkpoint, bf16)", sr_train_step_call),

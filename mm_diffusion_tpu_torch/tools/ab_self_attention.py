@@ -5,28 +5,26 @@ in turns.
         [--rounds 2] [--backward] [--kernels attention,flash,gemm,variants]
         [--calls 10] [--replays 10]
 
-Run it from the root of a checkout (it reads ``chip_smoke.py``'s shape
-lists there).  Each DIR holds another checkout: its ``mm_diffusion_tpu_torch``
-builds its own kernels into ``DIR/build/kernels`` and runs in a fresh
-process.  The checkouts run in order, then in reverse order, ``--rounds``
-times in all (A B B A ...), so that drift on the card shows beside the
-difference.  Every time is device ms per call from CUDA-graph replays
-(``utils/timing.py::device_ms``) of the bf16 self-attention forward (K1) at
-the flagship sampler's shapes (``chip_smoke.SELF_SHAPES``), of the banded
-forward (K2/K3) at the sampler's shapes (batch 1, ``chip_smoke.BANDED_SHAPES``)
-and the training step's (batch 4, ``chip_smoke.TRAIN_BANDED_SHAPES``), the
-last shift of the span, and, with ``--backward``, of the self-attention
-backward (K4/K5) and of the banded backward (K6/K7) at the training step's
-shapes (``chip_smoke.TRAIN_SELF_SHAPES``, ``chip_smoke.TRAIN_BANDED_SHAPES``,
-with each pass's device time from torch.profiler beside it).  With
-``--kernels`` naming ``flash``, the flash MHA forward (K8) at its hot
-shapes (``chip_smoke.FLASH_SHAPES``) and, with ``--backward``, its backward
-with each pass's device time; naming ``gemm``, the GEMM of S3 and the S4
-core at the JAX tools' shapes; naming ``variants``, the K1 variants rows,
-nomax and noexp at the A/B tool's cases (``bench_attn_variants.CASES``;
-nomax and noexp at the first three); ``attention`` (the default) is K1-K7
-as above.  Each output is checked against the plain version first.  Needs
-a CUDA device.
+Each DIR holds a checkout: its ``mm_diffusion_tpu_torch`` builds its own
+kernels into ``DIR/build/kernels`` and runs in a fresh process, on the shape
+lists of the checkout the tool runs from.  The checkouts run in order, then in
+reverse order, ``--rounds`` times in all (A B B A ...), so that drift on the
+card shows beside the difference.  Every time is device ms per call from
+CUDA-graph replays (``utils/timing.py::device_ms``) of the bf16 self-attention
+forward (K1) at the flagship sampler's shapes (:data:`SELF_SHAPES`), of the
+banded forward (K2/K3) at the sampler's shapes (batch 1,
+:data:`BANDED_SHAPES`) and the training step's (batch 4,
+:data:`TRAIN_BANDED_SHAPES`), the last shift of the span, and, with
+``--backward``, of the self-attention backward (K4/K5) and of the banded
+backward (K6/K7) at the training step's shapes (:data:`TRAIN_SELF_SHAPES`,
+:data:`TRAIN_BANDED_SHAPES`, with each pass's device time from torch.profiler
+beside it).  With ``--kernels`` naming ``flash``, the flash MHA forward (K8) at
+its hot shapes (:data:`FLASH_SHAPES`) and, with ``--backward``, its backward
+with each pass's device time; naming ``gemm``, the GEMM of S3 and the S4 core
+at the JAX tools' shapes; naming ``variants``, the K1 variants rows, nomax and
+noexp at the A/B tool's cases (``bench_attn_variants.CASES``; nomax and noexp
+at the first three); ``attention`` (the default) is K1-K7 as above.  Each
+output is checked against the plain version first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,9 +34,71 @@ import os
 import subprocess
 import sys
 
+# Main-path shapes at batch 1 of the flagship config (16x64x64 video, 25600
+# audio samples, 128 channels, mult 1,2,3,4; SR 192 channels, head dim 64),
+# and of the text-to-image cell.
+SELF_SHAPES = [  # (label, N, T, C, heads, layout)
+    ("mm spatial ds2", 16, 1024, 256, 4, "thirds"),
+    ("mm spatial ds4", 16, 256, 384, 4, "thirds"),
+    ("mm spatial ds8", 16, 64, 512, 4, "thirds"),
+    ("mm temporal ds2", 1024, 16, 256, 4, "thirds"),
+    ("mm temporal ds4", 256, 16, 384, 4, "thirds"),
+    ("mm temporal ds8", 64, 16, 512, 4, "thirds"),
+    ("mm middle audio", 1, 400, 512, 4, "thirds"),
+    ("sr ds8", 16, 1024, 384, 6, "per_head"),
+    ("sr ds16", 16, 256, 768, 12, "per_head"),
+    ("sr ds32", 16, 64, 768, 12, "per_head"),
+    # Stable Diffusion XL base's self-attention in the benchmark's
+    # text-to-image cell: 8 rows an evaluation (4 images with guidance),
+    # 64x64 and 32x32 latent tokens, 64-wide heads.
+    ("sdxl 64x64", 8, 4096, 640, 10, "thirds"),
+    ("sdxl 32x32", 8, 1024, 1280, 20, "thirds"),
+]
+BANDED_SHAPES = [  # (label, F, Tq, Tk, C, heads, lw)
+    ("ds2 video->audio", 16, 1024, 400, 256, 4, 1),
+    ("ds2 audio->video", 16, 400, 1024, 256, 4, 1),
+    ("ds4 video->audio", 16, 256, 100, 384, 6, 4),
+    ("ds4 audio->video", 16, 100, 256, 384, 6, 4),
+    ("ds8 video->audio", 16, 64, 25, 512, 8, 8),
+    ("ds8 audio->video", 16, 25, 64, 512, 8, 8),
+    ("middle video->audio", 16, 64, 25, 512, 8, 16),
+    ("middle audio->video", 16, 25, 64, 512, 8, 16),
+]
+# Main-path shapes of the flagship training step (batch 4):
+# the sampler's shapes with N scaled by 4.
+TRAIN_SELF_SHAPES = [  # (label, N, T, C, heads, layout)
+    ("spatial ds2", 64, 1024, 256, 4, "thirds"),
+    ("spatial ds4", 64, 256, 384, 4, "thirds"),
+    ("spatial ds8", 64, 64, 512, 4, "thirds"),
+    ("temporal ds2", 4096, 16, 256, 4, "thirds"),
+    ("temporal ds4", 1024, 16, 384, 4, "thirds"),
+    ("temporal ds8", 256, 16, 512, 4, "thirds"),
+    ("middle audio", 4, 400, 512, 4, "thirds"),
+]
+TRAIN_BANDED_SHAPES = [  # (label, N, F, Tq, Tk, C, heads, lw)
+    ("ds2 video->audio", 4, 16, 1024, 400, 256, 4, 1),
+    ("ds2 audio->video", 4, 16, 400, 1024, 256, 4, 1),
+    ("ds4 video->audio", 4, 16, 256, 100, 384, 6, 4),
+    ("ds4 audio->video", 4, 16, 100, 256, 384, 6, 4),
+    ("ds8 video->audio", 4, 16, 64, 25, 512, 8, 8),
+    ("ds8 audio->video", 4, 16, 25, 64, 512, 8, 8),
+    ("middle video->audio", 4, 16, 64, 25, 512, 8, 16),
+    ("middle audio->video", 4, 16, 25, 64, 512, 8, 16),
+]
+# The flash MHA kernels' (K8) hot shapes, those of ops/fused_attention.py's
+# docstring and SDXL's cross-attention.  (label, B, H, Tq, Tk, D, layout);
+# B = batch * frames.
+FLASH_SHAPES = [
+    ("self", 128, 4, 1024, 1024, 64, "bhtd"),
+    ("video->audio", 128, 4, 1024, 400, 64, "bthd"),
+    ("audio->video", 128, 4, 100, 1024, 64, "bthd"),
+    # SDXL's cross-attention to the 77-token text context, 8 rows.
+    ("sdxl 64x64 cross", 8, 10, 4096, 77, 64, "bthd"),
+    ("sdxl 32x32 cross", 8, 20, 1024, 77, 64, "bthd"),
+]
+
 
 def child(root: str, backward: bool, kernels, calls: int, replays: int) -> None:
-    sys.path.insert(0, os.getcwd())
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -60,8 +120,6 @@ def child(root: str, backward: bool, kernels, calls: int, replays: int) -> None:
 
 
 def attention(root, g, time, backward) -> None:
-    from chip_smoke import SELF_SHAPES, TRAIN_SELF_SHAPES
-
     import torch
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
@@ -92,8 +150,6 @@ def attention(root, g, time, backward) -> None:
 
 
 def banded_forward(root, g, time) -> None:
-    from chip_smoke import BANDED_SHAPES, TRAIN_BANDED_SHAPES
-
     import torch
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
@@ -118,8 +174,6 @@ def banded_forward(root, g, time) -> None:
 
 
 def banded_backward(root, g, time) -> None:
-    from chip_smoke import TRAIN_BANDED_SHAPES
-
     import torch
 
     from mm_diffusion_tpu_torch.ops import block_attention as ba
@@ -148,8 +202,6 @@ def banded_backward(root, g, time) -> None:
 
 
 def flash(root, g, time, backward) -> None:
-    from chip_smoke import FLASH_SHAPES
-
     import torch
 
     from mm_diffusion_tpu_torch.ops import fused_attention as fa
@@ -266,16 +318,16 @@ def main(argv=None) -> int:
     ap.add_argument("--replays", type=int, default=10)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    from ..parallel.bootstrap import refuse_launcher
-
-    refuse_launcher("ab_self_attention")
     kernels = args.kernels.split(",")
     known = {"attention", "flash", "gemm", "variants"}
     if not set(kernels) <= known:
         ap.error(f"--kernels: unknown {sorted(set(kernels) - known)}")
-    if args.child:
+    if args.child:  # run as a file, outside the package: no relative imports
         child(args.child, args.backward, kernels, args.calls, args.replays)
         return 0
+    from ..parallel.bootstrap import refuse_launcher
+
+    refuse_launcher("ab_self_attention")
     for r in range(args.rounds):
         for root in args.dirs if r % 2 == 0 else args.dirs[::-1]:
             # the file, not the module: the child must import the package from `root`

@@ -15,9 +15,7 @@ noexp, exp2, nomax), on the variants of ``ops/block_attention.py``
 Each variant is first checked against its plain version on the same input.
 Times are device milliseconds per call (``calls`` calls captured in one CUDA
 graph, replayed ``replays`` times); on the CPU, host-clock milliseconds.
-On the card, rows, nomax and noexp run K1's Hopper kernel in their mode,
-and each is also timed in its previous design (mma.sync), printed as
-``<variant>@previous`` beside it.
+On the card, rows, nomax and noexp run K1's Hopper kernel in their mode.
 
     python -m mm_diffusion_tpu_torch.tools.bench_attn_variants [--device cuda]
         [--calls 10] [--replays 5] [--small]
@@ -76,13 +74,6 @@ def main(argv=None) -> dict:
                 f"{label} {variant} vs plain",
             )
             row[variant] = time_fn(lambda v=variant: ba.self_attention_variant(qkv, h, v))
-            if dev.type == "cuda" and variant in ba.VARIANT_CODES:
-                prev = lambda v=variant: ba._self_attention_variant_previous_cuda(qkv, h, v)  # noqa: E731
-                errs[f"{variant}@previous"] = check_close(
-                    prev(), ba.self_attention_variant_reference(qkv, h, variant),
-                    ba.VARIANT_TOL[variant], f"{label} {variant} (previous design) vs plain",
-                )
-                row[f"{variant}@previous"] = time_fn(prev)
         results[label] = {"ms": row, "max_abs_err": errs}
         print(f"{label:14s} N={n:5d} T={t:5d} C={c:4d} H={h:2d}  "
               + "  ".join(f"{k} {v:.4f}" for k, v in row.items())

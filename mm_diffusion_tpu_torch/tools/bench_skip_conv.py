@@ -7,7 +7,6 @@ over the virtual concat of two NHWC parts, (192 + 192) -> 192 channels at
   concat  the concat written to device memory, then one matmul
   gemm    the hand-written two-part GEMM (``ops/gemm_conv.py::skip_gemm``),
           which stacks both parts along K on chip with no concat
-  previous  (on the card) the GEMM's previous mma.sync design
 
 The kernel is first checked against its plain version (concat + matmul in
 fp32).  Times are device milliseconds per call (``calls`` calls captured in
@@ -62,8 +61,6 @@ def main(argv=None) -> dict:
         "concat": lambda: torch.cat([x1, x2], dim=-1) @ wd,
         "gemm": lambda: gemm_conv.skip_gemm(x1, x2, wfull),
     }
-    if dev.type == "cuda":  # the kernel's previous design
-        cases["previous"] = lambda: gemm_conv._skip_gemm_previous_cuda(x1, x2, wfull)
     results = {"max_abs_err": err, "ms": {}}
     for name, fn in cases.items():
         results["ms"][name] = ms = time_fn(fn)

@@ -10,10 +10,9 @@ chip (``ops/gemm_conv.py::conv3x3_chw``).  Modes:
          fp32) and against ``F.conv2d`` at a small shape
   bench  the kernel against cuDNN's ``F.conv2d`` in NCHW and in NHWC
          (channels_last) at the SR U-Net's 16 x 192 x 256^2 -> 192; on the
-         card also the kernel's input copy alone and its previous design
+         card also the kernel's input copy alone
   gemm   the GEMM core alone, ``[192, 1728] x [nblk, 1728, npx]`` for the
-         JAX tool's three (npx, nblk) cases, against ``torch.matmul``; on the
-         card also the GEMM's previous design
+         JAX tool's three (npx, nblk) cases, against ``torch.matmul``
 
 Times are device milliseconds per call (``calls`` calls captured in one CUDA
 graph, replayed ``replays`` times); on the CPU, host-clock ms.
@@ -82,9 +81,8 @@ def bench(dev, dtype, gen, args) -> dict:
         ("conv2d NHWC", lambda: F.conv2d(x_nhwc, w_nhwc, padding=1)),
         ("kernel CHW", lambda: gemm_conv.conv3x3_chw(x, w)),
     ]
-    if dev.type == "cuda":  # the kernel's input copy alone, and its previous design
-        convs += [("input copy", lambda: gemm_conv.channels_last_halo_cuda(x)),
-                  ("previous", lambda: gemm_conv._conv3x3_chw_previous_cuda(x, w))]
+    if dev.type == "cuda":  # the kernel's input copy alone
+        convs.append(("input copy", lambda: gemm_conv.channels_last_halo_cuda(x)))
     for name, fn in convs:
         results[name] = ms = time_fn(fn)
         rate = "" if name == "input copy" else f" ({flops / ms / 1e9:.0f} GFLOP/s)"
@@ -103,8 +101,6 @@ def gemm(dev, dtype, gen, args) -> dict:
             "matmul": time_fn(lambda: torch.matmul(a, bb)),
             "kernel": time_fn(lambda: gemm_conv.gemm_blocks(a, bb)),
         }
-        if dev.type == "cuda":  # the kernel's previous design
-            row["previous"] = time_fn(lambda: gemm_conv._gemm_blocks_previous_cuda(a, bb))
         results[(npx, nblk)] = row
         print(f"gemm [{GEMM_CO}x{GEMM_K}]x[{GEMM_K}x{npx}] x{nblk}: "
               + "  ".join(f"{k} {v:.4f} ms ({flops / v / 1e9:.0f} GFLOP/s)" for k, v in row.items()),

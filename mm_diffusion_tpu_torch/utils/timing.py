@@ -93,12 +93,12 @@ def sync(device: torch.device) -> None:
 
 
 def resolve_device(name: str) -> torch.device:
-    """The tools' and the bench's ``--device``: ``cuda`` needs a card and
+    """The A/B tools' ``--device``: ``cuda`` needs a card and
     never falls back to the CPU; ``cpu`` is taken only when asked for.  A
     tool runs in one process: under a multi-process launcher it stops."""
     from ..parallel.bootstrap import refuse_launcher
 
-    refuse_launcher("the A/B tools and the bench")
+    refuse_launcher("the A/B tools")
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run the plain versions on the CPU")

@@ -126,8 +126,8 @@ def test_backward_wrappers_refuse_cpu_tensors_and_count_nothing_on_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         pba.self_attention_bwd_cuda(qkv, qkv[..., :128], torch.zeros(1, 2, 16), qkv[..., :128], 2)
     src = t(randn(14, 1, F, 8, 3 * 128))
-    for launch in (pba.banded_attention_bwd_cuda, pba._banded_attention_bwd_previous_cuda):
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            launch(src, src, src[..., :128], torch.zeros(1, F, 2, 8), src[..., :128], 0, 2, 2, 128)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pba.banded_attention_bwd_cuda(src, src, src[..., :128], torch.zeros(1, F, 2, 8), src[..., :128],
+                                      0, 2, 2, 128)
     _grads(lambda x: pba.self_attention(x, 2), qkv)
-    assert set(pba.LAUNCHES.values()) == {0} and not pba.PREVIOUS_LAUNCHES
+    assert set(pba.LAUNCHES.values()) == {0}

@@ -1,11 +1,10 @@
 """The hand-written CUDA backward kernels against their plain PyTorch
 backwards, on the card, at the flagship training step's main-path shapes
-(chip_smoke.py's lists), every banded shift included; the self-attention
-backward (K4/K5) also at ragged T with N >= 2, at T = 16 with an N that does
-not fill the last packed tile, and against its previous design; K4-K7 at
-head dims that run on a larger built kernel (32, 48, 72).  The banded
-backward (K6/K7, Hopper design) also against its previous design at the
-training shapes with N >= 2 (rows past a clip's last frame are the next
+(the lists of mm_diffusion_tpu_torch/tools/ab_self_attention.py), every
+banded shift included; the self-attention backward (K4/K5) also at ragged T
+with N >= 2 and at T = 16 with an N that does not fill the last packed
+tile; K4-K7 at head dims that run on a larger built kernel (32, 48, 72).
+The banded backward (K6/K7) also at the training shapes with N >= 2 (rows past a clip's last frame are the next
 clip's), at frames of 25, 100 and 400 rows that cross 64-row tile
 boundaries (lw = 1, F - 1 with the largest shifts, F), at head dims 32, 48,
 96 and 128, with the frames packed per tile chosen by grid size, and two
@@ -23,13 +22,9 @@ CUDA kernels have no CPU or interpret mode, so every test here is marked
 import pytest
 import torch
 
-from chip_smoke import (
-    AUDIO_TRAIN_SELF_SHAPES,
-    SR_TRAIN_SELF_SHAPES,
-    TRAIN_BANDED_SHAPES,
-    TRAIN_SELF_SHAPES,
-)
+from chip_smoke import AUDIO_TRAIN_SELF_SHAPES, SR_TRAIN_SELF_SHAPES
 from mm_diffusion_tpu_torch.ops import block_attention as ba
+from mm_diffusion_tpu_torch.tools.ab_self_attention import TRAIN_BANDED_SHAPES, TRAIN_SELF_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -99,14 +94,14 @@ def test_self_attention_backward_ragged_and_layouts(cuda, layout, t):
     "label,n,t,c,heads,layout", TRAIN_SELF_SHAPES, ids=[s[0] for s in TRAIN_SELF_SHAPES]
 )
 def test_self_attention_backward_new_and_previous_designs_agree(cuda, label, n, t, c, heads, layout):
-    """The Hopper backward and the previous (mma.sync) design on the same
-    inputs: the same gradient within the backward limit."""
+    """The Hopper backward on a second draw of inputs at each training
+    shape: the gradient against the plain backward."""
     g = torch.Generator(device=cuda).manual_seed(6)
     qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
     dout = torch.randn((n, t, c), generator=g, device=cuda, dtype=torch.bfloat16)
     out, lse = ba.self_attention_cuda(qkv, heads, layout)
     new = ba.self_attention_bwd_cuda(qkv, out, lse, dout, heads, layout)
-    _close(new, ba._self_attention_bwd_previous_cuda(qkv, out, lse, dout, heads, layout))
+    _close(new, ba.self_attention_backward_reference(qkv, dout, heads, layout))
 
 
 @pytest.mark.parametrize("n,t,c,heads,layout", [
@@ -164,20 +159,15 @@ def test_banded_backward_kernel_every_shift(cuda, label, n, f, tq, tk, c, heads,
         assert not dq[..., c:].any() and not dkv[..., :c].any()
 
 
-def _banded_check(q_src, kv_src, dout, shift, lw, heads, c, previous=True):
-    """The Hopper banded backward (and its previous design) against the
-    plain backward, the zero lanes, and the two designs against each other."""
+def _banded_check(q_src, kv_src, dout, shift, lw, heads, c):
+    """The Hopper banded backward against the plain backward, and its zero
+    lanes."""
     out, lse = ba.banded_attention_cuda(q_src, kv_src, shift, lw, heads, c)
     new = ba.banded_attention_bwd_cuda(q_src, kv_src, out, lse, dout, shift, lw, heads, c)
     ref = ba.banded_attention_backward_reference(q_src, kv_src, dout, shift, lw, heads, c)
     for got, want in zip(new, ref):
         _close(got, want)
     assert not new[0][..., c:].any() and not new[1][..., :c].any()
-    if previous:
-        prev = ba._banded_attention_bwd_previous_cuda(q_src, kv_src, out, lse, dout, shift, lw, heads, c)
-        for got, want, other in zip(prev, ref, new):
-            _close(got, want)
-            _close(other, got)
 
 
 def _banded_inputs(g, n, f, tq, tk, c):
@@ -244,7 +234,7 @@ def test_banded_backward_packing_by_grid_size(cuda):
     for n, heads, tq, tk in ((1, 2, 25, 64), (1, 2, 64, 25), (2, 2, 16, 8), (6, 4, 25, 25)):
         q_src, kv_src, dout = _banded_inputs(g, n, 16, tq, tk, heads * 64)
         for lw, shift in ((8, 8), (16, 3), (1, 15)):
-            _banded_check(q_src, kv_src, dout, shift, lw, heads, heads * 64, previous=False)
+            _banded_check(q_src, kv_src, dout, shift, lw, heads, heads * 64)
 
 
 def test_fp32_backward_and_autograd(cuda):

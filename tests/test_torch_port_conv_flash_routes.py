@@ -115,7 +115,7 @@ def test_tap_major_weights_order():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_forward_design_rule(dtype):
     """Every head dim 1..256: bf16 up to a kernel head dim of 128 takes the
-    Hopper kernel, fp32 and kernel head dims 192 / 256 the previous design,
+    Hopper kernel, fp32 and kernel head dims 192 / 256 the mma.sync design,
     each at the next built size at or above d rounded up to 8."""
     for d in range(1, 257):
         design, kd = pfu.forward_design(d, dtype)
@@ -132,7 +132,7 @@ def test_flash_forward_design_rule(dtype):
 def test_flash_backward_design_rule(dtype):
     """The backward's rule is the forward's: every head dim 8..256 (and
     1..7, on the pad to 8), bf16 up to a kernel head dim of 128 takes the
-    Hopper passes, fp32 and kernel head dims 192 / 256 the previous design;
+    Hopper passes, fp32 and kernel head dims 192 / 256 the mma.sync design;
     each design's entry point is the backward's."""
     for d in range(1, 257):
         design, kd = pfu.backward_design(d, dtype)
@@ -212,6 +212,6 @@ def test_cpu_paths_launch_no_kernel():
     pfu.flash_mha_bhtd(*(torch.randn(1, 2, 7, 12),) * 3)
     assert pgc.LAUNCHES == {"skip_gemm": 0, "gemm_blocks": 0, "conv3x3_chw": 0}
     assert pfu.LAUNCHES == {"flash_mha_fwd": 0, "flash_mha_bwd": 0}
-    for counter in (pgc.CONV_ROUTES, pgc.PREVIOUS_LAUNCHES, pfu.FORWARD_DESIGNS,
-                    pfu.BACKWARD_DESIGNS, pfu.PREVIOUS_LAUNCHES, pba.HEAD_DIM_ROUTES):
+    for counter in (pgc.CONV_ROUTES, pfu.FORWARD_DESIGNS, pfu.BACKWARD_DESIGNS,
+                    pba.HEAD_DIM_ROUTES):
         assert not counter

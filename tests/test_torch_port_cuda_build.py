@@ -1,15 +1,24 @@
 """The kernel build's lock, on the CPU with a stand-in for nvcc: two
 processes that build at once (the ranks of a torchrun launch) compile
-the sources once; the second waits and finds the first's library."""
+the sources once; the second waits and finds the first's library.  And the
+C boundary: every ctypes row of ``cuda_build.SIGNATURES`` against the
+``extern "C"`` prototype in ``ops/csrc`` (a row that drifts from its
+prototype misreads arguments on the card, where no CPU test reaches)."""
 
+import ctypes
 import os
+import pathlib
+import re
 import subprocess
 import sys
 import textwrap
 
+import pytest
+
 from mm_diffusion_tpu_torch.ops import cuda_build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OPS = pathlib.Path(cuda_build.__file__).resolve().parent
 
 FAKE_NVCC = textwrap.dedent("""\
     #!/bin/sh
@@ -60,3 +69,41 @@ def test_concurrent_builds_compile_once(tmp_path):
     assert len(calls.read_text().split()) == len(sources) + 1  # each source once, one link
     (built,) = (tmp_path / "kernels").iterdir()
     assert (built / cuda_build.LIB_NAME).exists() and (built / "build.lock").exists()
+
+
+def _c_entries() -> dict:
+    """``{name: [ctypes type of each parameter]}`` of every ``extern "C"``
+    function in ``ops/csrc``: a pointer is ``c_void_p``, ``long long``
+    ``c_longlong``, ``float`` ``c_float``, ``int`` ``c_int``."""
+    entries = {}
+    for path in sorted(cuda_build.CSRC.glob("*.cu*")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
+            kinds = []
+            for param in filter(None, (p.strip() for p in params.split(","))):
+                if "*" in param:
+                    kinds.append(ctypes.c_void_p)
+                elif param.startswith("long long "):
+                    kinds.append(ctypes.c_longlong)
+                elif param.startswith("float "):
+                    kinds.append(ctypes.c_float)
+                elif param.startswith("int "):
+                    kinds.append(ctypes.c_int)
+                else:
+                    raise AssertionError(f"{path.name}: {name}: parameter {param!r} of no known kind")
+            assert name not in entries, f"{name} declared twice"
+            entries[name] = kinds
+    return entries
+
+
+@pytest.mark.parametrize("name", sorted(cuda_build.SIGNATURES))
+def test_signature_matches_its_c_prototype(name):
+    entries = _c_entries()
+    assert name in entries, f'no extern "C" int {name}(...) in {cuda_build.CSRC}'
+    assert cuda_build.SIGNATURES[name] == entries[name]
+    callers = [p.name for p in sorted(OPS.glob("*.py"))
+               if p.name != "cuda_build.py" and re.search(rf"\b{name}\b", p.read_text())]
+    assert callers, f"no module of ops/ names {name}"
+
+
+def test_every_c_entry_has_a_signature():
+    assert sorted(_c_entries()) == sorted(cuda_build.SIGNATURES)

@@ -3,10 +3,9 @@ plain PyTorch versions, on the card: both K8 layouts, Tq != Tk with ragged
 ends, head dims on every built size (32 and 192 included) and between two;
 the K1 variants at ragged and packed lengths (rows on its persistent kernel
 at T <= 32, with a partial last pack) and at head dims 12-200 through their
-routes, nomax at its clamp; the GEMM and the conv at ragged sizes.  The K8
-forward and backward, the K1 variants, the GEMM and the conv also against
-their previous (mma.sync) designs at the same inputs, with the launch
-counters showing which design and which route ran.
+routes, nomax at its clamp; the GEMM and the conv at ragged sizes; the
+launch counters showing which design (K8: Hopper or mma.sync, by its design
+rule) and which route ran.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 ``cuda`` and skips without a CUDA device.  On a GPU machine:
@@ -83,28 +82,24 @@ def test_flash_mha_kernels_ragged(cuda, layout, d, tq, tk):
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("tq,tk", [(1, 5), (17, 33), (64, 64), (100, 1024), (130, 65), (1024, 400)])
 def test_flash_mha_bwd_matches_previous_design(cuda, layout, d, tq, tk):
-    """The Hopper backward and the previous design on the same inputs, in
+    """The Hopper backward at two heads of three rows of a second draw, in
     the caller's strides: each gradient within the limit of the plain
-    version, and of the other design's."""
+    version."""
     g = torch.Generator(device=cuda).manual_seed(15)
     q, k, v, dout = _operands(g, cuda, 2, 3, tq, tk, d, layout)
     out, lse = fa.flash_mha_fwd_cuda(q, k, v)
     fa.reset_launch_counts()
     grads = fa.flash_mha_bwd_cuda(q, k, v, out, lse, dout)
-    prev = fa._flash_mha_bwd_previous_cuda(q, k, v, out, lse, dout)
-    assert fa.BACKWARD_DESIGNS == {"sm90": 1} and fa.PREVIOUS_LAUNCHES == {"flash_mha_bwd": 1}
+    assert fa.BACKWARD_DESIGNS == {"sm90": 1}
     refs = fa.mha_backward_reference(*_bthd(q, k, v, dout))
-    for got, old, ref, like in zip(grads, prev, refs, (q, k, v)):
-        assert got.stride() == old.stride() == like.stride()
+    for got, ref, like in zip(grads, refs, (q, k, v)):
+        assert got.stride() == like.stride()
         _bwd_close(got, ref.transpose(1, 2))
-        _bwd_close(old, ref.transpose(1, 2))
-        _bwd_close(got, old)
 
 
 def test_flash_mha_bwd_design_counts(cuda):
     """bf16 up to kernel head dim 128 launches the Hopper backward, fp32 and
-    192 / 256 the previous design; the previous design's own entry counts
-    apart and never as the API's."""
+    192 / 256 the mma.sync design."""
     g = torch.Generator(device=cuda).manual_seed(16)
     for dtype in (torch.bfloat16, torch.float32):
         for d in (32, 40, 128, 136, 256):
@@ -115,35 +110,28 @@ def test_flash_mha_bwd_design_counts(cuda):
             design = "sm90" if dtype == torch.bfloat16 and d <= 128 else "mma"
             assert fa.backward_design(d, dtype)[0] == design
             assert fa.BACKWARD_DESIGNS == {design: 1} and fa.LAUNCHES["flash_mha_bwd"] == 1
-            fa._flash_mha_bwd_previous_cuda(q, k, v, out, lse, dout)
-            assert fa.PREVIOUS_LAUNCHES == {"flash_mha_bwd": 1}
-            assert fa.BACKWARD_DESIGNS == {design: 1} and fa.LAUNCHES["flash_mha_bwd"] == 1
 
 
 @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("tq,tk", [(1, 5), (100, 1024), (130, 65), (1024, 400)])
 def test_flash_mha_fwd_matches_previous_design(cuda, layout, d, tq, tk):
-    """The Hopper forward and the previous design on the same inputs: both
-    within the limits of the plain version, and of each other."""
+    """The Hopper forward at two heads of three rows of a second draw: out
+    (in q's strides) and lse within the limits of the plain version."""
     g = torch.Generator(device=cuda).manual_seed(12)
     q, k, v, _ = _operands(g, cuda, 2, 3, tq, tk, d, layout)
+    fa.reset_launch_counts()
     out, lse = fa.flash_mha_fwd_cuda(q, k, v)
-    prev, prev_lse = fa._flash_mha_fwd_previous_cuda(q, k, v)
-    assert prev.stride() == q.stride()
+    assert fa.FORWARD_DESIGNS == {"sm90": 1} and out.stride() == q.stride()
     ref = fa.mha_reference(*_bthd(q, k, v)).transpose(1, 2)
     lse_ref = torch.logsumexp(torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / d**0.5, -1)
-    for o, l in ((out, lse), (prev, prev_lse)):
-        _close(o, ref)
-        _close(l, lse_ref, fa.LSE_TOL)
-    _close(out, prev)
-    _close(lse, prev_lse, fa.LSE_TOL)
+    _close(out, ref)
+    _close(lse, lse_ref, fa.LSE_TOL)
 
 
 def test_flash_mha_fwd_design_counts(cuda):
     """bf16 up to kernel head dim 128 launches the Hopper forward, fp32 and
-    192 / 256 the previous design; the previous design's own entry counts
-    apart and never as the API's."""
+    192 / 256 the mma.sync design."""
     g = torch.Generator(device=cuda).manual_seed(13)
     for dtype in (torch.bfloat16, torch.float32):
         for d in (32, 40, 128, 136, 256):
@@ -152,9 +140,6 @@ def test_flash_mha_fwd_design_counts(cuda):
             fa.flash_mha_fwd_cuda(q, k, v)
             design = "sm90" if dtype == torch.bfloat16 and d <= 128 else "mma"
             assert fa.forward_design(d, dtype)[0] == design
-            assert fa.FORWARD_DESIGNS == {design: 1} and fa.LAUNCHES["flash_mha_fwd"] == 1
-            fa._flash_mha_fwd_previous_cuda(q, k, v)
-            assert fa.PREVIOUS_LAUNCHES == {"flash_mha_fwd": 1}
             assert fa.FORWARD_DESIGNS == {design: 1} and fa.LAUNCHES["flash_mha_fwd"] == 1
 
 
@@ -179,7 +164,7 @@ def test_flash_mha_autograd_both_entry_points_and_counts(cuda):
 
 def test_flash_mha_backward_is_deterministic(cuda):
     """Bitwise equal gradients over two runs: the Hopper backward (bf16)
-    and the previous design (fp32), Tq and Tk ragged."""
+    and the mma.sync design (fp32), Tq and Tk ragged."""
     g = torch.Generator(device=cuda).manual_seed(2)
     for dtype, design in ((torch.bfloat16, "sm90"), (torch.float32, "mma")):
         q, k, v, dout = _operands(g, cuda, 4, 4, 300, 129, 64, "bthd", dtype)
@@ -226,8 +211,7 @@ def test_attention_variants(cuda, variant, n, t):
     through their routes, 12 and 36 (a zero-padded copy) and 136 and 200
     (rows / nomax / noexp: the kernels built at 192 and 256); T <= 32 runs
     rows on its persistent kernel (N = 4099, T = 16 and N = 41, T = 25 end
-    on a partial pack).  rows / nomax / noexp also in their previous design
-    at the kernel head dims; the counts show what ran."""
+    on a partial pack); the counts show what ran."""
     g = torch.Generator(device=cuda).manual_seed(3)
     for heads, c in ((2, 128), (2, 192), (2, 256), (2, 24), (2, 72), (2, 272), (2, 400)):
         d = c // heads
@@ -242,10 +226,7 @@ def test_attention_variants(cuda, variant, n, t):
         dp = ba.padded_head_dim(d)
         routes = {"self_attention_variant:pad": int(dp != d), "self_attention_variant:wide": int(dp > 128)}
         assert dict(ba.HEAD_DIM_ROUTES) == {k: v for k, v in routes.items() if v}
-        assert ba.LAUNCHES["self_attention"] == 0 and not ba.PREVIOUS_LAUNCHES
-        if dp == d <= 128:
-            _close(ba._self_attention_variant_previous_cuda(qkv, heads, variant), ref, tol)
-            assert dict(ba.PREVIOUS_LAUNCHES) == {f"self_attention_variant[{variant}]": 1}
+        assert ba.LAUNCHES["self_attention"] == 0
 
 
 def test_nomax_at_the_clamp(cuda):
@@ -267,7 +248,7 @@ def test_nomax_at_the_clamp(cuda):
 @pytest.mark.parametrize("variant", sorted(ba.VARIANT_CODES))
 def test_attention_variant_unsupported_inputs_raise(cuda, variant):
     """d > 256 (no kernel is built for it), and fp32 above 128 (the fp32
-    variants are the previous design, built up to 128)."""
+    variants are the mma.sync design, built up to 128)."""
     with pytest.raises(ValueError, match="above 256"):
         ba.self_attention_variant(torch.randn((1, 16, 3 * 264), device=cuda, dtype=torch.bfloat16), 1, variant)
     with pytest.raises(ValueError, match="up to 128"):
@@ -290,19 +271,16 @@ def test_attention_variant_counts(cuda):
     ((3, 7, 13), 40, 192, 192), ((2, 40, 26), 72, 24, 264),
 ])
 def test_skip_gemm(cuda, shape, c1, c2, co):
-    """The Hopper GEMM (through the API) and its previous design."""
+    """The Hopper GEMM through the API against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(4)
     x1 = torch.randn((*shape, c1), generator=g, device=cuda, dtype=torch.bfloat16)
     x2 = torch.randn((*shape, c2), generator=g, device=cuda, dtype=torch.bfloat16)
     w = torch.randn((c1 + c2, co), generator=g, device=cuda) * 0.05
     gc.reset_launch_counts()
     out = gc.skip_gemm(x1, x2, w)
-    prev = gc._skip_gemm_previous_cuda(x1, x2, w)
-    assert gc.LAUNCHES["skip_gemm"] == 1 and gc.PREVIOUS_LAUNCHES == {"skip_gemm": 1}
-    ref = gc.skip_gemm_reference(x1, x2, w)
-    for o in (out, prev):
-        assert o.dtype == torch.bfloat16 and o.shape == (*shape, co)
-        _close(o, ref, gc.GEMM_TOL)
+    assert gc.LAUNCHES["skip_gemm"] == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (*shape, co)
+    _close(out, gc.skip_gemm_reference(x1, x2, w), gc.GEMM_TOL)
 
 
 # Co 8 .. 200 (ragged past 192 at 200), K 8 .. 1728 (72, 136: not multiples of 64), npx 8 .. 264
@@ -311,17 +289,14 @@ def test_skip_gemm(cuda, shape, c1, c2, co):
     (192, 1728, 2, 256), (100, 72, 3, 24), (8, 8, 1, 8), (200, 136, 2, 264),
 ])
 def test_gemm_blocks(cuda, co, k, nblk, npx):
-    """The Hopper GEMM (through the API) and its previous design."""
+    """The Hopper GEMM through the API against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(5)
     a = torch.randn((co, k), generator=g, device=cuda) * 0.05
     b = torch.randn((nblk, k, npx), generator=g, device=cuda, dtype=torch.bfloat16)
     gc.reset_launch_counts()
     out = gc.gemm_blocks(a, b)
-    prev = gc._gemm_blocks_previous_cuda(a, b)
-    assert gc.LAUNCHES["gemm_blocks"] == 1 and gc.PREVIOUS_LAUNCHES == {"gemm_blocks": 1}
-    ref = gc.gemm_blocks_reference(a, b)
-    for o in (out, prev):
-        _close(o, ref, gc.GEMM_TOL)
+    assert gc.LAUNCHES["gemm_blocks"] == 1
+    _close(out, gc.gemm_blocks_reference(a, b), gc.GEMM_TOL)
 
 
 @pytest.mark.parametrize("b,ci,co,h,w", [
@@ -329,21 +304,18 @@ def test_gemm_blocks(cuda, co, k, nblk, npx):
     (1, 200, 200, 6, 40), (2, 200, 200, 3, 136),
 ])
 def test_conv3x3_chw(cuda, b, ci, co, h, w):
-    """Both designs against the plain version and F.conv2d; Ci % 8 != 0
-    takes the counted padded-channel route of the Hopper design."""
+    """The Hopper conv against the plain version and F.conv2d; Ci % 8 != 0
+    takes the counted padded-channel route."""
     g = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn((b, ci, h, w), generator=g, device=cuda, dtype=torch.bfloat16)
     wt = torch.randn((co, ci, 3, 3), generator=g, device=cuda) * 0.05
     gc.reset_launch_counts()
     out = gc.conv3x3_chw(x, wt)
     assert gc.CONV_ROUTES == ({"conv3x3_chw:pad_channels": 1} if ci % 8 else {})
-    prev = gc._conv3x3_chw_previous_cuda(x, wt)
-    assert gc.LAUNCHES["conv3x3_chw"] == 1 and gc.PREVIOUS_LAUNCHES == {"conv3x3_chw": 1}
-    plain, conv = gc.conv3x3_chw_reference(x, wt), F.conv2d(x.float(), wt.float(), padding=1)
-    for o in (out, prev):
-        assert o.dtype == torch.bfloat16 and o.shape == (b, co, h, w)
-        _close(o, plain, gc.GEMM_TOL)
-        _close(o, conv, gc.GEMM_TOL)
+    assert gc.LAUNCHES["conv3x3_chw"] == 1
+    assert out.dtype == torch.bfloat16 and out.shape == (b, co, h, w)
+    _close(out, gc.conv3x3_chw_reference(x, wt), gc.GEMM_TOL)
+    _close(out, F.conv2d(x.float(), wt.float(), padding=1), gc.GEMM_TOL)
 
 
 @pytest.mark.parametrize("b,ci,h,w", [(1, 5, 9, 13), (2, 64, 3, 130), (1, 200, 2, 62), (1, 8, 1, 1)])
@@ -365,7 +337,6 @@ def test_gemm_conv_counts_and_refusals(cuda):
     gc.gemm_blocks(torch.randn((8, 8), device=cuda), torch.randn((2, 8, 8), device=cuda).bfloat16())
     gc.conv3x3_chw(x, torch.randn((8, 4, 3, 3), device=cuda))
     assert gc.LAUNCHES == {"skip_gemm": 1, "gemm_blocks": 1, "conv3x3_chw": 1}
-    assert not gc.PREVIOUS_LAUNCHES
     x6 = torch.randn((1, 4, 4, 6), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiples of 8"):
         gc.skip_gemm(x6, x6, torch.randn((12, 8), device=cuda))

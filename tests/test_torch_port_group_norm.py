@@ -510,13 +510,16 @@ def test_kernel_against_plain_version(cuda, shape, film, silu, two_read):
 
 
 # The channels-last mode at every norm of one evaluation of the benchmark's
-# image U-Nets (chip_smoke.py 13.1's sites): the SR U-Net on one clip's 16
-# frames at 256^2, SDXL base's at 8 rows of 128^2 latents.
+# image U-Nets (chip_smoke.py 13.1's sites): the SR U-Net of the sampling
+# CLI's flagship flags on one clip's 16 frames at 256^2, SDXL base's at 8
+# rows of 128^2 latents.
 def _card_sites():
-    from mm_diffusion_tpu_torch.bench import FLAGSHIP
+    from mm_diffusion_tpu_torch.scripts import multimodal_sample_sr as cli
 
+    args = cli.create_argparser().parse_args(cli.LAUNCH_SCRIPT_ARGS)
+    sr = configs.create_image_sr_config(**vars(args))
     sdxl = configs.create_text2img_config(**configs.sdxl_base_flags())
-    return ([("sr",) + site for site in sorted(image_norm_sites(FLAGSHIP.sr, 16), key=str)]
+    return ([("sr",) + site for site in sorted(image_norm_sites(sr, 16), key=str)]
             + [("sdxl",) + site for site in sorted(image_norm_sites(sdxl, 8), key=str)])
 
 

@@ -1,11 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, at the flagship sampler's main-path shapes (chip_smoke.py's lists);
-the self-attention forward (K1) also at ragged T with N >= 2 (the rows past
-T of one sequence are the next one's), at T = 16 with an N that does not
-fill the last packed tile, and against its previous design; K1 and K2/K3 at
-head dims that run on a larger built kernel (32, 48, 72).  The banded
-forward (K2/K3, Hopper design) also against its previous design at every
-shift of every main-path shape (the wrap included), with lw = F, with
+card, at the flagship sampler's main-path shapes (the lists of
+mm_diffusion_tpu_torch/tools/ab_self_attention.py); the self-attention
+forward (K1) also at ragged T with N >= 2 (the rows past T of one sequence
+are the next one's) and at T = 16 with an N that does not fill the last
+packed tile; K1 and K2/K3 at head dims that run on a larger built kernel
+(32, 48, 72).  The banded forward (K2/K3) also at N = 2 at every shift of
+every main-path shape (the wrap included), with lw = F, with
 frames packed per tile (Tq = 25 at N = 4), at ragged Tq / Tk that cross
 64-row boxes and frames, and at head dims 32, 48, 96 and 128.  Every
 attention entry point (K1-K8) at head dims the kernels are not built for
@@ -21,9 +21,9 @@ CUDA kernels have no CPU or interpret mode, so every test here is marked
 import pytest
 import torch
 
-from chip_smoke import BANDED_SHAPES, SELF_SHAPES
 from mm_diffusion_tpu_torch.ops import block_attention as ba
 from mm_diffusion_tpu_torch.ops import fused_attention as fa
+from mm_diffusion_tpu_torch.tools.ab_self_attention import BANDED_SHAPES, SELF_SHAPES
 
 pytestmark = pytest.mark.cuda
 
@@ -41,7 +41,13 @@ def _close(out, ref, tol=ba.FORWARD_TOL):
 
 @pytest.mark.parametrize("label,n,t,c,heads,layout", SELF_SHAPES, ids=[s[0] for s in SELF_SHAPES])
 def test_self_attention_kernel(cuda, label, n, t, c, heads, layout):
-    g = torch.Generator(device=cuda).manual_seed(0)
+    _self_check(cuda, 0, n, t, c, heads, layout)
+
+
+def _self_check(cuda, seed, n, t, c, heads, layout):
+    """K1's out and lse on random bf16 qkv against the plain version and
+    the logsumexp of the scaled logits."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
     out, lse = ba.self_attention_cuda(qkv, heads, layout)
     _close(out, ba.self_attention_reference(qkv, heads, layout))
@@ -52,14 +58,9 @@ def test_self_attention_kernel(cuda, label, n, t, c, heads, layout):
 
 @pytest.mark.parametrize("label,n,t,c,heads,layout", SELF_SHAPES, ids=[s[0] for s in SELF_SHAPES])
 def test_self_attention_new_and_previous_designs_agree(cuda, label, n, t, c, heads, layout):
-    """The Hopper kernel and the previous (mma.sync) design on the same
-    inputs: the same outputs within the forward limit."""
-    g = torch.Generator(device=cuda).manual_seed(3)
-    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
-    out, lse = ba.self_attention_cuda(qkv, heads, layout)
-    prev_out, prev_lse = ba._self_attention_previous_cuda(qkv, heads, layout)
-    _close(out, prev_out)
-    _close(lse, prev_lse, tol=ba.LSE_TOL)
+    """The Hopper kernel on a second draw of inputs at each shape: out and
+    lse against the plain version."""
+    _self_check(cuda, 3, n, t, c, heads, layout)
 
 
 SELF_EXTRA = [  # (n, t, c, heads, layout): ragged T with N >= 2, T = 16 with a partial pack
@@ -70,13 +71,7 @@ SELF_EXTRA = [  # (n, t, c, heads, layout): ragged T with N >= 2, T = 16 with a 
 
 @pytest.mark.parametrize("n,t,c,heads,layout", SELF_EXTRA)
 def test_self_attention_ragged_and_packed(cuda, n, t, c, heads, layout):
-    g = torch.Generator(device=cuda).manual_seed(4)
-    qkv = torch.randn((n, t, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
-    out, lse = ba.self_attention_cuda(qkv, heads, layout)
-    _close(out, ba.self_attention_reference(qkv, heads, layout))
-    q, k, _ = ba.split_packed_qkv(qkv.float(), heads, layout)
-    logits = torch.einsum("nqhd,nkhd->nhqk", q, k) / (c // heads) ** 0.5
-    _close(lse, torch.logsumexp(logits, dim=-1), tol=ba.LSE_TOL)
+    _self_check(cuda, 4, n, t, c, heads, layout)
 
 
 @pytest.mark.parametrize("layout", ["thirds", "per_head"])
@@ -110,9 +105,9 @@ def test_banded_kernel_every_shift(cuda, label, f, tq, tk, c, heads, lw):
         _banded_check(q_src, kv_src, shift, lw, heads, c)
 
 
-def _banded_check(q_src, kv_src, shift, lw, heads, c, previous=True):
-    """The banded forward's out and lse against the plain version and, at
-    the kernel head dims, against the previous design."""
+def _banded_check(q_src, kv_src, shift, lw, heads, c):
+    """The banded forward's out and lse against the plain version and the
+    logsumexp over the window."""
     n, f, tq, _ = q_src.shape
     tk, d = kv_src.shape[2], c // heads
     out, lse = ba.banded_attention_cuda(q_src, kv_src, shift, lw, heads, c)
@@ -122,10 +117,6 @@ def _banded_check(q_src, kv_src, shift, lw, heads, c, previous=True):
     k = kv_src[..., c:2 * c].float()[:, idx].reshape(n, f, lw * tk, heads, d)
     logits = torch.einsum("nfqhd,nfkhd->nfhqk", q, k) / d**0.5
     _close(lse, torch.logsumexp(logits, dim=-1), tol=ba.LSE_TOL)
-    if previous:
-        prev_out, prev_lse = ba._banded_attention_previous_cuda(q_src, kv_src, shift, lw, heads, c)
-        _close(out, prev_out)
-        _close(lse, prev_lse, tol=ba.LSE_TOL)
 
 
 @pytest.mark.parametrize(
@@ -133,8 +124,8 @@ def _banded_check(q_src, kv_src, shift, lw, heads, c, previous=True):
 )
 def test_banded_new_and_previous_designs_agree(cuda, label, f, tq, tk, c, heads, lw):
     """N = 2 clips (rows past a clip's last frame are the next clip's) at
-    every shift of the span, lw = F at every shift too: the plain version,
-    the previous design and the logsumexp."""
+    every shift of the span, lw = F at three shifts: the plain version and
+    the logsumexp."""
     g = torch.Generator(device=cuda).manual_seed(6)
     q_src = torch.randn((2, f, tq, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
     kv_src = torch.randn((2, f, tk, 3 * c), generator=g, device=cuda, dtype=torch.bfloat16)
@@ -247,7 +238,7 @@ def test_banded_head_dim_routes(cuda, d):
     dout = torch.randn((n, f, tq, c), generator=g, device=cuda, dtype=torch.bfloat16)
     for lw, shift in ((1, 5), (3, 4), (f, 2)):
         _reset()
-        _banded_check(q_src, kv_src, shift, lw, heads, c, previous=False)
+        _banded_check(q_src, kv_src, shift, lw, heads, c)
         _expect_route("banded_attention", d, "flash_mha_fwd")
         out, lse = ba.banded_attention_cuda(q_src, kv_src, shift, lw, heads, c)
         _reset()
@@ -299,18 +290,14 @@ def test_dispatch_launches_and_counts(cuda):
         "self_attention": 1, "banded_attention": 2, "self_attention_bwd": 0, "banded_attention_bwd": 0,
     }
     assert dict(ba.BANDED_WINDOWS) == {2: 1, 1: 1}
-    assert not ba.PREVIOUS_LAUNCHES and not ba.HEAD_DIM_ROUTES
+    assert not ba.HEAD_DIM_ROUTES
 
 
 def test_unsupported_inputs_raise(cuda):
     """d > 256 (no kernel of the port is built for it), a dtype the kernels
-    do not take, a strided tensor, a window wider than the clip; the
-    previous designs, which serve the comparison only, take the kernel head
-    dims alone."""
+    do not take, a strided tensor, a window wider than the clip."""
     with pytest.raises(ValueError, match=r"above 256"):
         ba.self_attention_cuda(torch.randn((1, 16, 3 * 264), device=cuda), 1)  # d = 264
-    with pytest.raises(ValueError, match=r"d % 8 == 0 and 8 <= d <= 128"):
-        ba._self_attention_previous_cuda(torch.randn((1, 16, 3 * 24), device=cuda), 2)  # d = 12
     with pytest.raises(TypeError):
         ba.self_attention_cuda(torch.randn((1, 16, 3 * 64), device=cuda).half(), 1)
     with pytest.raises(ValueError, match="contiguous"):
@@ -318,9 +305,6 @@ def test_unsupported_inputs_raise(cuda):
     src = torch.randn((1, 4, 8, 3 * 64), device=cuda)
     with pytest.raises(ValueError, match="local_window"):
         ba.banded_attention_cuda(src, src, 0, 5, 1, 64)
-    src = torch.randn((1, 4, 8, 3 * 20), device=cuda)
-    with pytest.raises(ValueError, match=r"d % 8 == 0"):
-        ba._banded_attention_previous_cuda(src, src, 0, 1, 1, 20)  # d = 20
     src = torch.randn((1, 4, 8, 3 * 264), device=cuda)
     with pytest.raises(ValueError, match=r"above 256"):
         ba.banded_attention_cuda(src, src, 0, 1, 1, 264)
