@@ -153,14 +153,20 @@ Phases, each printed as it runs; any failure exits non-zero:
      (70), its norm kernel's 46, and a train-style forward and backward on
      the autograd route alone; the SR and SDXL norms on the kernel's
      channels-last mode (route "fused_cl"), the base model's on the
-     channels-first one; 13.2 the kernel at each shape 13.1 recorded, in the
-     layout recorded, against its plain version, timed beside its 4-byte
-     and 6-byte bounds, its two-read mode, the channels-first mode on the
-     same shape, the plain version and the eager chain, and both modes'
-     names in a profiler trace classified "group norm" by
+     channels-first one; the image U-Nets' ResBlocks with their conv biases
+     folded (ops/group_norm.BIAS_FOLDS: 42 / 42 / 20 an SR evaluation, 17 /
+     17 / 11 an SDXL one) and their residual passes on the kernel; 13.2
+     the kernel at each shape 13.1 recorded, in the layout recorded and with
+     the input term recorded, against its plain version, timed beside its
+     4-byte and 6-byte bounds, its two-read mode, the channels-first mode
+     on the same shape, the plain version and the eager chain, and both
+     modes' names in a profiler trace classified "group norm" by
      benchmark/trace.py; 13.3 cuDNN's layout transposes (nchwToNhwc,
      nhwcToNchw) counted, with their device seconds, in one traced SR
-     evaluation.  Alone:
+     evaluation; 13.4 the residual + bias kernel (ops/residual.py) at each
+     ResBlock output 13.1 recorded against its plain version (the same
+     bits), timed beside its 6-byte bound and the two eager adds it
+     replaces, its name classified "elementwise".  Alone:
      ``python3 -c "import chip_smoke as cs; cs.toolchain(); cs.build();
      cs.group_norm_kernel()"``.
 
@@ -2738,10 +2744,12 @@ def group_norm_sites():
     and a train-style forward and backward took none.  The models: the SR
     U-Net, the base MM-UNet at batch 8, and Stable Diffusion XL base's
     U-Net in one 8-row evaluation of the benchmark's text-to-image cell,
-    where K1 runs once and K8 once a transformer block.  Every launch
-    counter is reset just before each evaluation.  Returns ({model: Counter
-    of (shape, groups, FiLM dtype, silu, eps)}, {model: route and launch
-    counts})."""
+    where K1 runs once and K8 once a transformer block.  The image U-Nets'
+    ResBlocks fold their conv biases (BIAS_FOLDS) and end on the residual
+    kernel.  Every launch counter is reset just before each evaluation.
+    Returns ({model: Counter of (shape, groups, FiLM dtype, silu, eps,
+    layout, input term)}, {model: route and launch counts}, {model: Counter
+    of residual shapes})."""
     import collections
     import dataclasses
 
@@ -2757,6 +2765,7 @@ def group_norm_sites():
     from mm_diffusion_tpu_torch.models.layers import GroupNorm32
     from mm_diffusion_tpu_torch.models.mm_unet import MultimodalUNet
     from mm_diffusion_tpu_torch.ops import group_norm as gn
+    from mm_diffusion_tpu_torch.ops import residual
     from mm_diffusion_tpu_torch.weights import randomize_
 
     phase("13.1 GroupNorm + FiLM + SiLU: the routes of one sampling evaluation of each benchmark model, "
@@ -2786,16 +2795,21 @@ def group_norm_sites():
             context=torch.randn((B8, SDXL_CONTEXT_TOKENS, sdxl.context_dim), generator=g).to(dev),
             y=sdxl_vector(torch.randn((B8, SDXL_POOLED), generator=g)).to(dev))),
     }
-    real = gn.group_norm_silu_cuda
-    sites, routes = {}, {}
+    real, real_residual = gn.group_norm_silu_cuda, residual.residual_bias_cuda
+    sites, routes, residual_sites = {}, {}, {}
     for name, (build, run) in cases.items():
         model = build().to(dev).eval()
-        seen = collections.Counter()
+        seen, seen_residual = collections.Counter(), collections.Counter()
 
-        def recording(x, weight, bias, groups, eps=1e-5, film=None, silu=True, _seen=seen):
+        def recording(x, weight, bias, groups, eps=1e-5, film=None, silu=True, in_bias=None, _seen=seen):
+            term = None if in_bias is None else ("channel" if in_bias.dim() == 1 else "sample")
             _seen[(tuple(x.shape), groups, None if film is None else str(film[0].dtype).split(".")[-1],
-                   silu, eps, "cl" if gn.channels_last(x) else "cf")] += 1
-            return real(x, weight, bias, groups, eps, film, silu)
+                   silu, eps, "cl" if gn.channels_last(x) else "cf", term)] += 1
+            return real(x, weight, bias, groups, eps, film, silu, in_bias)
+
+        def recording_residual(skip, h, bias, _seen=seen_residual):
+            _seen[tuple(h.shape)] += 1
+            return real_residual(skip, h, bias)
 
         in_attention = {id(m) for blk in model.modules() if isinstance(blk, (TokenSelfAttention, RSMMACrossAttention))
                         for m in blk.modules() if isinstance(m, GroupNorm32)}
@@ -2803,15 +2817,15 @@ def group_norm_sites():
         hooks = [m.register_forward_hook(lambda mod, a, o, _k=id(m) in in_attention, _n=n:
                                          module_calls.update(["attention" if _k else _n]))
                  for n, m in model.named_modules() if isinstance(m, GroupNorm32)]
-        for counts in (gn, ba, fa):
+        for counts in (gn, ba, fa, residual):
             counts.reset_launch_counts()
-        gn.group_norm_silu_cuda = recording
+        gn.group_norm_silu_cuda, residual.residual_bias_cuda = recording, recording_residual
         try:
             with torch.inference_mode():
                 outs = run(model)
                 torch.cuda.synchronize()
         finally:
-            gn.group_norm_silu_cuda = real
+            gn.group_norm_silu_cuda, residual.residual_bias_cuda = real, real_residual
             for hd in hooks:
                 hd.remove()
         outs = outs if isinstance(outs, tuple) else (outs,)
@@ -2820,10 +2834,24 @@ def group_norm_sites():
         others = dict(module_calls)
         launches = {"self_attention": ba.LAUNCHES["self_attention"], "flash_mha_fwd": fa.LAUNCHES["flash_mha_fwd"],
                     "flash_mha_designs": dict(fa.FORWARD_DESIGNS), "head_dim_routes": dict(ba.HEAD_DIM_ROUTES)}
-        routes[name] = dict(gn.ROUTES, attention_norms_on_group_norm32=attn, launches=launches)
+        folds = dict(gn.BIAS_FOLDS)
+        routes[name] = dict(gn.ROUTES, attention_norms_on_group_norm32=attn, launches=launches, bias_folds=folds,
+                            residual_routes=dict(residual.ROUTES))
         print(f"{name}: norm calls of one evaluation: {dict(gn.ROUTES)} through group_norm_silu, {attn} "
               f"attention norms on GroupNorm32; {len(seen)} distinct shapes, kernel launches by mode "
-              f"{dict(gn.LAUNCHES)}; attention launches {launches}")
+              f"{dict(gn.LAUNCHES)}; attention launches {launches}; bias folds {folds}, residual routes "
+              f"{dict(residual.ROUTES)}, launches {dict(residual.LAUNCHES)}")
+        if name != "base":  # the image U-Net: every ResBlock folds its conv biases
+            blocks = [m for m in model.modules() if isinstance(m, ImageResBlock)]
+            skips = sum(not isinstance(b.skip_connection, torch.nn.Identity) for b in blocks)
+            check(folds == {"norm": len(blocks), "residual": len(blocks), "skip": skips}
+                  and (len(blocks), skips) == {"sr": (42, 20), "sdxl": (17, 11)}[name]
+                  and dict(residual.ROUTES) == {"kernel": len(blocks)}
+                  and residual.LAUNCHES["residual_bias"] == len(blocks),
+                  f"{name}: {len(blocks)} ResBlocks, {skips} skip convs; bias folds {folds}, residual routes "
+                  f"{dict(residual.ROUTES)}")
+        else:
+            check(not folds and not residual.ROUTES, f"base: bias folds {folds}, residual routes {dict(residual.ROUTES)}")
         if name == "sdxl":
             # K1 and K8 once a transformer block; the norm twice a ResBlock,
             # once a SpatialTransformer and once in the out head.
@@ -2835,7 +2863,8 @@ def group_norm_sites():
                   f"sdxl: {blocks} transformer blocks, attention launches {launches}")
             check(gn.LAUNCHES["group_norm_silu_cl"] == norms == 46,
                   f"sdxl: {norms} norms, {dict(gn.LAUNCHES)} kernel launches")
-            check(any(not silu and eps == 1e-6 for (_, _, _, silu, eps, _) in seen), "sdxl: no transformer norm seen")
+            check(any(not silu and eps == 1e-6 for (_, _, _, silu, eps, _, _) in seen),
+                  "sdxl: no transformer norm seen")
         # The image U-Net (sr, sdxl) holds its activations channels-last, the MM-UNet channels-first.
         route, mode = ("fused", "group_norm_silu") if name == "base" else ("fused_cl", "group_norm_silu_cl")
         check(set(gn.ROUTES) == {route} and gn.ROUTES[route] == sum(seen.values()) == gn.LAUNCHES[mode]
@@ -2843,6 +2872,7 @@ def group_norm_sites():
               f"launches {dict(gn.LAUNCHES)}")
         check(not others, f"{name}: norms outside the attention blocks ran as modules: {others}")
         sites[name] = seen
+        residual_sites[name] = seen_residual
         del model, outs
         torch.cuda.empty_cache()
 
@@ -2862,7 +2892,7 @@ def group_norm_sites():
     routes["train"] = dict(gn.ROUTES)
     del model, v, a
     torch.cuda.empty_cache()
-    return sites, routes
+    return sites, routes, residual_sites
 
 
 def group_norm_kernel():
@@ -2881,16 +2911,17 @@ def group_norm_kernel():
     from mm_diffusion_tpu_torch.models.layers import GroupNorm32
     from mm_diffusion_tpu_torch.ops import group_norm as gn
 
-    sites, routes = group_norm_sites()
-    phase(f"13.2 GroupNorm + FiLM + SiLU kernel vs plain version at 13.1's shapes and layouts (bf16; {gn.GN_TOL})")
+    sites, routes, residual_sites = group_norm_sites()
+    phase(f"13.2 GroupNorm + FiLM + SiLU kernel vs plain version at 13.1's shapes, layouts and input terms "
+          f"(bf16; {gn.GN_TOL})")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(14)
     record = {"routes": routes, "max_abs_err": 0.0}
     for name, seen in sites.items():
         tot = dict(ms=0.0, two_read_ms=0.0, channels_first_ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                    bound6_ms=0.0)
-        for (shape, groups, film_dtype, silu, eps, layout), calls in sorted(
-                seen.items(), key=lambda kv: -math.prod(kv[0][0])):
+        for (shape, groups, film_dtype, silu, eps, layout, term), calls in sorted(
+                seen.items(), key=lambda kv: (-math.prod(kv[0][0]), str(kv[0]))):
             n, c = shape[:2]
             x = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
             if layout == "cl":
@@ -2905,25 +2936,33 @@ def group_norm_kernel():
             if film_dtype is not None:
                 emb = (0.3 * torch.randn((n, 2 * c), generator=g, device=dev)).to(getattr(torch, film_dtype))
                 film = tuple(emb.chunk(2, dim=-1))
-            args = (x, norm.weight, norm.bias, groups, norm.eps, film, silu)
+            # The term as the ResBlock passes it: the first conv's bias, fp32 [C], or with the time embedding, [N, C].
+            t = None if term is None else 0.5 * torch.randn((c,) if term == "channel" else (n, c), generator=g,
+                                                            device=dev)
+            args = (x, norm.weight, norm.bias, groups, norm.eps, film, silu, t)
             cf_args = (x.contiguous(),) + args[1:]
             plain = gn.group_norm_silu_reference(*args)
             out = gn.group_norm_silu_cuda(*args)
             check(gn.channels_last(out) == (layout == "cl"), f"{shape}: the output left the input's layout")
             err, ok = gn.GN_TOL.check(out, plain)
             err2, ok2 = gn.GN_TOL.check(gn._group_norm_silu_two_read_cuda(*args), plain)
-            check(ok and ok2, f"group_norm_silu {shape} {layout} groups {groups} film {film_dtype} eps {eps}: "
-                              f"err {err} (two-read {err2})")
+            check(ok and ok2, f"group_norm_silu {shape} {layout} groups {groups} film {film_dtype} eps {eps} "
+                              f"term {term}: err {err} (two-read {err2})")
             del plain, out
             ms = time_ms(lambda: gn.group_norm_silu_cuda(*args))
             two_ms = time_ms(lambda: gn._group_norm_silu_two_read_cuda(*args))
             cf_ms = time_ms(lambda: gn.group_norm_silu_cuda(*cf_args)) if layout == "cl" else ms
             plain_ms = time_ms(lambda: gn.group_norm_silu_reference(*args))
-            lib_ms = time_ms(lambda: F.silu(norm(x, film=film)) if silu else norm(x, film=film))
-            extra = 8 * c + (4 * n * c if film is not None else 0)
+            # The eager chain: the term's broadcast add (the bias add the fold removed), GroupNorm32, the SiLU.
+            tv = None if t is None else t.to(x.dtype).reshape((t.shape[0] if t.dim() == 2 else 1, c)
+                                                              + (1,) * (x.dim() - 2))
+            act = F.silu if silu else (lambda y: y)
+            lib_ms = time_ms(lambda: act(norm(x if tv is None else x + tv, film=film)))
+            extra = 8 * c + (4 * n * c if film is not None else 0) + (4 * t.numel() if t is not None else 0)
             bound = bound_ms(0, 4 * x.numel() + extra)
             bound6 = bound_ms(0, 6 * x.numel() + extra)
-            print(f"{name} {shape} {layout} groups {groups} film {film_dtype} silu {silu} eps {eps} x{calls}: "
+            print(f"{name} {shape} {layout} groups {groups} film {film_dtype} silu {silu} eps {eps} term {term} "
+                  f"x{calls}: "
                   f"err={max(err, err2):.3e} "
                   f"kernel={ms:.4f} ms two-read={two_ms:.4f} ms channels-first={cf_ms:.4f} ms "
                   f"plain={plain_ms:.4f} ms library (GroupNorm32 + SiLU, eager)={lib_ms:.4f} ms "
@@ -2953,6 +2992,58 @@ def group_norm_kernel():
           and any(f"{gn.KERNEL_NAME}<" in n for n in names) and any(gn.CL_KERNEL_NAME in n for n in names),
           f"kernel names in the trace: {names}")
     record["sr_transposes"] = sr_layout_transposes()
+    record["residual"] = residual_kernel(residual_sites)
+    return record
+
+
+def residual_kernel(sites):
+    """Phase 13.4: the residual + bias kernel at each ResBlock output shape
+    of 13.1's SR and SDXL evaluations against its plain version (the same
+    fp32 adds and one rounding: the same bits), timed beside its bound (6
+    bytes an element) and the two eager adds it replaces (the second conv's
+    broadcast bias add, then the residual add); its name in a profiler trace
+    classified "elementwise".  Returns {model: summed ms of one evaluation}."""
+    import torch
+
+    from benchmark.trace import kind_of
+    from mm_diffusion_tpu_torch.ops import group_norm as gn
+    from mm_diffusion_tpu_torch.ops import residual
+
+    phase("13.4 residual + bias kernel vs plain version at 13.1's ResBlock outputs (bf16, channels-last)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(16)
+    record = {}
+    for name, seen in sites.items():
+        tot = dict(ms=0.0, eager_ms=0.0, bound_ms=0.0)
+        for shape, calls in sorted(seen.items(), key=lambda kv: -math.prod(kv[0])):
+            skip, h = (torch.randn(shape, generator=g, device=dev).bfloat16().contiguous(
+                memory_format=torch.channels_last) for _ in range(2))
+            b = 0.1 * torch.randn(shape[1], generator=g, device=dev)
+            plain = residual.residual_bias_reference(skip, h, b)
+            out = residual.residual_bias_cuda(skip, h.clone(memory_format=torch.channels_last), b)
+            check(gn.channels_last(out) and torch.equal(out, plain),
+                  f"residual_bias {shape}: not the plain version's bits")
+            ms = time_ms(lambda: residual.residual_bias_cuda(skip, h, b))  # accumulates into h, as timed
+            b16 = b.bfloat16().reshape(1, -1, 1, 1)
+            eager_ms = time_ms(lambda: skip + (h + b16))
+            bound = bound_ms(0, 6 * h.numel() + 4 * shape[1])[0]
+            print(f"{name} {shape} x{calls}: kernel={ms:.4f} ms eager bias + residual adds={eager_ms:.4f} ms "
+                  f"bound={bound:.4f} ms ({100 * bound / ms:.1f}% of it)")
+            for key, val in (("ms", ms), ("eager_ms", eager_ms), ("bound_ms", bound)):
+                tot[key] += calls * val
+            del skip, h, plain, out
+        print(f"{name}: one evaluation's residual passes: kernel {tot['ms']:.3f} ms, eager adds "
+              f"{tot['eager_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
+        record[name] = tot
+        torch.cuda.empty_cache()
+    x = torch.randn((2, 64, 8, 8), device=dev).bfloat16().contiguous(memory_format=torch.channels_last)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        residual.residual_bias_cuda(x, x.clone(memory_format=torch.channels_last), torch.zeros(64, device=dev))
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if "residual_bias" in e.name}
+    print(f"profiled kernel names: {sorted(names)} -> kinds {sorted({kind_of(n) for n in names})}")
+    check(len(names) == 1 and all(residual.KERNEL_NAME in n and kind_of(n) == "elementwise" for n in names),
+          f"residual kernel names in the trace: {names}")
     return record
 
 

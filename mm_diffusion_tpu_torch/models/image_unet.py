@@ -24,6 +24,15 @@ says which op keeps the format.  The public ``forward`` functions take and
 return ``[N, H, W, C]``, whose permute to ``[N, C, H, W]`` is already a
 channels-last view.
 
+Conv biases: each ResBlock runs its convs without their biases and hands
+them to the passes that read the convs' outputs: the first conv's bias (and,
+without ``use_scale_shift_norm``, the time embedding) to the norm after it,
+the second conv's and the skip conv's to the residual pass
+(``ops/residual.py``).  Where autograd does not record (the samplers), those
+passes fold them into the reads they make anyway; where it records, they add
+them as the convs did (``ops/group_norm.py``'s routes), counted in
+``ops/group_norm.BIAS_FOLDS``.
+
 Training mode: dropout is active under ``model.train()``; with
 ``cfg.use_checkpoint`` each ResBlock whose input holds at least
 ``remat_min_tokens()`` pixels (H*W) recomputes its activations in the
@@ -40,6 +49,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.group_norm import channels_last
+from ..ops.residual import residual_bias
 from .attention import TokenSelfAttention
 from .layers import (
     Conv2d,
@@ -167,19 +178,31 @@ class ImageResBlock(nn.Module):
         self.skip_connection = nn.Identity() if o == i else Conv2d(i, o, 1)
 
     def forward(self, x, emb):
+        """The convs run without their biases; each bias goes to the pass
+        that reads the conv's output (module docstring)."""
+        conv1, conv2 = self.in_layers[2], self.out_layers[3]
+        h = group_norm_silu(self.in_layers[0], x)
         if self.up or self.down:
             resample = image_upsample if self.up else image_downsample
-            h = resample(group_norm_silu(self.in_layers[0], x))
-            x = resample(x)
-            h = self.in_layers[2](h)
-        else:
-            h = norm_silu_then(self.in_layers, x)
+            h, x = resample(h), resample(x)
+        h = _conv_without_bias(conv1, h)
         emb_out = self.emb_layers(emb)
         if self.use_scale_shift_norm:
-            h = norm_silu_then(self.out_layers, h, film=tuple(emb_out.chunk(2, dim=-1)))
+            h = group_norm_silu(self.out_layers[0], h, film=tuple(emb_out.chunk(2, dim=-1)), in_bias=conv1.bias)
         else:
-            h = norm_silu_then(self.out_layers, h + emb_out[:, :, None, None])
-        return self.skip_connection(x) + h
+            h = group_norm_silu(self.out_layers[0], h, in_bias=(conv1.bias, emb_out))
+        h = _conv_without_bias(conv2, self.out_layers[2](h))
+        if isinstance(self.skip_connection, Conv2d):
+            skip = self.skip_connection
+            return residual_bias(_conv_without_bias(skip, x), h, conv2.bias, skip.bias)
+        return residual_bias(x, h, conv2.bias)
+
+
+def _conv_without_bias(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` without its bias, the weight cast as ``Conv2d.forward``
+    casts it."""
+    fmt = torch.channels_last if channels_last(x) else torch.preserve_format
+    return conv._conv_forward(x, conv.weight.to(dtype=x.dtype, memory_format=fmt), None)
 
 
 class ImageAttention(TokenSelfAttention):

@@ -1,9 +1,20 @@
 // GroupNorm, FiLM and SiLU in one kernel over bf16 activations, for the
 // ResBlocks of the port's samplers (ops/group_norm.py).
 //
+//   x = x + t_nc                             (the input term, when given)
 //   y = (x - mean_g) * rstd_g * w_c + b_c
 //   y = y * (1 + scale_nc) + shift_nc        (FiLM, when given)
 //   out = bf16(silu(y))                      (or bf16(y) without the SiLU)
+//
+// The input term t is the bias of the conv that wrote x (the image U-Net's
+// ResBlocks run that conv without one), per channel, or per (sample,
+// channel) with the time embedding added in: rows of C fp32 or bf16 values,
+// added in fp32 before the statistics and before the apply (the
+// channels-first kernel adds it to each element, the channels-last one
+// folds it into its lanes' shifts, below), so the conv's broadcast bias add,
+// a whole read and write of x, is gone.  A template flag (kInBias) and a
+// kernel argument of its own: the instantiations without it are the
+// kernels as they were.
 //
 // Two layouts, two kernels.  Channels-first, x contiguous [N, C, S]: a
 // (sample, group) slab is one contiguous run of (C / G) * S elements
@@ -102,6 +113,15 @@ struct Args {
   int silu;
 };
 
+// The input term: rows of C values, `stride` elements apart (0: one row for
+// every sample), bf16 or fp32; a kernel argument of its own, so that the
+// kernels without it keep their argument block.
+struct Term {
+  const void* rows;
+  long stride;
+  int bf16;
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -137,6 +157,18 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[kVec]) {
 #pragma unroll
   for (int i = 0; i < kVec / 2; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return q;
+}
+
+// Channel c of sample n's row of the input term, in fp32.
+__device__ __forceinline__ float term_at(const Term& t, long n, long c) {
+  const long off = n * t.stride + c;
+  return t.bf16 ? __bfloat162float(static_cast<const bf16*>(t.rows)[off]) : static_cast<const float*>(t.rows)[off];
+}
+
+template <int kN>
+__device__ __forceinline__ void add_term(float (&f)[kN], float t) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) f[i] += t;
 }
 
 __device__ __forceinline__ float apply(float v, float w, float b, int silu) {
@@ -180,8 +212,8 @@ __device__ void cluster_sum(float (&v)[kN], float* red, float* part, float* bcas
   for (int i = 0; i < kN; ++i) v[i] = bcast[i];
 }
 
-template <bool kResident, bool kVector>
-__global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a) {
+template <bool kResident, bool kVector, bool kInBias>
+__global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a, Term term) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[2 * kMaxWarps];
   __shared__ float part[2];  // the mean's sum, then the squared deviations' (two-read: both at once)
@@ -195,13 +227,18 @@ __global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a)
   const bf16* x = a.x + slab_id * (long)a.slab;
   bf16* out = a.out + slab_id * (long)a.slab;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int coef_bytes = (2 * a.cpg * (int)sizeof(float) + 15) & ~15;
+  const int coef_bytes = ((kInBias ? 3 : 2) * a.cpg * (int)sizeof(float) + 15) & ~15;
   float* coef_w = reinterpret_cast<float*>(smem);
   float* coef_b = coef_w + a.cpg;
+  float* coef_t = coef_b + a.cpg;  // the group's input term (kInBias)
   bf16* buf = reinterpret_cast<bf16*>(smem + coef_bytes);  // the chunk (resident mode)
   const uint4* buf4 = reinterpret_cast<const uint4*>(buf);
   const int nv = (hi - lo) / kVec;
 
+  if constexpr (kInBias) {
+    for (int j = tid; j < a.cpg; j += nt) coef_t[j] = term_at(term, n, g * a.cpg + j);
+    __syncthreads();
+  }
   float mean, rstd;
   if (kResident) {
     if (kVector) {
@@ -216,11 +253,16 @@ __global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a)
       for (int v = tid; v < nv; v += nt) {
         float f[kVec];
         unpack8(buf4[v], f);
+        if constexpr (kInBias) add_term(f, coef_t[(lo + v * kVec) / a.s]);
 #pragma unroll
         for (int i = 0; i < kVec; ++i) s1[0] += f[i];
       }
     } else {
-      for (int i = tid; i < hi - lo; i += nt) s1[0] += __bfloat162float(buf[i]);
+      for (int i = tid; i < hi - lo; i += nt) {
+        float v = __bfloat162float(buf[i]);
+        if constexpr (kInBias) v += coef_t[(lo + i) / a.s];
+        s1[0] += v;
+      }
     }
     cluster_sum(s1, red, &part[0], bcast, cluster, k);
     mean = s1[0] / (float)a.slab;
@@ -229,6 +271,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a)
       for (int v = tid; v < nv; v += nt) {
         float f[kVec];
         unpack8(buf4[v], f);
+        if constexpr (kInBias) add_term(f, coef_t[(lo + v * kVec) / a.s]);
 #pragma unroll
         for (int i = 0; i < kVec; ++i) {
           const float d = f[i] - mean;
@@ -237,19 +280,23 @@ __global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a)
       }
     } else {
       for (int i = tid; i < hi - lo; i += nt) {
-        const float d = __bfloat162float(buf[i]) - mean;
+        float v = __bfloat162float(buf[i]);
+        if constexpr (kInBias) v += coef_t[(lo + i) / a.s];
+        const float d = v - mean;
         s2[0] = fmaf(d, d, s2[0]);
       }
     }
     cluster_sum(s2, red, &part[1], bcast, cluster, k);
     rstd = rsqrtf(s2[0] / (float)a.slab + a.eps);
   } else {
-    const float x0 = __bfloat162float(x[0]);
+    float x0 = __bfloat162float(x[0]);
+    if constexpr (kInBias) x0 += coef_t[0];
     float s[2] = {0.f, 0.f};
     if (kVector) {
       for (int v = tid; v < nv; v += nt) {
         float f[kVec];
         unpack8(__ldg(reinterpret_cast<const uint4*>(x + lo) + v), f);
+        if constexpr (kInBias) add_term(f, coef_t[(lo + v * kVec) / a.s]);
 #pragma unroll
         for (int i = 0; i < kVec; ++i) {
           const float d = f[i] - x0;
@@ -259,7 +306,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a)
       }
     } else {
       for (int i = lo + tid; i < hi; i += nt) {
-        const float d = __bfloat162float(x[i]) - x0;
+        float v = __bfloat162float(x[i]);
+        if constexpr (kInBias) v += coef_t[i / a.s];
+        const float d = v - x0;
         s[0] += d;
         s[1] = fmaf(d, d, s[1]);
       }
@@ -296,6 +345,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a)
       const int j = e / a.s;  // S % 8 == 0: the vector lies in one channel
       float f[kVec];
       unpack8(kResident ? buf4[v] : __ldg(reinterpret_cast<const uint4*>(x + e)), f);
+      if constexpr (kInBias) add_term(f, coef_t[j]);
       const float w = coef_w[j], b = coef_b[j];
 #pragma unroll
       for (int i = 0; i < kVec; ++i) f[i] = apply(f[i], w, b, a.silu);
@@ -305,7 +355,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2) group_norm_silu_kernel(Args a)
     for (int i = tid; i < hi - lo; i += nt) {
       const int e = kResident ? lo + i : hi - 1 - i;
       const int j = e / a.s;
-      const float v = __bfloat162float(kResident ? buf[i] : x[e]);
+      float v = __bfloat162float(kResident ? buf[i] : x[e]);
+      if constexpr (kInBias) v += coef_t[j];
       out[e] = __float2bfloat16_rn(apply(v, coef_w[j], coef_b[j], a.silu));
     }
   }
@@ -320,9 +371,9 @@ static int sm_count() {
   return sms;
 }
 
-template <bool kResident, bool kVector>
-static int launch(const Args& a, long slabs, int k, int threads, int smem, cudaStream_t stream) {
-  auto kernel = group_norm_silu_kernel<kResident, kVector>;
+template <bool kResident, bool kVector, bool kInBias>
+static int launch(const Args& a, const Term& term, long slabs, int k, int threads, int smem, cudaStream_t stream) {
+  auto kernel = group_norm_silu_kernel<kResident, kVector, kInBias>;
   static int smem_set = 48 * 1024;  // the default limit; raised once a kernel (benign race)
   if (smem > smem_set) {
     const int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -342,7 +393,7 @@ static int launch(const Args& a, long slabs, int k, int threads, int smem, cudaS
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, a);
+  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, a, term);
   return err ? err : (int)cudaGetLastError();
 }
 
@@ -363,7 +414,12 @@ static int launch(const Args& a, long slabs, int k, int threads, int smem, cudaS
 //     tree, then each group's channels by one warp;
 //   - each thread makes its lanes' coefficients (rstd * w * (1 + scale) and
 //     the offset) once, in registers, and the apply is one FMA and the SiLU
-//     a lane, a 16-byte streaming store per 8 channels.
+//     a lane, a 16-byte streaming store per 8 channels;
+//   - the input term (kInBias) costs the loops nothing: a group's shift is
+//     x0 + t of its first channel, and a lane's shift is that less its own
+//     channel's t, so the sums it adds are those of x + t less the group's
+//     shift, and the offset it makes, b - (shift + mean) * w, carries t
+//     into the apply; the loops are those of the kernel without the term.
 // A sample is split by rows over a cluster of k blocks (each step of a
 // block one contiguous run of rows x C elements); the blocks' group sums
 // are added over distributed shared memory (the same float in every
@@ -551,8 +607,8 @@ __device__ __forceinline__ void row_apply(float (&f)[kLanes], const float (&w)[k
 }
 
 // Cluster (sample n) of k blocks, block r rows [r * chunk, ...).
-template <int kLanes>
-__global__ void __launch_bounds__(kRowThreads, 2) group_norm_silu_cl_kernel(RowArgs a) {
+template <int kLanes, bool kInBias>
+__global__ void __launch_bounds__(kRowThreads, 2) group_norm_silu_cl_kernel(RowArgs a, Term term) {
   using V = RowVec<kLanes>;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -571,12 +627,17 @@ __global__ void __launch_bounds__(kRowThreads, 2) group_norm_silu_cl_kernel(RowA
   const long step = a.rows;
   const long first = active ? row : a.chunk;  // the idle threads take no row
 
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) m.shift[g] = __bfloat162float(x[g * a.cpg]);
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    float x0 = __bfloat162float(x[g * a.cpg]);
+    if constexpr (kInBias) x0 += term_at(term, n, g * a.cpg);
+    m.shift[g] = x0;
+  }
   __syncthreads();
   float x0[kLanes], s1[kLanes], s2[kLanes];
 #pragma unroll
   for (int l = 0; l < kLanes; ++l) {
     x0[l] = active ? m.shift[(c0 + l) / a.cpg] : 0.f;
+    if constexpr (kInBias) x0[l] -= active ? term_at(term, n, c0 + l) : 0.f;
     s1[l] = 0.f;
     s2[l] = 0.f;
   }
@@ -628,9 +689,9 @@ __global__ void __launch_bounds__(kRowThreads, 2) group_norm_silu_cl_kernel(RowA
 
 // The largest cluster (16 or 8 blocks) that the card schedules for the
 // kernel's largest block: kRowThreads threads, kRowSmemCap bytes.
-template <int kLanes>
+template <int kLanes, bool kInBias>
 static int row_max_cluster(int* max_k) {
-  auto kernel = group_norm_silu_cl_kernel<kLanes>;
+  auto kernel = group_norm_silu_cl_kernel<kLanes, kInBias>;
   int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kRowSmemCap);
   if (!err) err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err) return err;
@@ -655,8 +716,8 @@ static int row_max_cluster(int* max_k) {
 }
 
 template <typename Kernel>
-static int launch_row_kernel(Kernel kernel, const RowArgs& a, long blocks, int k, int threads, int smem,
-                             cudaStream_t stream) {
+static int launch_row_kernel(Kernel kernel, const RowArgs& a, const Term& term, long blocks, int k, int threads,
+                             int smem, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks, 1, 1);
   cfg.blockDim = dim3((unsigned)threads, 1, 1);
@@ -669,7 +730,7 @@ static int launch_row_kernel(Kernel kernel, const RowArgs& a, long blocks, int k
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, a);
+  const int err = (int)cudaLaunchKernelEx(&cfg, kernel, a, term);
   return err ? err : (int)cudaGetLastError();
 }
 
@@ -678,12 +739,15 @@ static int launch_row_kernel(Kernel kernel, const RowArgs& a, long blocks, int k
 
 // x, out [N, C, S] contiguous bf16; weight, bias [C] fp32; scale, shift
 // [N, C] rows film_stride elements apart (bf16 if film_bf16, else fp32) or
-// both null; C % groups == 0.  two_read forces the two-read mode (the
-// same-run comparison).  Returns the launch's error (0 on success).
+// both null; in_bias the input term, rows of C in_stride elements apart (0:
+// one row for every sample; bf16 if in_bf16, else fp32) or null; C % groups
+// == 0.  two_read forces the two-read mode (the same-run comparison).
+// Returns the launch's error (0 on success).
 extern "C" int mmdiff_group_norm_silu(const void* x, void* out, const void* weight, const void* bias,
                                       const void* scale, const void* shift, long long film_stride,
-                                      int film_bf16, int n, int c, int groups, long long s, float eps,
-                                      int silu, int two_read, void* stream) {
+                                      int film_bf16, const void* in_bias, long long in_stride, int in_bf16,
+                                      int n, int c, int groups, long long s, float eps, int silu, int two_read,
+                                      void* stream) {
   using namespace mmdiff::gn;
   if (n < 1 || c < 1 || groups < 1 || s < 1 || c % groups || (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -691,7 +755,8 @@ extern "C" int mmdiff_group_norm_silu(const void* x, void* out, const void* weig
   if (slab > INT_MAX - kVec || s > INT_MAX) return (int)cudaErrorInvalidValue;
   const bool vec = slab % kVec == 0 && s % kVec == 0 && (reinterpret_cast<uintptr_t>(x) % 16) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) % 16) == 0;
-  const long coef_bytes = (2 * cpg * (long)sizeof(float) + 15) & ~15L;
+  const bool term = in_bias != nullptr;
+  const long coef_bytes = ((term ? 3 : 2) * cpg * (long)sizeof(float) + 15) & ~15L;
   auto chunk_of = [&](int k) { return ((slab + k - 1) / k + kVec - 1) / kVec * kVec; };
   // Blocks a slab: enough that a chunk fits ~96 KB, then more while the
   // slabs are fewer than twice the SMs and the chunks stay large.
@@ -722,12 +787,20 @@ extern "C" int mmdiff_group_norm_silu(const void* x, void* out, const void* weig
   a.chunk = (int)chunk;
   a.eps = eps;
   a.silu = silu;
+  const Term t = {in_bias, (long)in_stride, in_bf16};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (term) {
+    if (resident)
+      return vec ? launch<true, true, true>(a, t, slabs, k, threads, smem, st)
+                 : launch<true, false, true>(a, t, slabs, k, threads, smem, st);
+    return vec ? launch<false, true, true>(a, t, slabs, k, threads, smem, st)
+               : launch<false, false, true>(a, t, slabs, k, threads, smem, st);
+  }
   if (resident)
-    return vec ? launch<true, true>(a, slabs, k, threads, smem, st)
-               : launch<true, false>(a, slabs, k, threads, smem, st);
-  return vec ? launch<false, true>(a, slabs, k, threads, smem, st)
-             : launch<false, false>(a, slabs, k, threads, smem, st);
+    return vec ? launch<true, true, false>(a, t, slabs, k, threads, smem, st)
+               : launch<true, false, false>(a, t, slabs, k, threads, smem, st);
+  return vec ? launch<false, true, false>(a, t, slabs, k, threads, smem, st)
+             : launch<false, false, false>(a, t, slabs, k, threads, smem, st);
 }
 
 // Channels-last: x, out [N, S, C] contiguous bf16 (the memory of a
@@ -737,8 +810,9 @@ extern "C" int mmdiff_group_norm_silu(const void* x, void* out, const void* weig
 // 16-byte aligned).
 extern "C" int mmdiff_group_norm_silu_cl(const void* x, void* out, const void* weight, const void* bias,
                                          const void* scale, const void* shift, long long film_stride,
-                                         int film_bf16, int n, int c, int groups, long long s, float eps,
-                                         int silu, void* stream) {
+                                         int film_bf16, const void* in_bias, long long in_stride, int in_bf16,
+                                         int n, int c, int groups, long long s, float eps, int silu,
+                                         void* stream) {
   using namespace mmdiff::gn;
   if (n < 1 || c < 1 || groups < 1 || s < 1 || c % groups || (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -760,6 +834,7 @@ extern "C" int mmdiff_group_norm_silu_cl(const void* x, void* out, const void* w
   a.s = (long)s;
   a.eps = eps;
   a.silu = silu;
+  const Term t = {in_bias, (long)in_stride, in_bf16};
   // rows x cols threads (~kRowThreads), rounded up to whole warps (the idle
   // ones only join the reductions); the tree's first step.
   a.cols = c / (vec ? kVec : 1);
@@ -773,10 +848,12 @@ extern "C" int mmdiff_group_norm_silu_cl(const void* x, void* out, const void* w
   // schedules, then k blocks a sample, doubled while the blocks stay within
   // one an SM and the chunks large.
   static const long sms = sm_count();  // one query a process
-  static int max_k[2] = {0, 0};
-  int& mk = max_k[vec];
+  static int max_k[2][2] = {{0, 0}, {0, 0}};
+  const bool term = in_bias != nullptr;
+  int& mk = max_k[vec][term];
   if (!mk) {
-    const int err = vec ? row_max_cluster<8>(&mk) : row_max_cluster<1>(&mk);
+    const int err = term ? (vec ? row_max_cluster<8, true>(&mk) : row_max_cluster<1, true>(&mk))
+                         : (vec ? row_max_cluster<8, false>(&mk) : row_max_cluster<1, false>(&mk));
     if (err) {
       mk = 0;
       return err;
@@ -788,6 +865,10 @@ extern "C" int mmdiff_group_norm_silu_cl(const void* x, void* out, const void* w
   a.chunk = (s + k - 1) / k;
   if (smem > kRowSmemCap || (long)n * k > INT_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return vec ? launch_row_kernel(group_norm_silu_cl_kernel<8>, a, (long)n * k, k, threads, (int)smem, st)
-             : launch_row_kernel(group_norm_silu_cl_kernel<1>, a, (long)n * k, k, threads, (int)smem, st);
+  const long blocks = (long)n * k;
+  if (term)
+    return vec ? launch_row_kernel(group_norm_silu_cl_kernel<8, true>, a, t, blocks, k, threads, (int)smem, st)
+               : launch_row_kernel(group_norm_silu_cl_kernel<1, true>, a, t, blocks, k, threads, (int)smem, st);
+  return vec ? launch_row_kernel(group_norm_silu_cl_kernel<8, false>, a, t, blocks, k, threads, (int)smem, st)
+             : launch_row_kernel(group_norm_silu_cl_kernel<1, false>, a, t, blocks, k, threads, (int)smem, st);
 }

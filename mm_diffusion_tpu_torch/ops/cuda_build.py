@@ -39,6 +39,7 @@ SOURCES = (
     "skip_gemm.cu",
     "conv3x3_chw.cu",
     "group_norm_silu.cu",
+    "residual_bias.cu",
 )
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libmmdiff_kernels.so"
@@ -68,8 +69,9 @@ SIGNATURES = {
     "mmdiff_gemm_bf16": [_P, _L, _L, _I] * 2 + [_P, _L, _L, _P, _L, _L] + [_I] * 4 + [_P],
     "mmdiff_conv3x3_chw": [_P] * 3 + [_I] * 5 + [_P],
     "mmdiff_channels_last_halo": [_P] * 2 + [_I] * 5 + [_P],
-    "mmdiff_group_norm_silu": [_P] * 6 + [_L] + [_I] * 4 + [_L, _F, _I, _I, _P],
-    "mmdiff_group_norm_silu_cl": [_P] * 6 + [_L] + [_I] * 4 + [_L, _F, _I, _P],
+    "mmdiff_group_norm_silu": [_P] * 6 + [_L, _I, _P, _L] + [_I] * 4 + [_L, _F, _I, _I, _P],
+    "mmdiff_group_norm_silu_cl": [_P] * 6 + [_L, _I, _P, _L] + [_I] * 4 + [_L, _F, _I, _P],
+    "mmdiff_residual_bias": [_P] * 4 + [_L, _I, _L, _P],
 }
 
 

@@ -1,4 +1,5 @@
-"""GroupNorm + FiLM + SiLU as one pass (mm_diffusion_tpu_torch/ops/group_norm.py).
+"""GroupNorm + FiLM + SiLU as one pass (mm_diffusion_tpu_torch/ops/group_norm.py),
+and the image U-Net ResBlock's residual + bias pass (ops/residual.py).
 
 On the CPU: the plain version against float64 arithmetic written out here,
 and against ``GroupNorm32`` then ``SiLU`` as the models composed them
@@ -8,9 +9,12 @@ tensors select and their counter; the three U-Nets' module trees,
 autograd route (the modules' own code); the kernel's symbol in the
 benchmark's "group norm" kind; the image U-Net's channels-last layout (its
 blocks' inputs and outputs, the nearest upsample, the routes that the
-layout selects, the norm sites of one evaluation).  The kernel itself, in
-both layouts, against the plain version in the ``cuda`` tests, which skip
-without a card."""
+layout selects, the norm sites of one evaluation); the input term (a conv's
+bias, or the time embedding too) in the plain version and on every route;
+the residual pass's plain version, routes and sites.  The kernels
+themselves, the norm in both layouts with and without the input term and
+the residual pass, against their plain versions in the ``cuda`` tests,
+which skip without a card."""
 
 import hashlib
 import math
@@ -30,13 +34,15 @@ from mm_diffusion_tpu_torch.models.image_unet import (
     ImageSuperResModel,
     ImageUNet,
     ImageUNetConfig,
+    _RB,
     build_image_plan,
 )
-from mm_diffusion_tpu_torch.models.layers import GroupNorm32, MMNorm, image_upsample
+from mm_diffusion_tpu_torch.models.layers import GroupNorm32, MMNorm, image_downsample, image_upsample
 from mm_diffusion_tpu_torch.models.transformer import SpatialTransformer
 from mm_diffusion_tpu_torch.models.mm_unet import MMResBlock, MMUNetConfig, MultimodalUNet
 from mm_diffusion_tpu_torch.models.single_unet import SingleModalUNet, SingleResBlock, SingleUNetConfig
 from mm_diffusion_tpu_torch.ops import group_norm as gn
+from mm_diffusion_tpu_torch.ops import residual
 from mm_diffusion_tpu_torch.ops.common import Tolerance
 from mm_diffusion_tpu_torch.weights import randomize_
 
@@ -171,10 +177,207 @@ def test_kernel_symbol_is_a_group_norm_kind():
         for vector in ("true", "false"):
             name = f"void {gn.KERNEL_NAME}<{resident}, {vector}>(mmdiff::gn::Args)"
             assert trace.kind_of(name) == "group norm", name
-    for name in (f"void {gn.CL_KERNEL_NAME}<8>(mmdiff::gn::RowArgs)",  # the channels-last mode's
-                 f"void {gn.CL_KERNEL_NAME}<1>(mmdiff::gn::RowArgs)"):
-        assert trace.kind_of(name) == "group norm", name
+    for lanes in (8, 1):  # the channels-last mode's, without and with the input term
+        for term in ("false", "true"):
+            name = f"void {gn.CL_KERNEL_NAME}<{lanes}, {term}>(mmdiff::gn::RowArgs)"
+            assert trace.kind_of(name) == "group norm", name
+    assert trace.kind_of(f"void {gn.KERNEL_NAME}<true, true, true>(mmdiff::gn::Args)") == "group norm"
     assert "group norm" in trace.MEMORY_PASS_KINDS
+
+
+def test_residual_kernel_symbol_is_an_elementwise_kind():
+    """The residual pass counts where the adds it replaces counted: a
+    memory pass of the benchmark's "elementwise" kind, on either path."""
+    for name in (f"void {residual.KERNEL_NAME}(mmdiff::ew::ResidualArgs)",
+                 f"void {residual.STRIDED_KERNEL_NAME}(mmdiff::ew::StridedArgs)"):
+        assert trace.kind_of(name) == "elementwise", name
+    assert "elementwise" in trace.MEMORY_PASS_KINDS
+
+
+# ---------------------------------------------------------------------------
+# The input term and the residual pass
+# ---------------------------------------------------------------------------
+
+
+def _term(kind, n, c, dtype=torch.float32, seed=15):
+    """A conv's bias ([C]) or the bias with a time embedding added ([N, C])."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((c,) if kind == "channel" else (n, c), generator=g) * 0.7).to(dtype)
+
+
+@pytest.mark.parametrize("layout", ["channels_first", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("film", [False, True], ids=["plain", "film"])
+@pytest.mark.parametrize("kind", ["channel", "sample"])
+def test_plain_version_takes_an_input_term(kind, film, dtype, layout):
+    """``in_bias=t`` is the plain version of ``x + t`` taken in fp32: the
+    same bits, in the input's layout."""
+    x, norm, pair = _inputs((2, 64, 6, 10), film, dtype, seed=16)
+    if layout == "channels_last":
+        x = _rows(x)
+    t = _term(kind, 2, 64)
+    args = (norm.weight, norm.bias, norm.num_groups, norm.eps, pair)
+    with torch.no_grad():
+        out = gn.group_norm_silu_reference(x, *args, in_bias=t)
+        shifted = x.float() + (t if kind == "sample" else t[None]).reshape(-1, 64, 1, 1)
+        ref = gn.group_norm_silu_reference(shifted, *args).to(dtype)
+    assert out.dtype == dtype and torch.equal(out, ref)
+    assert gn.channels_last(out) == (layout == "channels_last")
+    err, ok = (BF16_ONE_ROUNDING if dtype == torch.bfloat16 else Tolerance(1e-5, 1e-5)).check(
+        out, _float64(shifted, norm, pair).float())
+    assert ok, err
+
+
+def test_input_term_on_the_module_routes():
+    """The autograd route adds the term before the module's own norm: the
+    plain route's values, and gradients that reach the term."""
+    x, norm, pair = _inputs((2, 32, 5, 4), True, torch.float32, seed=17)
+    t = _term("sample", 2, 32)
+    gn.reset_launch_counts()
+    with torch.no_grad():
+        plain = gn.group_norm_silu(norm, x, pair, in_bias=t)
+    tg = t.clone().requires_grad_(True)
+    out = gn.group_norm_silu(norm, x, pair, in_bias=tg)
+    assert dict(gn.ROUTES) == {"cpu": 1, "autograd": 1}
+    np.testing.assert_allclose(out.detach().numpy(), plain.numpy(), rtol=1e-6, atol=1e-6)
+    out.square().sum().backward()
+    assert tg.grad is not None and tg.grad.abs().sum() > 0
+
+
+def test_term_rows_as_the_kernel_reads_them():
+    """One row for every sample (stride 0) or one a sample; bf16 kept, other
+    dtypes in fp32, strided rows made contiguous, other shapes refused."""
+    x = torch.empty((3, 16, 4, 4))
+    t, stride, is_bf16 = gn._term_rows(torch.zeros(16), x)
+    assert stride == 0 and not is_bf16 and t.dtype == torch.float32
+    t, stride, is_bf16 = gn._term_rows(torch.zeros((3, 32), dtype=torch.bfloat16)[:, :16], x)
+    assert stride == 32 and is_bf16
+    t, stride, _ = gn._term_rows(torch.zeros((16, 3)).t(), x)
+    assert stride == 16 and t.is_contiguous()
+    assert gn._term_rows(torch.zeros(16, dtype=torch.float64), x)[0].dtype == torch.float32
+    assert gn._term_rows(None, x) == (None, 0, 0)
+    for bad in (torch.zeros(8), torch.zeros((2, 16)), torch.zeros((3, 16, 1))):
+        with pytest.raises(ValueError, match="input term"):
+            gn._term_rows(bad, x)
+
+
+@pytest.mark.parametrize("layout", ["channels_first", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_residual_plain_version(dtype, layout):
+    """``skip + h + b`` in fp32, rounded once; the inputs' layout out."""
+    g = torch.Generator().manual_seed(18)
+    skip, h = (torch.randn((2, 24, 5, 7), generator=g).to(dtype) for _ in range(2))
+    if layout == "channels_last":
+        skip, h = _rows(skip), _rows(h)
+    b = torch.randn(24, generator=g)
+    out = residual.residual_bias_reference(skip, h, b)
+    assert out.dtype == dtype and gn.channels_last(out) == (layout == "channels_last")
+    exact = skip.float() + h.float() + b.reshape(1, 24, 1, 1)
+    if dtype == torch.float32:
+        assert torch.equal(out, exact)
+    else:
+        assert torch.equal(out, exact.to(dtype))
+        err, ok = BF16_ONE_ROUNDING.check(out, skip.double() + h.double() + b.double().reshape(1, 24, 1, 1))
+        assert ok, err
+
+
+def test_residual_routes_follow_the_tensors():
+    """The CPU takes the plain version; off the CPU bf16 CUDA tensors reach
+    the kernel, in any layout, and anything else takes the unfolded adds
+    (here the meta device, where the kernel's wrapper refuses)."""
+    residual.reset_launch_counts()
+    gn.reset_launch_counts()
+    x = torch.randn((2, 16, 4, 4))
+    residual.residual_bias(x, x.clone(), torch.zeros(16), torch.ones(16))
+    meta = torch.empty((2, 16, 4, 4), device="meta", dtype=torch.bfloat16)
+    out = residual.residual_bias(_rows(meta), _rows(meta), torch.zeros(16, device="meta"))
+    assert out.shape == meta.shape and gn.channels_last(out)
+    assert dict(residual.ROUTES) == {"cpu": 1, "eager": 1} and residual.LAUNCHES == {"residual_bias": 0}
+    assert dict(gn.BIAS_FOLDS) == {"residual": 1, "skip": 1, "eager": 1}
+    with pytest.raises(ValueError, match="bf16 CUDA"):
+        residual.residual_bias_cuda(_rows(meta), _rows(meta), torch.zeros(16, device="meta"))
+
+
+@pytest.mark.parametrize("skip_bias", [False, True], ids=["identity_skip", "conv_skip"])
+def test_residual_autograd_route_adds_as_the_convs_did(skip_bias):
+    """With autograd recording, the residual pass makes the convs' bias adds
+    and the residual add, each in the activations' dtype: the bits of the
+    convs run with their biases, and gradients that reach both biases."""
+    g = torch.Generator().manual_seed(19)
+    skip, h = (_rows(torch.randn((2, 16, 5, 3), generator=g)) for _ in range(2))
+    b, bs = (torch.randn(16, generator=g).requires_grad_(True) for _ in range(2))
+    residual.reset_launch_counts()
+    out = residual.residual_bias(skip, h, b, bs if skip_bias else None)
+    unfolded = (skip + bs.reshape(1, 16, 1, 1) if skip_bias else skip) + (h + b.reshape(1, 16, 1, 1))
+    assert torch.equal(out, unfolded) and dict(residual.ROUTES) == {"autograd": 1}
+    out.square().sum().backward()
+    assert b.grad is not None and b.grad.abs().sum() > 0
+    assert (bs.grad is not None) == skip_bias
+
+
+def test_input_terms_in_turn_on_the_autograd_route():
+    """A sequence of terms is added to ``x`` in turn in ``x``'s dtype on the
+    autograd route (as the conv's bias add, then the time embedding's add),
+    and as its fp32 sum, in one read, on the plain route."""
+    x, norm, _ = _inputs((2, 32, 5, 4), False, torch.bfloat16, seed=20)
+    b, e = _term("channel", 2, 32, seed=21), _term("sample", 2, 32, torch.bfloat16, seed=22)
+    gn.reset_launch_counts()
+    with torch.no_grad():
+        plain = gn.group_norm_silu(norm, x, in_bias=(b, e))
+        want = gn.group_norm_silu_reference(x, norm.weight, norm.bias, norm.num_groups, norm.eps,
+                                            in_bias=b + e.float())
+    assert torch.equal(plain, want)
+    xg = x.clone().requires_grad_(True)
+    out = gn.group_norm_silu(norm, xg, in_bias=(b, e))
+    stepped = (x + b.bfloat16().reshape(1, 32, 1, 1)) + e.reshape(2, 32, 1, 1)
+    assert torch.equal(out, F.silu(norm(stepped)))
+    assert dict(gn.ROUTES) == {"cpu": 1, "autograd": 1} and dict(gn.BIAS_FOLDS) == {"norm": 1}
+
+
+RESBLOCK_KINDS = {"same": _RB(32, 32), "conv_skip": _RB(32, 64), "down": _RB(32, 32, down=True),
+                  "up": _RB(32, 32, up=True)}
+
+
+def _resblock(kind, scale_shift, dtype, device="cpu"):
+    """(an image U-Net ResBlock, x, emb), weights random, x channels-last."""
+    cfg = ImageUNetConfig(use_scale_shift_norm=scale_shift, dtype=dtype)
+    block = randomize_(ImageResBlock(RESBLOCK_KINDS[kind], cfg, 48), seed=23).to(device)
+    g = torch.Generator().manual_seed(24)
+    x = _rows(torch.randn((2, 32, 8, 8), generator=g)).to(device, cfg.compute_dtype)
+    return block, x, torch.randn((2, 48), generator=g).to(device, cfg.compute_dtype)
+
+
+def _modules_resblock(block, x, emb):
+    """The ResBlock as its modules compose it, each conv adding its own bias."""
+    if block.up or block.down:
+        resample = image_upsample if block.up else image_downsample
+        h = block.in_layers[2](resample(F.silu(block.in_layers[0](x))))
+        x = resample(x)
+    else:
+        h = block.in_layers(x)
+    emb_out = block.emb_layers(emb)
+    if block.use_scale_shift_norm:
+        h = F.silu(block.out_layers[0](h, film=tuple(emb_out.chunk(2, dim=-1))))
+        h = block.out_layers[3](block.out_layers[2](h))
+    else:
+        h = block.out_layers(h + emb_out[:, :, None, None])
+    return block.skip_connection(x) + h
+
+
+@pytest.mark.parametrize("scale_shift", [True, False], ids=["film", "emb_add"])
+@pytest.mark.parametrize("kind", list(RESBLOCK_KINDS))
+def test_resblock_autograd_route_keeps_the_modules_bits(kind, scale_shift):
+    """With autograd recording, the ResBlock's biases are added where its
+    convs added them: fp32 on the CPU gives the modules' bits, and every
+    parameter a gradient (the bias-free convs' biases included)."""
+    block, x, emb = _resblock(kind, scale_shift, "float32")
+    x.requires_grad_(True)  # as a training step's activations do
+    gn.reset_launch_counts()
+    out = block(x, emb)
+    assert torch.equal(out, _modules_resblock(block, x, emb))
+    assert dict(gn.BIAS_FOLDS) == {"eager": 1}
+    out.square().sum().backward()
+    assert all(p.grad is not None and p.grad.abs().sum() > 0 for p in (x, *block.parameters()))
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +442,32 @@ def test_models_keep_their_tree_and_outputs(name):
     assert not [k for k in sd if "in_layers.1." in k or "out_layers.1." in k]  # the SiLU keeps index 1
     assert any("in_layers.2." in k for k in sd) and any("out_layers.3." in k for k in sd)
 
+    # The image U-Net's ResBlocks fold their conv biases on the plain route:
+    # the same fp32 sums in another order, held within rel 1e-5 (the fold's
+    # contract; tests/test_torch_port_image_unet.py).  Each block's output
+    # on the modules' route is checked against the plain route's, then
+    # replaced by it, so everything around the blocks stays bit for bit.
+    folding = [b for b in blocks if name == "image"]
+    block_outs = []
+    hooks = [b.register_forward_hook(lambda m, i, o: block_outs.append(o)) for b in folding]
     gn.reset_launch_counts()
     with torch.no_grad():
         plain = _outputs(model, args)
+    for hook in hooks:
+        hook.remove()
     assert dict(gn.ROUTES) == {"cpu": norm_silu_sites + heads}
+    plain_block_outs = iter(block_outs)
+
+    def plain_block_out(module, inputs, out):
+        ref = next(plain_block_outs)
+        assert float((out.detach() - ref).norm() / ref.norm()) <= 1e-5
+        return ref
+
+    hooks = [b.register_forward_hook(plain_block_out) for b in folding]
     modules = _outputs(model, args)  # grad mode, parameters require grad: the modules' own code
+    for hook in hooks:
+        hook.remove()
+    assert next(plain_block_outs, None) is None and len(block_outs) == len(folding)
     assert gn.ROUTES["autograd"] == norm_silu_sites + heads
     for a, b in zip(plain, modules):
         assert torch.equal(a, b)
@@ -409,38 +633,40 @@ def test_blocks_see_their_models_layout(name, dtype):
     assert all(torch.isfinite(o).all() and (o.is_contiguous() or not image) for o in outs)
 
 
+def _resblocks(cfg):
+    """(ResBlock spec, side of its input, side of its output) of every
+    ResBlock of the image U-Net ``cfg``, in order, and the side at the end."""
+    encoder, middle, decoder, _ = build_image_plan(cfg)
+    blocks, side = [], cfg.image_size
+    for spec in (s for specs in (*encoder, middle, *decoder) for s in specs):
+        if spec in ("initial", "downsample", "upsample"):
+            side = {"initial": side, "downsample": side // 2, "upsample": side * 2}[spec]
+            continue
+        out = side * 2 if spec.up else side // 2 if spec.down else side
+        blocks.append((spec, side, out))
+        side = out
+    return blocks, side
+
+
 def image_norm_sites(cfg, n):
     """The fused norms of one evaluation of the image U-Net ``cfg`` at batch
     ``n``, walked from its plan: {(shape, groups, FiLM dtype, silu, eps)}.
     Each ResBlock's input norm (no FiLM), its output norm (FiLM with
     ``use_scale_shift_norm``, in the compute dtype), each SpatialTransformer's
     (no SiLU, eps 1e-6), the out head's."""
-    encoder, middle, decoder, out_ch = build_image_plan(cfg)
     film = cfg.dtype if cfg.use_scale_shift_norm else None
     sites = set()
 
     def add(ch, side, film=None, silu=True, eps=1e-5):
         sites.add(((n, ch, side, side), GroupNorm32(ch).num_groups, film, silu, eps))
 
-    def walk(specs, side):
-        for spec in specs:
-            if spec in ("initial", "downsample", "upsample"):
-                side = {"initial": side, "downsample": side // 2, "upsample": side * 2}[spec]
-                continue
-            add(spec.in_ch, side)
-            side = side * 2 if spec.up else side // 2 if spec.down else side
-            add(spec.out_ch, side, film)
-            if spec.attn_heads and cfg.context_dim is not None:
-                add(spec.out_ch, side, silu=False, eps=1e-6)
-        return side
-
-    side = cfg.image_size
-    for specs in encoder:
-        side = walk(specs, side)
-    side = walk(middle, side)
-    for specs in decoder:
-        side = walk(specs, side)
-    add(out_ch, side)
+    blocks, side = _resblocks(cfg)
+    for spec, side_in, side_out in blocks:
+        add(spec.in_ch, side_in)
+        add(spec.out_ch, side_out, film)
+        if spec.attn_heads and cfg.context_dim is not None:
+            add(spec.out_ch, side_out, silu=False, eps=1e-6)
+    add(build_image_plan(cfg)[3], side)
     return sites
 
 
@@ -452,15 +678,41 @@ def test_norm_sites_walked_from_the_plan(name, monkeypatch):
     calls = set()
     real = gn.group_norm_silu_reference
 
-    def recording(x, weight, bias, groups, eps=1e-5, film=None, silu=True):
+    def recording(x, weight, bias, groups, eps=1e-5, film=None, silu=True, in_bias=None):
         assert gn.channels_last(x)
         calls.add((tuple(x.shape), groups, None if film is None else str(film[0].dtype).split(".")[-1], silu, eps))
-        return real(x, weight, bias, groups, eps, film, silu)
+        return real(x, weight, bias, groups, eps, film, silu, in_bias)
 
     monkeypatch.setattr(gn, "group_norm_silu_reference", recording)
     with torch.no_grad():
         model(*args, **kwargs)
     assert calls == image_norm_sites(model.cfg, 2)
+
+
+def image_residual_sites(cfg, n):
+    """The residual passes of one evaluation of the image U-Net ``cfg`` at
+    batch ``n``, walked from its plan: {ResBlock output shape}."""
+    return {(n, spec.out_ch, side, side) for spec, _, side in _resblocks(cfg)[0]}
+
+
+@pytest.mark.parametrize("name", ["sr", "sdxl"])
+def test_residual_sites_walked_from_the_plan(name, monkeypatch):
+    """``image_residual_sites`` (the card tests' shapes) names every
+    residual pass of one CPU evaluation, each on channels-last tensors, with
+    the bias of the second conv (plus the skip conv's)."""
+    model, args, kwargs = LAYOUT_MODELS[name]("bfloat16")
+    calls = set()
+    real = residual.residual_bias_reference
+
+    def recording(skip, h, bias):
+        assert gn.channels_last(skip) and gn.channels_last(h) and bias.shape == (h.shape[1],)
+        calls.add(tuple(h.shape))
+        return real(skip, h, bias)
+
+    monkeypatch.setattr(residual, "residual_bias_reference", recording)
+    with torch.no_grad():
+        model(*args, **kwargs)
+    assert calls == image_residual_sites(model.cfg, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -652,3 +904,153 @@ def test_channels_first_mode_gives_the_pinned_bytes(cuda, shape, film):
     out = gn.group_norm_silu_cuda(x, weight, bias, 32, 1e-5, pair, True)
     digest = hashlib.sha256(out.cpu().view(torch.int16).numpy().tobytes()).hexdigest()[:16]
     assert digest == CF_B8_DIGESTS[(shape, film)]
+
+
+# ---------------------------------------------------------------------------
+# The input term and the residual pass on the card
+# ---------------------------------------------------------------------------
+
+
+def _card_term(cuda, shape, film, seed):
+    """The term the image U-Net passes at a norm site: the first conv's bias
+    [C] where the site takes FiLM (use_scale_shift_norm), else the bias with
+    the time embedding added, [N, C]; fp32 as the ResBlock makes both."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n, c = shape[:2]
+    return 0.5 * torch.randn((c,) if film is not None else (n, c), generator=g, device=cuda)
+
+
+def _check_term(x, norm, pair, silu, t, two_read=False):
+    args = (x, norm.weight, norm.bias, norm.num_groups, norm.eps, pair, silu)
+    out = (gn._group_norm_silu_two_read_cuda if two_read else gn.group_norm_silu_cuda)(*args, in_bias=t)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape and gn.channels_last(out) == gn.channels_last(x)
+    err, ok = gn.GN_TOL.check(out, gn.group_norm_silu_reference(*args, in_bias=t))
+    assert ok and math.isfinite(err), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,shape,groups,film,silu,eps", CARD_SITES, ids=[str(s) for s in CARD_SITES])
+def test_input_term_at_model_sites(cuda, model, shape, groups, film, silu, eps):
+    """The channels-last mode with the input term at every norm shape of one
+    SR and one SDXL evaluation (the term the site's ResBlock would pass)."""
+    x, norm, pair = _card_inputs(cuda, shape, groups, film, eps, seed=24)
+    _check_term(x, norm, pair, silu, _card_term(cuda, shape, film, seed=25))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_read", [False, True], ids=["resident", "two_read"])
+@pytest.mark.parametrize("term", ["channel_fp32", "sample_bf16"])
+@pytest.mark.parametrize("shape,film", KERNEL_CASES, ids=[str(s) for s, _ in KERNEL_CASES])
+def test_input_term_channels_first(cuda, shape, film, term, two_read):
+    """The channels-first mode with the input term: a [C] fp32 row or [N, C]
+    bf16 rows, on the vector and element paths, resident and two reads."""
+    x, norm, _ = _inputs(shape, False, torch.bfloat16)
+    x, norm = x.to(cuda), norm.to(cuda)
+    pair = None
+    if film is not None:
+        pair = tuple((torch.randn((shape[0], 2 * shape[1]), device=cuda) * 0.3).to(film).chunk(2, dim=-1))
+    kind, dtype = term.split("_")
+    t = _term(kind, shape[0], shape[1], getattr(torch, {"fp32": "float32", "bf16": "bfloat16"}[dtype])).to(cuda)
+    _check_term(x, norm, pair, True, t, two_read)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,layout", [((16, 192, 256, 256), "cl"), ((8, 640, 64, 64), "cl"),
+                                          ((8, 128, 16, 64, 64), "cf"), ((2, 64, 7), "cf")], ids=str)
+def test_zero_term_gives_the_same_bytes(cuda, shape, layout):
+    """An all-zero term adds nothing: the kernel's bytes without a term."""
+    x, norm, pair = _card_inputs(cuda, shape, 32, torch.bfloat16, 1e-5, seed=26)
+    if layout == "cf":
+        x = x.contiguous()
+    args = (x, norm.weight, norm.bias, 32, norm.eps, pair, True)
+    gn.reset_launch_counts()
+    bare = gn.group_norm_silu_cuda(*args)
+    for zero in (torch.zeros(shape[1], device=cuda), torch.zeros(shape[:2], device=cuda, dtype=torch.bfloat16)):
+        assert torch.equal(gn.group_norm_silu_cuda(*args, in_bias=zero), bare)
+    assert sum(gn.LAUNCHES.values()) == 3
+
+
+def _residual_card_sites():
+    from mm_diffusion_tpu_torch.scripts import multimodal_sample_sr as cli
+
+    args = cli.create_argparser().parse_args(cli.LAUNCH_SCRIPT_ARGS)
+    sr = configs.create_image_sr_config(**vars(args))
+    sdxl = configs.create_text2img_config(**configs.sdxl_base_flags())
+    return sorted(image_residual_sites(sr, 16)) + sorted(image_residual_sites(sdxl, 8))
+
+
+def _residual_inputs(cuda, shape, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    skip, h = (_rows(torch.randn(shape, generator=g, device=cuda).bfloat16()) for _ in range(2))
+    return skip, h, 0.1 * torch.randn(shape[1], generator=g, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _residual_card_sites(), ids=str)
+def test_residual_kernel_at_model_sites(cuda, shape):
+    """The residual pass at every ResBlock output of one SR and one SDXL
+    evaluation: the plain version's bits (the same fp32 adds, one rounding),
+    written into ``h``, counted."""
+    skip, h, b = _residual_inputs(cuda, shape, seed=27)
+    plain = residual.residual_bias_reference(skip, h, b)
+    residual.reset_launch_counts()
+    out = residual.residual_bias(skip, h, b)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == h.data_ptr() and gn.channels_last(out)
+    assert torch.equal(out, plain)
+    assert dict(residual.ROUTES) == {"kernel": 1} and residual.LAUNCHES == {"residual_bias": 1}
+
+
+@pytest.mark.cuda
+def test_residual_kernel_bandwidth(cuda):
+    """At the SR U-Net's largest residual (16 frames of 256^2 x 192) the pass
+    moves its 6 bytes an element at 80% or more of the H100's 3.35 TB/s."""
+    from mm_diffusion_tpu_torch.utils.timing import device_ms
+
+    skip, h, b = _residual_inputs(cuda, (16, 192, 256, 256), seed=28)
+    ms = device_ms(lambda: residual.residual_bias_cuda(skip, h, b))
+    rate = 6 * h.numel() / (ms * 1e-3)
+    assert rate >= 0.8 * 3.35e12, f"{ms:.4f} ms, {rate / 1e12:.3f} TB/s"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_shift", [True, False], ids=["film", "emb_add"])
+@pytest.mark.parametrize("kind", list(RESBLOCK_KINDS))
+def test_resblock_autograd_route_keeps_the_modules_bits_on_the_card(cuda, kind, scale_shift):
+    """bf16 on the card, autograd recording: cuDNN's conv adds its bias in a
+    pass of its own, so adding it there instead gives the modules' bits."""
+    block, x, emb = _resblock(kind, scale_shift, "bfloat16", cuda)
+    out = block(x, emb)
+    torch.cuda.synchronize()
+    assert torch.equal(out, _modules_resblock(block, x, emb))
+
+
+def _offset_rows(x):
+    """``_rows(x)`` in storage that starts one element past an allocation."""
+    n, c, h, w = x.shape
+    rows = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    return rows.copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,layout", [((2, 12, 9, 7), "cl"), ((2, 8200, 2, 3), "cl"), ((2, 64, 5, 6), "cf"),
+                                          ((3, 24, 11), "cf"), ((2, 64, 6, 6), "offset")], ids=str)
+def test_residual_kernel_strided_path(cuda, shape, layout):
+    """The kernel's strided path: C % 8 != 0, C > 8192, channels-first
+    memory, and views that start off a 16-byte boundary all take the
+    kernel, with the plain version's bits, in ``h``'s layout."""
+    g = torch.Generator(device=cuda).manual_seed(29)
+    skip, h = (torch.randn(shape, generator=g, device=cuda).bfloat16() for _ in range(2))
+    if layout == "cl":
+        skip, h = _rows(skip), _rows(h)
+    elif layout == "offset":  # channels-last views one bf16 element into their storage
+        skip, h = (_offset_rows(t) for t in (skip, h))
+        assert h.data_ptr() % 16 and skip.data_ptr() % 16 and gn.channels_last(h)
+    b = 0.1 * torch.randn(shape[1], generator=g, device=cuda)
+    plain = residual.residual_bias_reference(skip, h, b)
+    residual.reset_launch_counts()
+    out = residual.residual_bias(skip, h, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain) and gn.channels_last(out) == gn.channels_last(h)
+    assert dict(residual.ROUTES) == {"kernel": 1} and residual.LAUNCHES == {"residual_bias": 1}

@@ -2,7 +2,10 @@
 the JAX package's ImageSuperResModel, in both weight directions, at a tiny
 SR config with attention (legacy per-head qkv order, read in place by the
 attention op) and with / without resblock_updown.  Every parameter is
-random and non-zero.  fp32 on the CPU; tolerance rtol 2e-3, atol 2e-4."""
+random and non-zero.  fp32 on the CPU; tolerance rtol 2e-3, atol 2e-4.
+The port runs under ``no_grad`` there, so with its ResBlocks' conv biases
+taken by the norm and the residual pass; that route against the unfolded
+one (autograd recording), SR- and SDXL-style, and ``BIAS_FOLDS``'s counts."""
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +23,15 @@ from torch_port_common import (  # noqa: F401
 from mm_diffusion_tpu.models.image_unet import ImageSuperResModel as JaxSR
 from mm_diffusion_tpu.models.image_unet import ImageUNetConfig as JaxConfig
 from mm_diffusion_tpu.train import torch_import as ti
-from mm_diffusion_tpu_torch.models.image_unet import ImageAttention, ImageSuperResModel, ImageUNetConfig
+from mm_diffusion_tpu_torch.models.image_unet import (
+    ImageAttention,
+    ImageResBlock,
+    ImageSuperResModel,
+    ImageUNet,
+    ImageUNetConfig,
+)
+from mm_diffusion_tpu_torch.models.layers import Conv2d
+from mm_diffusion_tpu_torch.ops import group_norm as gn
 from mm_diffusion_tpu_torch.weights import image_state_dict_from_jax, randomize_
 
 TOL = dict(rtol=2e-3, atol=2e-4)
@@ -102,3 +113,55 @@ def test_state_dict_round_trip_is_bit_exact(updown):
     for k, v in sd.items():
         assert back[k].shape == v.shape, k
         assert np.array_equal(back[k].numpy(), v), k
+
+
+# SDXL-style: no scale-shift norm (the time embedding added to the first
+# conv's output), spatial transformers attending to a context.
+SDXL_STYLE = dict(image_size=16, in_channels=4, model_channels=32, out_channels=4, num_res_blocks=1,
+                  attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=8, context_dim=24,
+                  transformer_depth=(1, 1), dtype="float32")
+FOLD_CASES = ["sr_updown", "sr_conv_resample", "sdxl_style"]
+
+
+def _fold_case(name):
+    """(model, forward args, kwargs) of a tiny fp32 image U-Net, weights random."""
+    g = torch.Generator().manual_seed(9)
+    if name == "sdxl_style":
+        model = randomize_(ImageUNet(ImageUNetConfig(**SDXL_STYLE)), seed=8).eval()
+        return model, (torch.randn((2, 16, 16, 4), generator=g), torch.tensor([999, 431])), dict(
+            context=torch.randn((2, 7, 24), generator=g))
+    cfg = dict(BASE, image_size=32, resblock_updown=name == "sr_updown")
+    model = randomize_(ImageSuperResModel(ImageUNetConfig(**cfg)), seed=8).eval()
+    return model, (torch.randn((2, 32, 32, 3), generator=g), torch.tensor([5, 930]),
+                   torch.randn((2, 8, 8, 3), generator=g)), {}
+
+
+@pytest.mark.parametrize("name", FOLD_CASES)
+def test_folded_biases_match_the_unfolded_blocks(name):
+    """Under ``inference_mode`` the norm and the residual pass fold the
+    ResBlocks' conv biases into their reads; with autograd recording they
+    add them where the convs did.  fp32: the same sums in another order."""
+    model, args, kwargs = _fold_case(name)
+    with torch.inference_mode():
+        folded = model(*args, **kwargs)
+    unfolded = model(*args, **kwargs).detach()
+    assert float(unfolded.abs().max()) > 1e-2
+    assert float((folded - unfolded).norm() / unfolded.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", FOLD_CASES)
+def test_bias_folds_count_the_blocks(name):
+    """One evaluation counts every ResBlock's first conv ("norm"), second conv
+    ("residual") and skip conv ("skip") when nothing records, and every
+    ResBlock as "eager" alone under autograd, backward included."""
+    model, args, kwargs = _fold_case(name)
+    blocks = [m for m in model.modules() if isinstance(m, ImageResBlock)]
+    skips = sum(isinstance(b.skip_connection, Conv2d) for b in blocks)
+    assert blocks and 0 < skips < len(blocks)
+    gn.reset_launch_counts()
+    with torch.no_grad():
+        model(*args, **kwargs)
+    assert dict(gn.BIAS_FOLDS) == {"norm": len(blocks), "residual": len(blocks), "skip": skips}
+    gn.reset_launch_counts()
+    model(*args, **kwargs).square().mean().backward()
+    assert dict(gn.BIAS_FOLDS) == {"eager": len(blocks)}
