@@ -249,6 +249,22 @@ SELF_EXTRA_SHAPES = [  # (label, N, T, C, heads, layout)
     ("head dim 136", 4, 256, 544, 4, "thirds"),
     ("head dim 200", 4, 100, 400, 2, "per_head"),
 ]
+# K1 at sequence lengths whose T x T logits do not fit the plain version
+# whole (phase 3; checked on SELF_ROWS_CHECKED query rows drawn from every
+# 64-row tile position, the ragged last tile included, and timed with its
+# bound; not in the sums): Wan2.1-T2V-1.3B's self-attention in the
+# benchmark's text-to-video cell, 2 rows an evaluation (an 832x480x81 clip
+# with guidance), 32,760 tokens (not a multiple of 64), 12 heads of 128.
+# The first SELF_ROWS_PLANTED keys of every sequence are planted to hold
+# about half of each query's softmax mass (planted_qkv), so that a ragged
+# last key tile that let the next sequence's first keys in would move the
+# logsumexp by O(1); the plain version with those keys let in is the
+# planted control, which the same check must refuse.
+SELF_ROWS_SHAPES = [  # (label, N, T, C, heads, layout)
+    ("wan 480p81", 2, 32760, 1536, 12, "thirds"),
+]
+SELF_ROWS_CHECKED = 384
+SELF_ROWS_PLANTED = 8
 # Extra banded cases of phases 3 and 3b (batch 1 and 2; checked and timed,
 # not in the sums): head dims 12, 36, 136 and 200, as above.
 BANDED_EXTRA_SHAPES = [  # (label, F, Tq, Tk, C, heads, lw)
@@ -547,6 +563,27 @@ def kernel_parity():
         if main:
             record("self_attention", max(err, lse_err), ms, plain_ms, bound, lib_ms)
 
+    for label, n, t, c, h, layout in SELF_ROWS_SHAPES:
+        qkv = planted_qkv(n, t, c, h, layout, g)
+        (out, lse), ran = routed_call("self_attention", c // h, lambda: ba.self_attention_cuda(qkv, h, layout))
+        rows = self_check_rows(t, SELF_ROWS_CHECKED, g)
+        ref = self_attention_rows(qkv, h, layout, rows)
+        err, lse_err, ok = self_rows_check((out[:, rows], lse[:, :, rows]), ref)
+        check(ok, f"self_attention {label}: err {err}, lse {lse_err} on {rows.numel()} query rows")
+        leak = -t % ba.TILE_ROWS
+        check(n > 1 and leak > 0, f"self_attention {label}: no ragged key tile with a next sequence to leak")
+        c_err, c_lse_err, c_ok = self_rows_check(self_attention_rows(qkv, h, layout, rows, leak), ref)
+        check(not c_ok, f"self_attention {label}: the control with {leak} leaked keys passed "
+                        f"(err {c_err}, lse {c_lse_err})")
+        ms = time_ms(lambda: ba.self_attention_cuda(qkv, h, layout))
+        bound = bound_ms(*self_attention_work(n, t, c, h))
+        print(f"self_attention {label:18s} N={n:5d} T={t:5d} C={c:4d} H={h:2d} {layout:8s} "
+              f"err={err:.3e} lse_err={lse_err:.3e} on {rows.numel()} query rows of each sequence, "
+              f"{SELF_ROWS_PLANTED} planted keys; control with {leak} keys of the next sequence let in: "
+              f"err={c_err:.3e} lse_err={c_lse_err:.3e} (refused); "
+              f"kernel={ms:.4f} ms bound={bound[0]:.4f} ms ({bound[1]}) [long case, not summed; {ran}]")
+        del qkv, out, lse, ref
+
     for label, f, tq, tk, c, h, lw in BANDED_SHAPES + BANDED_EXTRA_SHAPES:
         main = (label, f, tq, tk, c, h, lw) in BANDED_SHAPES
         d = c // h
@@ -594,6 +631,78 @@ def self_forward_check(qkv, h, layout, out, lse):
     q, k, _ = ba.split_packed_qkv(qkv.float(), h, layout)
     lse_ref = torch.logsumexp(torch.einsum("nqhd,nkhd->nhqk", q, k) / q.shape[-1] ** 0.5, dim=-1)
     (err, ok), (lse_err, lse_ok) = ba.FORWARD_TOL.check(out, ref), ba.LSE_TOL.check(lse, lse_ref)
+    return err, lse_err, ok and lse_ok
+
+
+def self_check_rows(t, count, g):
+    """``count`` query rows of ``range(t)``: each 64-row tile position once
+    over the tiles, the last tile's rows (ragged where ``t % 64``) all, the
+    rest drawn from ``g``."""
+    import torch
+
+    tile = 64
+    last = torch.arange((t - 1) // tile * tile, t)
+    spread = (torch.arange(tile) + tile * torch.arange(tile) * max(1, t // tile // tile)) % t
+    rest = torch.randint(0, t, (max(0, count - last.numel() - tile),), generator=g, device=g.device).cpu()
+    return torch.unique(torch.cat([last, spread, rest]))
+
+
+def planted_qkv(n, t, c, h, layout, g):
+    """bf16 ``[n, t, 3c]`` N(0, 1) projections on the card, but for one
+    unit direction ``u`` per head (from ``g``): every query gets ``8 u``
+    added, and each sequence's first :data:`SELF_ROWS_PLANTED` keys are
+    ``12.7 u``, so their logits are ``12.7 (8 + z) / sqrt(d)``, z ~ N(0, 1)
+    (about 9 at d = 128), and at T = 32,760 they hold about half of each
+    query's softmax mass.  Letting in the next sequence's planted keys
+    then moves a logsumexp by about log 1.5, where the limit is ~2e-3."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    dev = g.device
+    qkv = torch.randn((n, t, 3 * c), generator=g, device=dev, dtype=torch.bfloat16)
+    q, k, _ = ba.split_packed_qkv(qkv, h, layout)
+    u = torch.randn((h, c // h), generator=g, device=dev)
+    u = u / u.norm(dim=-1, keepdim=True)
+    q.copy_(q.float() + 8.0 * u)
+    k[:, :SELF_ROWS_PLANTED] = (12.7 * u).to(qkv.dtype)
+    return qkv
+
+
+def self_attention_rows(qkv, h, layout, rows, leak=0):
+    """The plain version on the query ``rows`` of every sequence, against
+    all its keys: ``(out [N, R, C], lse [N, H, R])``, fp32.  ``leak`` > 0
+    is the planted fault: each sequence but the last also attends to the
+    next sequence's first ``leak`` keys, as a ragged last key tile would
+    read them unmasked."""
+    import torch
+
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    rows = rows.to(qkv.device)
+    q, k, v = ba.split_packed_qkv(qkv, h, layout)
+    q, k, v = q[:, rows].float(), k.float(), v.float()
+    if leak:
+        pad = torch.zeros_like(k[:1, :leak])
+        k = torch.cat([k, torch.cat([k[1:, :leak], pad])], dim=1)
+        v = torch.cat([v, torch.cat([v[1:, :leak], pad])], dim=1)
+        mask = torch.zeros(k.shape[0], k.shape[1], device=k.device)
+        mask[-1, -leak:] = -float("inf")  # the last sequence has no next one
+        logits = torch.einsum("nqhd,nkhd->nhqk", q, k) / q.shape[-1] ** 0.5 + mask[:, None, None]
+    else:
+        logits = torch.einsum("nqhd,nkhd->nhqk", q, k) / q.shape[-1] ** 0.5
+    out = torch.einsum("nhqk,nkhd->nqhd", torch.softmax(logits, dim=-1), v).flatten(2)
+    return out, torch.logsumexp(logits, dim=-1)
+
+
+def self_rows_check(got, ref):
+    """(max |out error|, max |lse error|, both within the forward limits)
+    of ``got = (out, lse)`` on the checked rows against the plain version's
+    ``ref`` (:func:`self_attention_rows`)."""
+    from mm_diffusion_tpu_torch.ops import block_attention as ba
+
+    (out, lse), (ref_out, ref_lse) = got, ref
+    (err, ok), (lse_err, lse_ok) = ba.FORWARD_TOL.check(out, ref_out.to(out.dtype)), ba.LSE_TOL.check(lse, ref_lse)
     return err, lse_err, ok and lse_ok
 
 

@@ -357,6 +357,36 @@ def create_text2img_config(
     )
 
 
+# -- text-to-video model (Wan 2.1) ----------------------------------------------
+
+
+def wan_t2v_1_3b_flags() -> Dict[str, Any]:
+    """Wan2.1-T2V-1.3B under Wan's names (its ``config.json`` and
+    ``wan/configs/wan_t2v_1_3B.py``; 1.42 B parameters, 30 blocks), with
+    bf16 compute."""
+    return dict(dim=1536, eps=1e-6, ffn_dim=8960, freq_dim=256, in_dim=16, model_type="t2v", num_heads=12,
+                num_layers=30, out_dim=16, text_len=512, text_dim=4096, patch_size="1,2,2",
+                window_size="-1,-1", qk_norm=True, cross_attn_norm=True, dtype="bfloat16")
+
+
+def create_text2video_config(*, dim, ffn_dim, freq_dim, num_heads, num_layers, in_dim, out_dim, text_len,
+                             text_dim, patch_size, eps, model_type="t2v", window_size="-1,-1", qk_norm=True,
+                             cross_attn_norm=True, dtype="bfloat16", **_unused):
+    """The text-to-video transformer's config from Wan's ``WanModel``
+    arguments (:func:`wan_t2v_1_3b_flags`).  Only what T2V-1.3B uses is
+    built: full attention (``window_size`` -1, -1), the q / k RMSNorms and
+    the cross-attention LayerNorm."""
+    from .models.wan import WanConfig
+
+    if model_type != "t2v":
+        raise NotImplementedError(f"Wan model_type {model_type!r}: only 't2v' is built")
+    if _ints(window_size) != (-1, -1) or not qk_norm or not cross_attn_norm:
+        raise NotImplementedError("windowed attention, or Wan without its q / k or cross-attention norms")
+    return WanConfig(dim=int(dim), ffn_dim=int(ffn_dim), freq_dim=int(freq_dim), num_heads=int(num_heads),
+                     num_layers=int(num_layers), in_dim=int(in_dim), out_dim=int(out_dim), text_len=int(text_len),
+                     text_dim=int(text_dim), patch_size=_ints(patch_size), eps=float(eps), dtype=dtype)
+
+
 # -- argparse helpers ------------------------------------------------------------
 
 

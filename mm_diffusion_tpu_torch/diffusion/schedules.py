@@ -3,6 +3,9 @@ of ``mm_diffusion_tpu/diffusion/schedules.py``).
 
 Tables are computed once on the host in float64 numpy and stored as
 float32 tensors; respacing is a precomputed ``timestep_map`` gather.
+
+Also the step grid of the flow-matching (rectified-flow) sampler of Wan 2.1,
+which the JAX package does not have: :func:`flow_sigmas`.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ __all__ = [
     "ScheduleTables",
     "make_schedule",
     "tables_from_betas",
+    "flow_sigmas",
 ]
 
 
@@ -185,3 +189,20 @@ def tables_from_betas(betas, timestep_map=None, original_num_steps=None) -> Sche
         num_timesteps=int(n),
         original_num_steps=int(original_num_steps if original_num_steps is not None else n),
     )
+
+
+# -- flow matching (Wan 2.1) ---------------------------------------------------
+
+
+FLOW_TRAIN_STEPS = 1000
+FLOW_SIGMA_MAX, FLOW_SIGMA_MIN = 0.999, 0.001  # Wan's noise levels for 1000 training steps
+
+
+def flow_sigmas(steps: int, shift: float) -> np.ndarray:
+    """The ``steps + 1`` noise levels of a flow-matching sampler, float64:
+    ``linspace(FLOW_SIGMA_MAX, FLOW_SIGMA_MIN, steps + 1)[:-1]``, each
+    shifted by Wan's ``s sigma / (1 + (s - 1) sigma)`` (more of the steps
+    at high noise for ``s > 1``), then 0 (the step that returns the data
+    prediction)."""
+    sigmas = np.linspace(FLOW_SIGMA_MAX, FLOW_SIGMA_MIN, steps + 1, dtype=np.float64)[:-1]
+    return np.append(shift * sigmas / (1.0 + (shift - 1.0) * sigmas), 0.0)

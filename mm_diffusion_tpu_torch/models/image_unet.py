@@ -53,6 +53,7 @@ from ..ops.group_norm import channels_last
 from ..ops.residual import residual_bias
 from .attention import TokenSelfAttention
 from .layers import (
+    DTYPES,
     Conv2d,
     GroupNorm32,
     Linear,
@@ -64,7 +65,7 @@ from .layers import (
     timestep_embedding,
     zero_module,
 )
-from .mm_unet import DTYPES, remat_min_tokens
+from .mm_unet import remat_min_tokens
 from .transformer import SpatialTransformer
 
 

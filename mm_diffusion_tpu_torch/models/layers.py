@@ -35,6 +35,8 @@ from ..ops.group_norm import channels_last, group_norm_silu
 
 Film = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # a config's compute dtype by name
+
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0):
     """Sinusoidal embeddings in ``[cos | sin]`` order, fp32; accepts

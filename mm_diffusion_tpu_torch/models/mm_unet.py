@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import RSMMACrossAttention, TokenSelfAttention, factorized_video_attention
 from .layers import (
+    DTYPES,
     AudioConv,
     Linear,
     MMNorm,
@@ -31,8 +32,6 @@ from .layers import (
     video_upsample,
     zero_module,
 )
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 Shift = Union[None, int, torch.Generator]
 

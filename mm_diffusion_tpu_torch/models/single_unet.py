@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import TokenSelfAttention, factorized_video_attention
 from .layers import (
+    DTYPES,
     AudioConv,
     Linear,
     MMNorm,
@@ -39,7 +40,7 @@ from .layers import (
     video_upsample,
     zero_module,
 )
-from .mm_unet import DTYPES, MAX_DILATION_EXP, remat_min_tokens
+from .mm_unet import MAX_DILATION_EXP, remat_min_tokens
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,6 +11,7 @@ from .ancestral import (
 )
 from .dpm import (
     DPMSolver,
+    NoiseScheduleFlow,
     NoiseScheduleVP,
     model_input_time,
     noise_schedule_from_diffusion,
@@ -19,6 +20,7 @@ from .dpm import (
 
 __all__ = [
     "DPMSolver",
+    "NoiseScheduleFlow",
     "NoiseScheduleVP",
     "conditional_gradient_step",
     "conditional_p_sample_loop",

@@ -3,7 +3,9 @@
 (linear, cosine) VP schedules, the model wrapper with classifier and
 classifier-free guidance, singlestep and multistep solvers of order 1-3 in
 the ``dpm_solver`` and ``taylor`` forms, the adaptive solver, and dynamic
-thresholding.
+thresholding.  Beside the VP schedules, the flow-matching schedule of Wan
+2.1 (:class:`NoiseScheduleFlow`, which the JAX package does not have):
+its model predicts a velocity, which :func:`wrap_model` turns into noise.
 
 Step times and solver coefficients are float32 scalars on the host (0-dim
 CPU tensors, computed with the JAX package's float32 formulas so that the
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..diffusion.gaussian import tree_leaves, tree_map
+from ..diffusion.schedules import FLOW_SIGMA_MAX, FLOW_TRAIN_STEPS, flow_sigmas
 
 State = Any
 
@@ -134,10 +137,50 @@ class NoiseScheduleVP:
         return interp(log_alpha, self.log_alpha_array.flip(0), self.t_array.flip(0))
 
 
+class NoiseScheduleFlow:
+    """The flow-matching (rectified-flow) schedule ``x_t = (1 - sigma) x_0 +
+    sigma eps`` in the time ``t = sigma``: ``alpha_t = 1 - t``, ``sigma_t =
+    t``, ``lambda_t = log((1 - t) / t)``.  Its step grid
+    (:meth:`time_steps`, the solver's only grid on this schedule) shifts as Wan does:
+    ``steps`` noise levels from 0.999 down, each shifted by ``shift``, then
+    0, where the update returns the data prediction.  Its model predicts
+    the velocity (:func:`wrap_model`), at the input time ``total_N * t``."""
+
+    schedule = "flow"
+    total_N = FLOW_TRAIN_STEPS
+    T = FLOW_SIGMA_MAX
+
+    def __init__(self, shift: float = 1.0):
+        self.shift = shift
+
+    def marginal_log_mean_coeff(self, t):
+        return torch.log1p(-_f32(t))
+
+    def marginal_alpha(self, t):
+        return 1.0 - _f32(t)
+
+    def marginal_std(self, t):
+        return _f32(t)
+
+    def marginal_lambda(self, t):
+        t = _f32(t)
+        return torch.log1p(-t) - torch.log(t)
+
+    def inverse_lambda(self, lamb):
+        return torch.sigmoid(-_f32(lamb))
+
+    def time_steps(self, steps: int) -> torch.Tensor:
+        """The ``steps + 1`` step times, float32 (``diffusion/schedules.py::flow_sigmas``)."""
+        return _f32(flow_sigmas(steps, self.shift))
+
+
 def model_input_time(ns: NoiseScheduleVP, t_continuous: torch.Tensor, rescale: bool = False):
     """Continuous t in [1/N, 1] -> the model's input time: the integer
     timestep (truncated; scaled to 1000 steps with ``rescale``) on a
-    discrete schedule, t itself on a continuous one."""
+    discrete schedule, ``total_N * t`` on the flow schedule, t itself on a
+    continuous one."""
+    if ns.schedule == "flow":
+        return t_continuous * float(ns.total_N)
     if ns.schedule != "discrete":
         return t_continuous
     max_step = 1000.0 if rescale else float(ns.total_N)
@@ -168,7 +211,11 @@ def wrap_model(
     ``guidance_type``: ``"uncond"``; ``"classifier"``, eps - scale *
     sigma_t * grad_x sum(classifier_fn(x, t_input, condition)) (the
     gradient by ``torch.autograd.grad``); or ``"classifier-free"``, uncond
-    + scale * (cond - uncond) from one call on the doubled batch."""
+    + scale * (cond - uncond) from one call on the doubled batch.
+    On the flow schedule (:class:`NoiseScheduleFlow`) the model predicts
+    the velocity ``v = eps - x_0``: guidance applies to ``v``, then ``eps =
+    x_t + (1 - sigma_t) v`` (so that ``x_0 = x_t - sigma_t v``); the map is
+    linear, so guiding ``v`` is guiding ``x_0``."""
 
     def batch_t(x, t_continuous):
         b = tree_leaves(x)[0].shape[0]
@@ -222,6 +269,13 @@ def wrap_model(
 
     else:
         raise ValueError(f"guidance_type {guidance_type!r} not in ('uncond', 'classifier', 'classifier-free')")
+    if ns.schedule == "flow":
+        velocity_fn = model_fn
+
+        def model_fn(x, t_continuous):
+            alpha_t = float(ns.marginal_alpha(t_continuous))  # a host scalar: no wait on the device
+            return tree_map(lambda xs, v: torch.add(xs, v, alpha=alpha_t), x, velocity_fn(x, t_continuous))
+
     return model_fn
 
 
@@ -271,6 +325,8 @@ class DPMSolver:
         return self.data_prediction_fn(x, t) if self.predict_x0 else self.noise_prediction_fn(x, t)
 
     def get_time_steps(self, skip_type: str, t_T: float, t_0: float, n: int) -> torch.Tensor:
+        if self.ns.schedule == "flow":  # the schedule's own grid, whatever the skip type and ends
+            return self.ns.time_steps(n)
         if skip_type == "logSNR":
             lam = linspace(self.ns.marginal_lambda(t_T), self.ns.marginal_lambda(t_0), n + 1)
             return self.ns.inverse_lambda(lam)
@@ -607,7 +663,10 @@ class DPMSolver:
         """Solve from ``t_start`` (default T) to ``t_end`` (default 1/N):
         ``method`` "singlestep", "singlestep_fixed" (``steps // order``
         steps of ``order``), "multistep" or "adaptive"; ``denoise`` ends
-        with one x0 prediction at ``t_end``."""
+        with one x0 prediction at ``t_end``.  On the flow schedule the grid
+        is its own (:meth:`NoiseScheduleFlow.time_steps`) and the last
+        multistep update, to time 0, is first-order: it returns the last
+        data prediction."""
         if solver_type not in SOLVER_TYPES:
             raise ValueError(f"solver_type {solver_type!r} not in {SOLVER_TYPES}")
         t_0 = 1.0 / self.ns.total_N if t_end is None else t_end
@@ -625,7 +684,8 @@ class DPMSolver:
                 model_hist.append(self.model_fn(x, ts[init_order]))
                 t_hist.append(ts[init_order])
             for step in range(order, steps + 1):
-                x = self.multistep_update(x, model_hist, t_hist, ts[step], order, solver_type)
+                step_order = 1 if self.ns.schedule == "flow" and step == steps else order
+                x = self.multistep_update(x, model_hist, t_hist, ts[step], step_order, solver_type)
                 t_hist = t_hist[1:] + [ts[step]]
                 if step < steps:
                     model_hist = model_hist[1:] + [self.model_fn(x, ts[step])]
@@ -659,6 +719,7 @@ def noise_schedule_from_diffusion(diffusion) -> NoiseScheduleVP:
 
 __all__ = [
     "DPMSolver",
+    "NoiseScheduleFlow",
     "NoiseScheduleVP",
     "interp",
     "linspace",

@@ -3,13 +3,14 @@ conditional (audio->video, video->audio) sampler, the 64->256 frame
 super-resolution sampler, the single-modal (video or audio) sampler, and
 the chain of base and SR (counterpart of
 ``mm_diffusion_tpu/sampling.py``); and the text-to-image latent sampler of
-Stable Diffusion XL's U-Net, which the JAX package does not have.
+Stable Diffusion XL's U-Net and the text-to-video latent sampler of Wan
+2.1, which the JAX package does not have.
 
 Randomness is explicit: a device ``torch.Generator`` for the noise, and a
 CPU generator from which the MM-UNet draws each RS-MMA window shift on the
 host, so no draw waits on the device.
 
-Each call of a base, SR or text-to-image sampler is span ``sample.call``
+Each call of a base, SR, text-to-image or text-to-video sampler is span ``sample.call``
 and each model evaluation in it span ``sample.nfe`` (``utils/tracing.py``;
 off by default).
 """
@@ -26,6 +27,7 @@ from .diffusion.gaussian import GaussianDiffusion, tree_map
 from .parallel.mesh import rank_rows
 from .samplers import (
     DPMSolver,
+    NoiseScheduleFlow,
     conditional_p_sample_loop,
     ddim_sample_loop,
     model_input_time,
@@ -284,6 +286,38 @@ def build_text2img_sampler(model, diffusion: GaussianDiffusion, steps: int = 20,
                                 condition=cond, unconditional_condition=uncond)
             solver = DPMSolver(guided, ns, predict_x0=True, thresholding=False)
             return solver.sample(x, steps=steps, order=2, method="multistep", skip_type="time_uniform")
+
+    return sample
+
+
+def build_text2video_sampler(model, steps: int = 50, shift: float = 5.0, guidance_scale: float = 5.0):
+    """Text-to-video latent sampler of Wan 2.1's transformer
+    (``models.wan.WanModel``): DPM-Solver++ (``predict_x0``, no
+    thresholding), multistep order 2 over the flow-matching schedule
+    (``NoiseScheduleFlow``: ``steps`` noise levels from 0.999, each shifted
+    by ``shift``, then a first-order last step to 0 that returns the data
+    prediction), the update of Wan's ``FlowDPMSolverMultistepScheduler``
+    with ``dpmsolver++``; the model predicts the velocity at the model time
+    1000 sigma; classifier-free guidance at ``guidance_scale`` on the
+    velocity through ``wrap_model``, each evaluation one call on the doubled
+    batch ``[uncond; cond]``.
+
+    Returns ``sample(cond, uncond, x_T) -> [n, out_dim, F, H, W]``
+    latents from ``x_T [n, in_dim, F, H, W]``, ``cond`` and ``uncond``
+    holding ``"context"`` ``[n, text_len, text_dim]``."""
+    ns = NoiseScheduleFlow(shift=shift)
+
+    def raw(x, t_model, cond):
+        with tracing.span("sample.nfe"):
+            return model(x, t_model, context=cond["context"])
+
+    @torch.inference_mode()
+    def sample(cond, uncond, x_T):
+        with tracing.span("sample.call", next(_CALLS)):
+            guided = wrap_model(raw, ns, guidance_type="classifier-free", guidance_scale=guidance_scale,
+                                condition=cond, unconditional_condition=uncond)
+            solver = DPMSolver(guided, ns, predict_x0=True, thresholding=False)
+            return solver.sample(x_T, steps=steps, order=2, method="multistep")
 
     return sample
 

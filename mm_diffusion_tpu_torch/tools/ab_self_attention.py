@@ -86,7 +86,7 @@ TRAIN_BANDED_SHAPES = [  # (label, N, F, Tq, Tk, C, heads, lw)
     ("middle audio->video", 4, 16, 25, 64, 512, 8, 16),
 ]
 # The flash MHA kernels' (K8) hot shapes, those of ops/fused_attention.py's
-# docstring and SDXL's cross-attention.  (label, B, H, Tq, Tk, D, layout);
+# docstring and SDXL's and Wan's cross-attention.  (label, B, H, Tq, Tk, D, layout);
 # B = batch * frames.
 FLASH_SHAPES = [
     ("self", 128, 4, 1024, 1024, 64, "bhtd"),
@@ -95,6 +95,9 @@ FLASH_SHAPES = [
     # SDXL's cross-attention to the 77-token text context, 8 rows.
     ("sdxl 64x64 cross", 8, 10, 4096, 77, 64, "bthd"),
     ("sdxl 32x32 cross", 8, 20, 1024, 77, 64, "bthd"),
+    # Wan2.1-T2V-1.3B's cross-attention: 32,760 video tokens (an 832x480x81
+    # clip) against the 512-token text context, 12 heads of 128, 2 rows.
+    ("wan cross", 2, 12, 32760, 512, 128, "bthd"),
 ]
 
 
